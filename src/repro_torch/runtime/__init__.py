@@ -1,0 +1,9 @@
+from repro_torch.runtime.errors import (  # noqa: F401
+    FALLBACK_LEVELS, ExecutionReport, FaultInjector, LaunchError,
+    NonFiniteStateError, PlanInvariantError, PlanRejected, QueueFull,
+    RequestTimeout, ServingFault, not_ported)
+from repro_torch.runtime.ft import StragglerWatchdog  # noqa: F401
+from repro_torch.runtime.obs import (  # noqa: F401
+    LAUNCH_COSTS_PATH, Counter, Histogram, LaunchCostTable, MetricsRegistry,
+    NULL_TRACER, NullTracer, Span, Tracer, as_tracer, fence, measure_us,
+    measure_samples, monotonic_s, slot_signature)

@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "chaos: fault-injection suite (guarded ladder, quarantine, "
         "deadlines) — run via `make chaos` or `-m chaos`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "without one — run on the card with `-m cuda`")
 
 
 @pytest.fixture(scope="session")
