@@ -6,23 +6,38 @@ GPU and check it.
 
 Phases, one line (or a few) of output each:
 
-  1 card     the card's name and power limit (nvidia-smi), torch and CUDA
-  2 build    nvcc builds both kernels from src/repro_torch/csrc (sm_90a)
-  3 kernels  each CUDA kernel against its plain PyTorch version on the
-             card, at the main path's shapes; median times (CUDA events)
-             of the kernel, the plain version and one cuDNN nn.LSTM call
-  4 serve    RecurrentServingEngine serves the paper's BYSDNE LSTM (L=5,
-             H=X=340, bf16 weights from a seeded torch.Generator): 6
-             requests in two admission waves, then decode ticks; every
-             launch must be a kernel launch, one lstm_decode per tick, no
-             degraded launch; outputs held against a device="cpu" engine
-  5 forward  rnn.compile(EESEN).forward (bidirectional, L=5, H=340, fp32)
-             at B=4, T=300; launches == plan.launches; output held against
-             the CPU path; then, outside the counted run, the guarded
-             ladder on the card: an injected fused fault recovers through
-             per-step kernel launches, one past per-step raises
-  6 summary  one JSON line {"kernels": [...]} with each kernel's launches,
-             max error, times and bound
+  1 card       the card's name and power limit (nvidia-smi), torch and
+               CUDA
+  2 build      nvcc builds all five kernels from src/repro_torch/csrc
+               (sm_90a), one process per source, all started together
+  3 kernels    each CUDA kernel against its plain PyTorch version on the
+               card, at the main path's shapes; median times (CUDA events)
+               of the kernel, the plain version and one PyTorch library
+               call (cuDNN nn.LSTM / nn.GRU / nn.LSTMCell) as a yardstick
+  4 serve      RecurrentServingEngine serves the paper's BYSDNE LSTM (L=5,
+               H=X=340, bf16 weights from a seeded torch.Generator): 6
+               requests in two admission waves, then decode ticks; every
+               launch must be a kernel launch, one lstm_decode per tick,
+               no degraded launch; outputs held against a device="cpu"
+               engine
+  5 forward    rnn.compile(EESEN).forward (bidirectional, L=5, H=340,
+               fp32) at B=4, T=300; launches == plan.launches; output held
+               against the CPU path; then, outside the counted run, the
+               guarded ladder on the card: an injected fused fault
+               recovers through per-step kernel launches, one past
+               per-step raises
+  6 serve_gru  the same 6 requests through BYSDNE as a GRU
+               (rnn_family="gru", bf16 weights): gru_seq + gru_decode
+               launches == the plans' launches, one gru_decode per tick,
+               no degraded launch; outputs held against the CPU engine
+  7 offpath    off the packed timeline: the per_step BYSDNE LSTM forward
+               (B=4, T=30: 150 lstm_cell launches == plan.launches); a
+               mixed lstm/gru/lstm/gru stack at H=340 (forward, then one
+               decode tick resumed from its prefill state: 4 launches);
+               the "unfolded" research schedule (plain PyTorch, zero
+               kernel launches); each held against the CPU path
+  8 summary    one JSON line {"kernels": [...]} with each kernel's
+               launches, max error, times and bound
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  The script imports nothing of JAX and nothing of the
@@ -40,7 +55,16 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-PHASES = ("card", "build", "kernels", "serve", "forward", "summary")
+PHASES = ("card", "build", "kernels", "serve", "forward", "serve_gru",
+          "offpath", "summary")
+#: kernel -> (ctx key of its measurements, the TPU kernel it replaces)
+KERNELS = {
+    "lstm_seq": ("seq", "src/repro/kernels/lstm_cell/kernel.py:205"),
+    "lstm_decode": ("decode", "src/repro/kernels/lstm_cell/kernel.py:337"),
+    "lstm_cell": ("cell", "src/repro/kernels/lstm_cell/kernel.py:76"),
+    "gru_seq": ("gru_seq", "src/repro/kernels/gru_cell/kernel.py:111"),
+    "gru_decode": ("gru_decode", "src/repro/kernels/gru_cell/kernel.py:217"),
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit): the
 # kernels compute in fp32 on the CUDA cores, so fp32 is their rate
@@ -150,7 +174,7 @@ def phase_card(ctx):
 
 
 def phase_build(ctx):
-    from repro_torch.kernels.lstm_cell import kernel
+    from repro_torch.kernels import build as kernel
 
     t0 = time.perf_counter()
     secs = kernel.build()
@@ -174,27 +198,32 @@ def phase_build(ctx):
                 f.write(log)
 
 
-def _seq_case(G, B, T, H, u_dtype, act_dtype, seed, dev):
+def _seq_case(G, B, T, H, u_dtype, act_dtype, seed, dev, gates=4):
+    """(U, xw, h0, c0) of a sequence kernel; the GRU's takes the first
+    three (gates=3)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    U4 = (torch.randn((G, H, 4, H), generator=g) * H ** -0.5).to(u_dtype)
-    xw = torch.randn((G, B, T, 4, H), generator=g).to(act_dtype)
+    U = (torch.randn((G, H, gates, H), generator=g) * H ** -0.5
+         ).to(u_dtype)
+    xw = torch.randn((G, B, T, gates, H), generator=g).to(act_dtype)
     h0 = (torch.randn((G, B, H), generator=g) * 0.5).to(act_dtype)
     c0 = torch.randn((G, B, H), generator=g) * 0.5
-    return [t.to(dev) for t in (U4, xw, h0, c0)]
+    return [t.to(dev) for t in (U, xw, h0, c0)]
 
 
-def _decode_case(L, B, H, w_dtype, seed, dev):
+def _decode_case(L, B, H, w_dtype, seed, dev, gates=4):
+    """(xw0, Ws, bs, Us, h0, c0) of a decode kernel; the GRU's takes the
+    first five (gates=3)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     s = H ** -0.5
-    Ws = (torch.randn((L, H, 4, H), generator=g) * s).to(w_dtype)
+    Ws = (torch.randn((L, H, gates, H), generator=g) * s).to(w_dtype)
     Ws[0] = float("nan")  # the kernel never reads layer 0's W
-    bs = (torch.randn((L, 4, H), generator=g) * 0.1).to(w_dtype)
-    Us = (torch.randn((L, H, 4, H), generator=g) * s).to(w_dtype)
-    xw0 = torch.randn((B, 4, H), generator=g)
+    bs = (torch.randn((L, gates, H), generator=g) * 0.1).to(w_dtype)
+    Us = (torch.randn((L, H, gates, H), generator=g) * s).to(w_dtype)
+    xw0 = torch.randn((B, gates, H), generator=g)
     h0 = torch.randn((L, B, H), generator=g) * 0.5
     c0 = torch.randn((L, B, H), generator=g) * 0.5
     return [t.to(dev) for t in (xw0, Ws, bs, Us, h0, c0)]
@@ -303,63 +332,231 @@ def phase_kernels(ctx):
           f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.LSTM (cuDNN, fp32, "
           f"T=1, layer-0 input GEMM included) {l_ms:.4f} ms, bound "
           f"{b_ms:.6f} ms ({b_by})")
+    _kernels_gru(ctx, dev)
+    _kernels_cell(ctx, dev)
+
+
+def _kernels_gru(ctx, dev):
+    """gru_seq and gru_decode against their plain versions, then timed."""
+    import torch
+
+    from repro_torch.kernels.common import ragged_b_mask
+    from repro_torch.kernels.gru_cell import ops
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    seq_err, dec_err = 0.0, 0.0
+    # the GRU serve's gru_seq shapes at H=340 (bf16 U, fp32 xw/h, G up to
+    # 5, ragged B, remainder chunks), fp32 U, bf16 activations, and H=50:
+    # 3H = 150 is not a multiple of four, so the scalar instantiation runs
+    cases = [(1, 1, 5, 340, bf16, f32, None),
+             (5, 4, 8, 340, bf16, f32, [4, 3, 4, 1, 1]),
+             (5, 2, 4, 340, f32, f32, [2, 2, 1, 2, 1]),
+             (2, 4, 8, 340, f32, f32, None),
+             (3, 4, 8, 340, bf16, bf16, [4, 2, 1]),
+             (2, 3, 9, 50, f32, f32, [3, 1]),
+             (1, 4, 6, 50, bf16, bf16, None)]
+    for i, (G, B, T, H, ud, ad, b_valid) in enumerate(cases):
+        U3, xw, h0, _ = _seq_case(G, B, T, H, ud, ad, seed=20 + i, dev=dev,
+                                  gates=3)
+        mask = None if b_valid is None else ragged_b_mask(G, B, b_valid, dev)
+        ref = ops.gru_seq_plain(U3, xw, h0, mask)
+        out = ops.gru_seq(U3, xw, h0, b_valid=b_valid)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        tol = TOL_FP32 if ad == f32 else TOL_BF16
+        print(f"kernels: gru_seq G={G} B={B} T={T} H={H} U={ud} act={ad} "
+              f"b_valid={b_valid}: max_abs_err {err:.3e} (tol {tol:g})")
+        check(err <= tol, f"gru_seq disagrees with its plain version: "
+                          f"{err:.3e} > {tol:g}")
+        if ad == f32:
+            seq_err = max(seq_err, err)
+    # a remainder walk: chunks 8+8+8+5 chained through h_T against the
+    # plain version over the whole T=29
+    U3, xw, h0, _ = _seq_case(2, 4, 29, 340, bf16, f32, seed=30, dev=dev,
+                              gates=3)
+    ref = ops.gru_seq_plain(U3, xw, h0)
+    outs, h = [], h0
+    for t0 in range(0, 29, 8):
+        o, h = ops.gru_seq(U3, xw[:, :, t0:t0 + 8], h, block_t=8)
+        outs.append(o)
+    err = max_err((torch.cat(outs, 2), h), ref)
+    print(f"kernels: gru_seq chunked 8+8+8+5 vs one plain walk T=29: "
+          f"max_abs_err {err:.3e} (tol {TOL_FP32:g})")
+    check(err <= TOL_FP32, "chunked gru_seq walk disagrees")
+    seq_err = max(seq_err, err)
+
+    for L, B, H, wd in ((5, 1, 340, bf16), (5, 1, 340, f32),
+                        (5, 4, 340, bf16), (5, 4, 340, f32),
+                        (3, 3, 50, bf16)):
+        args = _decode_case(L, B, H, wd, seed=40 + B, dev=dev, gates=3)[:5]
+        ref = ops.gru_decode_plain(*args)
+        out = ops.gru_decode(*args)
+        torch.cuda.synchronize()
+        err = max_err((out,), (ref,))
+        print(f"kernels: gru_decode L={L} B={B} H={H} W={wd} act=fp32: "
+              f"max_abs_err {err:.3e} (tol {TOL_FP32:g})")
+        check(err <= TOL_FP32, f"gru_decode disagrees with its plain "
+                               f"version: {err:.3e}")
+        dec_err = max(dec_err, err)
+
+    # ---- times: a GRU serve slot (two recurrences, bf16 U) and tick ------
+    H = 340
+    G, B, T = 2, 4, 8
+    U3, xw, h0, _ = _seq_case(G, B, T, H, bf16, f32, seed=31, dev=dev,
+                              gates=3)
+    k_ms = median_ms(lambda: ops.gru_seq(U3, xw, h0), reps=20)
+    p_ms = median_ms(lambda: ops.gru_seq_plain(U3, xw, h0), reps=20)
+    gru = torch.nn.GRU(H, H, num_layers=1, batch_first=True,
+                       bidirectional=True).to(dev)
+    x = torch.randn((B, T, H), device=dev)
+    with torch.no_grad():
+        l_ms = median_ms(lambda: gru(x), reps=20)
+    nbytes = (2 * G * H * 3 * H
+              + 4 * (G * B * T * 3 * H + G * B * H + G * B * T * H
+                     + G * B * H))
+    flops = G * B * T * (6 * H * H + 12 * H)
+    b_ms, b_by = bound(nbytes, flops)
+    ctx["gru_seq"] = dict(max_abs_err=seq_err, ms=k_ms, plain_ms=p_ms,
+                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                          shape=f"G={G} B={B} T={T} H={H} bf16 U, fp32 "
+                                f"xw/h")
+    print(f"kernels: gru_seq at G={G} B={B} T={T} H={H} bf16 U: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.GRU (cuDNN, fp32, "
+          f"bidirectional, input GEMM included) {l_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})")
+
+    L, B = 5, 4  # a GRU BYSDNE decode tick: bf16 weights, fp32 state
+    args = _decode_case(L, B, H, bf16, seed=32, dev=dev, gates=3)[:5]
+    k_ms = median_ms(lambda: ops.gru_decode(*args), reps=50)
+    p_ms = median_ms(lambda: ops.gru_decode_plain(*args), reps=50)
+    gru = torch.nn.GRU(H, H, num_layers=L, batch_first=True).to(dev)
+    x = torch.randn((B, 1, H), device=dev)
+    st = torch.randn((L, B, H), device=dev)
+    with torch.no_grad():
+        l_ms = median_ms(lambda: gru(x, st), reps=50)
+    # W[0] and b[0] are never needed: layer 0's input half arrives hoisted
+    nbytes = (2 * ((2 * L - 1) * H * 3 * H + (L - 1) * 3 * H)
+              + 4 * (B * 3 * H + 2 * L * B * H))
+    flops = B * ((2 * L - 1) * 6 * H * H + L * 14 * H)
+    b_ms, b_by = bound(nbytes, flops)
+    ctx["gru_decode"] = dict(max_abs_err=dec_err, ms=k_ms, plain_ms=p_ms,
+                             library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                             shape=f"L={L} B={B} H={H} bf16 weights")
+    print(f"kernels: gru_decode at L={L} B={B} H={H} bf16 weights: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.GRU (cuDNN, fp32, T=1, "
+          f"layer-0 input GEMM included) {l_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})")
+
+
+def _kernels_cell(ctx, dev):
+    """lstm_cell against its plain version, then timed at the per_step
+    schedule's BYSDNE step."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell import ops
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    H = 340
+    cell_err = 0.0
+    # block_k=24 does not divide 340 (the masked reduction tail); 0 takes
+    # the autotune table's default (block_h 128, block_k 8: a tail too)
+    for B, ud, ad, bk in ((1, f32, f32, 24), (4, bf16, f32, 24),
+                          (4, bf16, f32, 0), (1, bf16, bf16, 24),
+                          (4, f32, bf16, 0)):
+        U4, xw, h, c = _seq_case(1, B, 1, H, ud, ad, seed=50 + B, dev=dev)
+        U4, xw, h, c = U4[0], xw[0, :, 0], h[0], c[0]
+        ref = ops.lstm_cell_plain(U4, xw, h, c)
+        out = ops.lstm_cell(U4, xw, h, c, block_k=bk)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        tol = TOL_FP32 if ad == f32 else TOL_BF16
+        print(f"kernels: lstm_cell B={B} H={H} U={ud} act={ad} block_k="
+              f"{bk or 'default'}: max_abs_err {err:.3e} (tol {tol:g})")
+        check(err <= tol, f"lstm_cell disagrees with its plain version: "
+                          f"{err:.3e} > {tol:g}")
+        if ad == f32:
+            cell_err = max(cell_err, err)
+
+    B = 4  # the per_step BYSDNE forward's step: bf16 U, fp32 xw/h/c
+    U4, xw, h, c = _seq_case(1, B, 1, H, bf16, f32, seed=55, dev=dev)
+    U4, xw, h, c = U4[0], xw[0, :, 0], h[0], c[0]
+    k_ms = median_ms(lambda: ops.lstm_cell(U4, xw, h, c), reps=100)
+    p_ms = median_ms(lambda: ops.lstm_cell_plain(U4, xw, h, c), reps=100)
+    cell = torch.nn.LSTMCell(H, H).to(dev)
+    x = torch.randn((B, H), device=dev)
+    with torch.no_grad():
+        l_ms = median_ms(lambda: cell(x, (h, c)), reps=100)
+    nbytes = 2 * H * 4 * H + 4 * (B * 4 * H + 4 * B * H)
+    flops = B * (8 * H * H + 14 * H)
+    b_ms, b_by = bound(nbytes, flops)
+    ctx["cell"] = dict(max_abs_err=cell_err, ms=k_ms, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                       shape=f"B={B} H={H} bf16 U, fp32 xw/h/c")
+    print(f"kernels: lstm_cell at B={B} H={H} bf16 U: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, nn.LSTMCell (fp32, input GEMM included) "
+          f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
 
 
 REQUESTS = (30, 30, 17, 45, 8, 30)
 
 
-def _serve(device, params, frames):
+def _serve(device, params, frames, family="lstm"):
     from repro_torch.configs.sharp_lstm import BYSDNE
     from repro_torch.serving import RecurrentRequest, RecurrentServingEngine
 
-    eng = RecurrentServingEngine(BYSDNE, params, max_batch=4, device=device)
+    eng = RecurrentServingEngine(BYSDNE, params, max_batch=4,
+                                 rnn_family=family, device=device)
     for uid, fr in enumerate(frames):
         eng.submit(RecurrentRequest(uid=uid, frames=fr, max_new_frames=8))
     return eng, sorted(eng.run_to_completion(), key=lambda c: c.uid)
 
 
-def phase_serve(ctx):
+def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
+    """Serve the 6 BYSDNE requests on the card through ``family``'s
+    kernels (``seq_k`` per admission slot, ``dec_k`` per tick), check the
+    launches and statuses, hold the outputs against a device="cpu"
+    engine, and time a warm rerun."""
     import numpy as np
     import torch
 
     from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.kernels import (gru_decode, gru_seq, lstm_cell,
+                                     lstm_decode, lstm_seq)
     from repro_torch.kernels.common import reset_counts
-    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
-    from repro_torch.models.layers.lstm import init_lstm_stack
 
-    params = init_lstm_stack(torch.Generator().manual_seed(0), BYSDNE,
-                             torch.bfloat16)
     rng = np.random.default_rng(0)
     frames = [(rng.standard_normal((t, BYSDNE.lstm_input)) * 0.5)
               .astype(np.float32) for t in REQUESTS]
-
-    reset_counts(lstm_seq, lstm_decode)
-    eng, done = _serve("cuda", params, frames)
+    entries = (lstm_seq, lstm_decode, lstm_cell, gru_seq, gru_decode)
+    reset_counts(*entries)
+    eng, done = _serve("cuda", params, frames, family)
     torch.cuda.synchronize()
-    seq_n, dec_n = lstm_seq.kernel_launches, lstm_decode.kernel_launches
-    seq_calls, dec_calls = lstm_seq.calls, lstm_decode.calls
+    seq_n, dec_n = seq_k.kernel_launches, dec_k.kernel_launches
+    others = sum(f.calls for f in entries if f not in (seq_k, dec_k))
     st = eng.compiled.stats
-    print(f"serve: {len(done)} requests, statuses "
+    print(f"{label}: {len(done)} requests, statuses "
           f"{[c.status for c in done]}, {eng.prefill_waves} waves "
           f"({eng.packed_launches} planned launches), {eng.decode_ticks} "
           f"ticks ({eng.decode_launches} planned launches); kernel "
-          f"launches lstm_seq {seq_n}, lstm_decode {dec_n}; degraded "
-          f"{st.degraded_launches}, fallback level {st.fallback_level}")
+          f"launches {seq_k.__name__} {seq_n}, {dec_k.__name__} {dec_n}; "
+          f"degraded {st.degraded_launches}, fallback level "
+          f"{st.fallback_level}")
     check(all(c.status == "ok" for c in done), "a request did not finish ok")
     check(eng.prefill_waves == 2, "expected two admission waves")
     check(seq_n + dec_n == eng.packed_launches + eng.decode_launches,
           "kernel launches != the plans' launches")
     check(seq_n == eng.packed_launches and dec_n == eng.decode_ticks
           and eng.decode_launches == eng.decode_ticks,
-          "a decode tick did not take exactly one lstm_decode launch")
-    check((seq_calls, dec_calls) == (seq_n, dec_n),
-          "an entry point ran without launching its kernel")
+          f"a decode tick did not take exactly one {dec_k.__name__} launch")
+    check((seq_k.calls, dec_k.calls) == (seq_n, dec_n) and others == 0,
+          "an entry point ran without launching its kernel, or another "
+          "family's kernel was called")
     check(st.degraded_launches == 0 and st.fallback_level == 0,
           "a launch degraded down the guarded ladder")
-    ctx["launches"]["lstm_seq"] += seq_n
-    ctx["launches"]["lstm_decode"] += dec_n
+    ctx["launches"][seq_k.__name__] += seq_n
+    ctx["launches"][dec_k.__name__] += dec_n
 
-    _, cpu_done = _serve("cpu", params, frames)
+    _, cpu_done = _serve("cpu", params, frames, family)
     err = max(max(float(np.abs(g.outputs - c.outputs).max()),
                   float(np.abs(g.generated - c.generated).max()))
               for g, c in zip(done, cpu_done))
@@ -368,23 +565,36 @@ def phase_serve(ctx):
                     and np.isfinite(g.outputs).all()
                     and np.isfinite(g.generated).all()
                     for g, t in zip(done, REQUESTS))
-    print(f"serve: outputs and generated frames vs the device=\"cpu\" "
+    print(f"{label}: outputs and generated frames vs the device=\"cpu\" "
           f"engine: max_abs_err {err:.3e} (tol {TOL_E2E:g}); shapes and "
           f"finiteness {'ok' if shapes_ok else 'WRONG'}")
     check(shapes_ok, "served outputs have the wrong shape or are not finite")
     check(err <= TOL_E2E, "served outputs disagree with the CPU path")
 
     t0 = time.perf_counter()
-    eng2, _ = _serve("cuda", params, frames)
+    eng2, _ = _serve("cuda", params, frames, family)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     frames_out = sum(t + 8 for t in REQUESTS)
-    ctx["serve_s"] = wall
-    print(f"serve: warm rerun {wall * 1e3:.1f} ms wall for "
+    ctx[f"{label}_s"] = wall
+    print(f"{label}: warm rerun {wall * 1e3:.1f} ms wall for "
           f"{len(REQUESTS)} requests ({frames_out} prompt + generated "
           f"frames, {eng2.packed_launches + eng2.decode_launches} launches)")
     if ctx["profile"]:
-        profile_breakdown(lambda: _serve("cuda", params, frames), "serve")
+        profile_breakdown(lambda: _serve("cuda", params, frames, family),
+                          label)
+
+
+def phase_serve(ctx):
+    import torch
+
+    from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
+    from repro_torch.models.layers.lstm import init_lstm_stack
+
+    params = init_lstm_stack(torch.Generator().manual_seed(0), BYSDNE,
+                             torch.bfloat16)
+    _serve_and_check(ctx, "serve", "lstm", params, lstm_seq, lstm_decode)
 
 
 def phase_forward(ctx):
@@ -471,15 +681,140 @@ def _check_ladder_on_card(cfg, xs, healthy):
           "a fault past per-step did not raise on the card")
 
 
+def phase_serve_gru(ctx):
+    """The serve phase's 6 requests through BYSDNE as a GRU."""
+    import torch
+
+    from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.core.gru import init_gru_stack
+    from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
+
+    params = init_gru_stack(torch.Generator().manual_seed(0),
+                            BYSDNE.lstm_input, BYSDNE.lstm_hidden,
+                            BYSDNE.n_layers, torch.bfloat16)
+    _serve_and_check(ctx, "serve_gru", "gru", params, gru_seq, gru_decode)
+
+
+def _mixed_stack(H: int, seed: int):
+    """lstm/gru/lstm/gru at width H, bf16 weights from a seeded
+    torch.Generator."""
+    import torch
+
+    from repro_torch.core.gru import init_gru_layer
+    from repro_torch.models.layers.lstm import init_lstm_layer
+
+    gen = torch.Generator().manual_seed(seed)
+    return {"layers": [init(gen, H, H, torch.bfloat16) for init in (
+        init_lstm_layer, init_gru_layer, init_lstm_layer, init_gru_layer)]}
+
+
+def phase_offpath(ctx):
+    """Off the packed timeline: per_step (lstm_cell), a mixed stack, and a
+    research schedule, each held against the CPU path."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
+    from repro_torch.kernels.lstm_cell.ops import (lstm_cell, lstm_decode,
+                                                   lstm_seq)
+
+    entries = (lstm_seq, lstm_decode, lstm_cell, gru_seq, gru_decode)
+    xs = (np.random.default_rng(2).standard_normal((4, 30, 340)) * 0.5
+          ).astype(np.float32)
+
+    # (1) BYSDNE under per_step: one lstm_cell launch per (layer, step)
+    pol = rnn.ExecutionPolicy(schedule="per_step")
+    cs = rnn.compile(BYSDNE, pol, device="cuda", seed=0)
+    reset_counts(*entries)
+    ys = cs.forward(xs)
+    torch.cuda.synchronize()
+    n, p = lstm_cell.kernel_launches, cs.plan.launches
+    others = sum(f.calls for f in entries if f is not lstm_cell)
+    print(f"offpath: per_step BYSDNE B=4 T=30 -> {tuple(ys.shape)}; "
+          f"lstm_cell kernel launches {n}, calls {lstm_cell.calls}, "
+          f"plan.launches {p}; other kernels called {others} times")
+    check(n == p == lstm_cell.calls == 150 and others == 0,
+          "per_step launches != plan.launches == 150")
+    check(tuple(ys.shape) == (4, 30, 340) and bool(torch.isfinite(ys).all()),
+          "per_step output has the wrong shape or is not finite")
+    ctx["launches"]["lstm_cell"] += n
+    ref = rnn.compile(BYSDNE, pol, device="cpu", seed=0).forward(xs)
+    err = float((ys.cpu() - ref).abs().max())
+    print(f"offpath: per_step vs the CPU path max_abs_err {err:.3e} (tol "
+          f"{TOL_E2E:g})")
+    check(err <= TOL_E2E, "per_step output disagrees with the CPU path")
+    t0 = time.perf_counter()
+    cs.forward(xs)
+    torch.cuda.synchronize()
+    ctx["per_step_s"] = time.perf_counter() - t0
+    print(f"offpath: per_step warm rerun {ctx['per_step_s'] * 1e3:.1f} ms "
+          f"wall ({p} launches)")
+    if ctx["profile"]:
+        profile_breakdown(lambda: cs.forward(xs), "offpath per_step")
+
+    # (2) a mixed lstm/gru/lstm/gru stack at H=340: forward, then one
+    # decode tick resumed from its prefill state (L=4 per-layer launches)
+    params = _mixed_stack(340, seed=3)
+    cs = rnn.compile(params, device="cuda")
+    cpu = rnn.compile(params, device="cpu")
+    reset_counts(*entries)
+    ys = cs.forward(xs)
+    torch.cuda.synchronize()
+    fwd_n = (lstm_seq.kernel_launches, gru_seq.kernel_launches)
+    check(sum(fwd_n) == cs.plan.launches
+          and sum(f.calls for f in entries) == cs.plan.launches,
+          "mixed forward launches != plan.launches")
+    err = float((ys.cpu() - cpu.forward(xs)).abs().max())
+    (ys, st), (cys, cst) = cs.prefill(xs), cpu.prefill(xs)
+    reset_counts(*entries)
+    y, st = cs.decode(ys[:, -1:], st)
+    torch.cuda.synchronize()
+    dec_n = (lstm_seq.kernel_launches, gru_seq.kernel_launches)
+    cy, cst = cpu.decode(cys[:, -1:], cst)
+    dec_err = max(float((y.cpu() - cy).abs().max()),
+                  max(float((st[k].cpu() - cst[k]).abs().max())
+                      for k in ("h", "c")))
+    print(f"offpath: mixed lstm/gru/lstm/gru H=340 forward B=4 T=30: "
+          f"lstm_seq {fwd_n[0]} + gru_seq {fwd_n[1]} launches == "
+          f"plan.launches {cs.plan.launches}, vs CPU max_abs_err {err:.3e}; "
+          f"decode tick: lstm_seq {dec_n[0]} + gru_seq {dec_n[1]} launches "
+          f"(plan {cs.last_decode_plan.launches}), vs CPU max_abs_err "
+          f"{dec_err:.3e} (tol {TOL_E2E:g})")
+    check(err <= TOL_E2E and dec_err <= TOL_E2E,
+          "the mixed stack disagrees with the CPU path")
+    check(sum(dec_n) == cs.last_decode_plan.launches == 4,
+          "the mixed decode tick did not take its 4 per-layer launches")
+    ctx["launches"]["lstm_seq"] += fwd_n[0] + dec_n[0]
+    ctx["launches"]["gru_seq"] += fwd_n[1] + dec_n[1]
+
+    # (3) a research schedule: plain PyTorch on the card, zero launches
+    pol = rnn.ExecutionPolicy(schedule="unfolded")
+    cs = rnn.compile(BYSDNE, pol, device="cuda", seed=0)
+    reset_counts(*entries)
+    ys = cs.forward(xs)
+    torch.cuda.synchronize()
+    calls = sum(f.calls for f in entries)
+    err = float((ys.cpu() - rnn.compile(BYSDNE, pol, device="cpu", seed=0)
+                 .forward(xs)).abs().max())
+    print(f"offpath: unfolded BYSDNE B=4 T=30: {calls} kernel calls "
+          f"(plan.launches {cs.plan.launches}), vs CPU max_abs_err "
+          f"{err:.3e} (tol {TOL_E2E:g})")
+    check(calls == 0 == cs.plan.launches,
+          "the unfolded research schedule launched a kernel")
+    check(err <= TOL_E2E, "unfolded output disagrees with the CPU path")
+
+
 def phase_summary(ctx):
     rows = []
-    for name, key, line in (("lstm_seq", "seq", 205), ("lstm_decode",
-                                                       "decode", 337)):
+    for name, (key, replaces) in KERNELS.items():
         m = ctx.get(key, {})
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/lstm_cell/kernel.py:{line}",
+            "replaces": replaces,
             "launches": ctx["launches"][name],
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
@@ -522,7 +857,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     ctx = {"out": args.out, "profile": args.profile,
-           "launches": {"lstm_seq": 0, "lstm_decode": 0}}
+           "launches": {name: 0 for name in KERNELS}}
     t0 = time.perf_counter()
     try:
         for name in phases:

@@ -2,9 +2,11 @@
 for an NVIDIA H100.
 
 The recurrent main path — ``rnn.compile`` and
-``serving.RecurrentServingEngine`` over the tile dispatcher — runs on the
-card through the hand-written ``lstm_seq`` and ``lstm_decode`` CUDA
-kernels, and on the CPU through their plain PyTorch versions:
+``serving.RecurrentServingEngine`` over the tile dispatcher, for LSTM,
+GRU and mixed lstm/gru stacks, and the off-timeline schedules — runs on
+the card through the hand-written ``lstm_seq``, ``lstm_decode``,
+``lstm_cell``, ``gru_seq`` and ``gru_decode`` CUDA kernels, and on the
+CPU through their plain PyTorch versions:
 
     from repro_torch import rnn
     compiled = rnn.compile(stack_or_config, rnn.ExecutionPolicy(...),

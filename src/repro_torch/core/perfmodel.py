@@ -15,7 +15,6 @@ from dataclasses import dataclass
 from typing import Sequence
 
 from repro_torch.core.tiling import TileConfig, mvm_cycles, select_tile
-from repro_torch.runtime.errors import not_ported
 
 FREQ_HZ = 500e6
 ACT_LAT = 15  # pipeline-fill latency of the A-MFU (29.14ns @ ~2ns stages)
@@ -88,7 +87,9 @@ def recurrent_step_cycles(family: str, H: int, X: int, design: Design) -> float:
     if family == "lstm":
         return step_cycles(H, X, design)
     if family == "gru":
-        raise not_ported("the GRU family", "P3")
+        from repro_torch.core.gru import gru_step_cycles
+
+        return gru_step_cycles(H, X, design)
     if family == "rglru":
         return ACT_LAT + math.ceil(H / max(design.k or 64, 1))
     raise ValueError(family)

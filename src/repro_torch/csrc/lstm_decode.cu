@@ -28,9 +28,11 @@
 // (one rounding of the fp32 sum); the result goes to fp32.  The
 // inter-layer value y is h rounded through h0's dtype.  W[0] is never read.
 
-#include "lstm_common.cuh"
+#include "rnn_common.cuh"
 
 namespace lstm {
+
+using namespace rnn;
 
 template <bool XW_BF16>
 __device__ __forceinline__ float round_xw(float x) {

@@ -29,9 +29,11 @@
 // rounded to h0's dtype only where it is stored (hs, h_T), so block_t
 // (a planning parameter) cannot change the result.
 
-#include "lstm_common.cuh"
+#include "rnn_common.cuh"
 
 namespace lstm {
+
+using namespace rnn;
 
 template <typename UT, typename XT, typename HT, int RB>
 __global__ void __launch_bounds__(kThreads)

@@ -1,18 +1,20 @@
-// Helpers shared by lstm_seq.cu and lstm_decode.cu: dtype conversion,
-// four-wide column loads, the gate activations, and the launch shape.
+// Helpers shared by the recurrent kernels (lstm_seq, lstm_decode,
+// lstm_cell, gru_seq, gru_decode): dtype conversion, vector column loads,
+// the gate activations, and the launch shape.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace lstm {
+namespace rnn {
 
 typedef __nv_bfloat16 bf16;
 
-// Threads per block.  Phase 1 of a step gives each thread one quad of four
-// adjacent gate columns (H quads cover the 4H columns), so up to H <= 512
-// every quad has its own thread; phase 2 walks the rows x H cells.
+// Threads per block of the sequence and decode kernels.  Phase 1 of a step
+// gives each thread one vector of adjacent gate columns, so up to 4H <= 2048
+// (LSTM) or 3H <= 2048 (GRU) every vector has its own thread; phase 2 walks
+// the rows x H cells.
 constexpr int kThreads = 512;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -28,8 +30,9 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
 }
 
 // Four adjacent elements as fp32.  The caller guarantees 4-element
-// alignment: every quad starts at a multiple of 4 elements of a row of 4H,
-// and the Python wrapper hands over 16-byte aligned base pointers.
+// alignment: every quad starts at a multiple of 4 elements of a row whose
+// length is a multiple of 4, and the Python wrapper hands over 16-byte
+// aligned base pointers.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -38,6 +41,21 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
   float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// VEC adjacent elements as fp32: VEC = 4 is one aligned vector load (see
+// load4), VEC = 1 a scalar load that needs no alignment.  The GRU kernels
+// take VEC = 4 only when H % 4 == 0, so that every 3H-wide row starts on a
+// multiple of four elements.
+template <int VEC, typename T>
+__device__ __forceinline__ void loadv(const T* p, float* out) {
+  if constexpr (VEC == 4) {
+    const float4 v = load4(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out[e] = to_f32(p[e]);
+  }
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -59,4 +77,4 @@ inline cudaError_t reserve_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-}  // namespace lstm
+}  // namespace rnn

@@ -1,21 +1,23 @@
-"""The dispatch executor: runs a DispatchPlan through the LSTM kernels.
+"""The dispatch executor: runs a DispatchPlan through the recurrent
+kernels.
 
 The port of ``repro.dispatch.executor``.  The packed slot timeline
 executes in order; each ``Slot`` becomes exactly one G-batched
-sequence-fused launch (``kernels.lstm_cell.lstm_seq``), with each cell's
-hoisted input GEMM issued in the same slot.  Per-(item, layer, direction)
-recurrent state lives in device tensors between slots and in shared memory
-within a launch; the final chunk of every layer is launched at its true
-remainder length, so the state left behind after the last slot is the
-exact t=T state — which is what the serving engine splices into its decode
-slots.
+sequence-fused launch (``kernels.lstm_cell.lstm_seq`` or
+``kernels.gru_cell.gru_seq``), with each cell's hoisted input GEMM issued
+in the same slot.  Per-(item, layer, direction) recurrent state lives in
+device tensors between slots and in shared memory within a launch; the
+final chunk of every layer is launched at its true remainder length, so
+the state left behind after the last slot is the exact t=T state — which
+is what the serving engine splices into its decode slots.
 
 Cross-B packing executes here too: a slot row may be several parameter-
 sharing cells' batches concatenated (same U — the WorkItem.share
 contract), and rows narrower than the slot's width are zero-padded and
 masked in-kernel (``b_valid``) to exact no-ops.  ``chained`` slots (T=1
-decode) run a whole tick's dependent layer chain in ONE ``lstm_decode``
-launch.
+decode) run a whole tick's dependent layer chain in ONE ``lstm_decode`` /
+``gru_decode`` launch.  A mixed lstm/gru stack's cells pack into
+per-family slots of one timeline; its gru layers carry no cell state.
 
 Bidirectional cells execute in the packed timeline: a "bwd" cell walks
 its chunk in descending time — the executor feeds the sequence kernel the
@@ -40,10 +42,12 @@ kernel that does not BUILD is not a launch fault: ``KernelBuildError``
 passes through every rung.  ``check_finite`` raises
 ``NonFiniteStateError`` naming exactly the poisoned items.
 
-Not ported yet (``NotImplementedError``): GRU and rglru items, int8 /
-bf16 / block-sparse recurrent weights, and items the planner routes off
-the packed timeline (the reference schedules, per_step, T=0) — see
-ROADMAP.md.
+Items the planner routes off the packed timeline (the reference
+schedules, per_step, T=0 items) run first, one at a time, through the
+schedule library (``_run_reference``, ``_run_stack_collect``).
+
+Not ported yet (``NotImplementedError``): rglru items (P4) and int8 /
+bf16 / block-sparse recurrent weights (P1) — see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -54,6 +58,8 @@ import torch
 from repro_torch.dispatch.planner import DispatchPlan, ItemPlan
 from repro_torch.dispatch.workitem import GATES
 from repro_torch.kernels.common import KernelBuildError
+from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
+from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
 from repro_torch.runtime.errors import (FALLBACK_LEVELS, ExecutionReport,
@@ -75,20 +81,14 @@ def _hoist(layer_params, src, gates: int):
 
 
 def _check_ported(plan: DispatchPlan) -> None:
+    """Fail before any work on what the port does not carry yet."""
     for ip in plan.items:
         it = ip.item
         if it.family == "rglru":
             raise not_ported("rglru items", "P4")
-        if "gru" in it.families:
-            raise not_ported("the GRU family", "P3")
         if it.precision != "fp32" or it.tile_map is not None:
             raise not_ported(f"precision={it.precision!r} / block-sparse "
                              "recurrent weights", "P1")
-        if ip.uid in plan.external:
-            raise not_ported(
-                f"off-timeline execution of item {ip.uid} (schedule "
-                f"{ip.schedule!r}: the reference schedules, per_step and "
-                "T=0 items)", "P5")
 
 
 @torch.no_grad()
@@ -106,20 +106,28 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     inputs[uid] = xs (B, T, X) on the device the stack's tensors lie on.
     Returns outputs {uid: (B, T, H)} — (B, T, 2H) for bidirectional items
     (fwd‖bwd concat) — or (outputs, states) when ``collect_state``:
-    states[uid] is {"h": (L,B,H), "c": (L,B,H)} (exact t=T recurrent
-    state), or for bidirectional items a per-direction pair
+    states[uid] is {"h": (L,B,H)[, "c": (L,B,H)]} (exact t=T recurrent
+    state; "c" whenever any layer is an LSTM, a mixed stack's gru rows
+    zeros), for bidirectional items a per-direction pair
     {"fwd": {...}, "bwd": {...}} (fwd is the exact t=T state, bwd the
-    exact t=0 state — the end of its walk).
+    exact t=0 state — the end of its walk), or ``None`` for a
+    bidirectional item executed through an external stateless schedule.
 
     ``init_state`` optionally seeds the recurrent state of packed items:
     init_state[uid] = {"h": (L,B,H)[, "c": (L,B,H)]} replaces the zero
     initial state (the serving engine's decode ticks resume from it).
-    Bidirectional items reject it: their two walks start from opposite
+    External items reject it (their schedule surfaces start from zeros),
+    and so do bidirectional items: their two walks start from opposite
     sequence ends, so there is no mid-stream resume point.
 
     ``prepared`` optionally carries pre-stacked decode weights per uid
     (see ``prepare_decode_stack``) so steady-state decode ticks don't
     restack unchanged parameters every tick.
+
+    ``collect_state`` reroutes external unidirectional items through the
+    per-layer fused path (``_run_stack_collect``) — the only surface that
+    returns exact state — so for those items the plan's per_step/per_layer
+    launch accounting describes the stateless execution, not this one.
 
     ``on_fault``/``check_finite``/``inject``/``report`` drive the guarded
     execution ladder (module doc).  ``tracer`` (optional
@@ -133,15 +141,49 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
         raise ValueError(f"execute: on_fault={on_fault!r} invalid; "
                          "allowed: raise, fallback")
     _check_ported(plan)
+    # state resume is a packed-timeline feature only; silently dropping a
+    # caller's init_state for an external item would compute from zeros
+    dropped = sorted(set(init_state or {}) & set(plan.external))
+    if dropped:
+        raise ValueError(
+            f"init_state given for external-fallback items {dropped}: their "
+            "schedule surfaces start from zero state — plan them onto the "
+            "packed timeline (e.g. schedule='wavefront') to resume")
 
     outputs: Dict[int, torch.Tensor] = {}
     states: Dict[int, dict] = {}
 
+    # ---- external items (reference schedules / per_step / T=0) —
+    # bidirectional items land here only under a forced stateless
+    # schedule; their planned path is the interleaved packed timeline ----
+    for ip in plan.items:
+        if ip.uid not in plan.external:
+            continue
+        it = ip.item
+        xs = inputs[it.uid]
+        if collect_state and not it.bidirectional:
+            # state collection forces the per-layer fused path (the seq
+            # kernels are the only surface that returns exact t=T state)
+            outputs[it.uid], states[it.uid] = _run_stack_collect(
+                it, params[it.uid], xs)
+            continue
+        # per_layer (the forced-"fused" shape) is the per-layer fused
+        # path; everything else external runs its own named schedule
+        sched = ("fused" if ip.schedule in ("per_layer", "fused")
+                 else ip.schedule)
+        outputs[it.uid] = _run_reference(params[it.uid], xs, sched,
+                                         block_t=ip.block_t)
+        if collect_state:
+            states[it.uid] = None  # stateless external schedule
+
+    # ---- the packed slot timeline ---------------------------------------
     # live state is keyed (layer, direction): unidirectional items only
     # ever touch direction "fwd"; a bidirectional item's two walks carry
     # independent state and parameter halves
     live: Dict[int, dict] = {}
     for ip in plan.items:
+        if ip.uid in plan.external:
+            continue
         it = ip.item
         dirs = ("fwd", "bwd") if it.bidirectional else ("fwd",)
         x = inputs[it.uid]
@@ -158,6 +200,10 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
             return torch.zeros((it.B, it.H), dtype=x.dtype, device=x.device)
 
         def _c0(l):
+            # cell state exists per LSTM layer only; a mixed stack's gru
+            # layers carry None (their slots never read or write c)
+            if it.families[l] != "lstm":
+                return None
             if st0 is not None and "c" in st0:
                 return st0["c"][l]
             return torch.zeros((it.B, it.H), dtype=torch.float32,
@@ -166,7 +212,8 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
         live[it.uid] = {
             "plan": ip,
             "h": {(l, d): _h0(l) for l in range(it.L) for d in dirs},
-            "c": {(l, d): _c0(l) for l in range(it.L) for d in dirs},
+            "c": ({(l, d): _c0(l) for l in range(it.L) for d in dirs}
+                  if "lstm" in it.families else None),
             "outs": {(l, d): [None] * ip.nk
                      for l in range(it.L) for d in dirs},
         }
@@ -190,21 +237,23 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
                     src = _cell_src(inputs, st, cell, slot.chunk_len)
                     xw_rows.append(_hoist(layer, src, gates))
                     h_rows.append(st["h"][(cell.layer, cell.direction)])
-                    c_rows.append(st["c"][(cell.layer, cell.direction)])
+                    if slot.family == "lstm":
+                        c_rows.append(st["c"][(cell.layer, cell.direction)])
                 # cross-B row: parameter-sharing cells concatenate on B
                 # (same U by the share contract — take the lead cell's);
                 # rows narrower than the slot's width pad with zeros,
                 # masked in-kernel to exact no-ops
                 xws.append(_cat_pad(xw_rows, slot.B))
                 hs.append(_cat_pad(h_rows, slot.B))
-                cs.append(_cat_pad(c_rows, slot.B))
+                if slot.family == "lstm":
+                    cs.append(_cat_pad(c_rows, slot.B))
 
             xw = torch.stack(xws)          # (G, B, bt, gates, H)
             U = torch.stack([
                 _cell_layer_params(params, live[grp[0].uid], grp[0])["U"]
                 .reshape(slot.H, gates, slot.H) for grp in slot.groups])
             h0 = torch.stack(hs)           # (G, B, H)
-            c0 = torch.stack(cs)
+            c0 = torch.stack(cs) if slot.family == "lstm" else None
         b_valid = (list(slot.group_b)
                    if any(b < slot.B for b in slot.group_b) else None)
         uids = sorted({c.uid for grp in slot.groups for c in grp})
@@ -228,9 +277,11 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
                 nb = st["plan"].item.B
                 key = (cell.layer, cell.direction)
                 st["h"][key] = h_n[g, off:off + nb].to(h0.dtype)
-                st["c"][key] = c_n[g, off:off + nb]
+                if c_n is not None:
+                    st["c"][key] = c_n[g, off:off + nb]
                 if check_finite and not _rows_finite(
-                        h_n[g, off:off + nb], c_n[g, off:off + nb]):
+                        h_n[g, off:off + nb],
+                        None if c_n is None else c_n[g, off:off + nb]):
                     bad.append(cell.uid)
                 chunk = out[g, off:off + nb].to(inputs[cell.uid].dtype)
                 if cell.direction == "bwd":
@@ -371,36 +422,53 @@ def _seq_ladder(slot, U, xw, h0, c0, b_valid):
     usable); if the card never shows such a fault, a later slice may drop
     this rung."""
 
+    lstm = slot.family == "lstm"
+
+    def launch(xw_, h, c, block_t):
+        # (hs, h_T, c_T | None) from the slot family's sequence kernel
+        if lstm:
+            return lstm_seq(U, xw_, h, c, b_valid=b_valid, block_t=block_t)
+        return gru_seq(U, xw_, h, b_valid=b_valid, block_t=block_t) + (None,)
+
     def fused():
-        return lstm_seq(U, xw, h0, c0, b_valid=b_valid,
-                        block_t=slot.chunk_len)
+        return launch(xw, h0, c0, slot.chunk_len)
 
     def per_step():
         outs, h, c = [], h0, c0
         for t in range(slot.chunk_len):
-            o, h, c = lstm_seq(U, xw[:, :, t:t + 1], h, c, b_valid=b_valid,
-                               block_t=1)
+            o, h, c = launch(xw[:, :, t:t + 1], h, c, 1)
             outs.append(o)
         return torch.cat(outs, dim=2), h, c
 
     def reference():
-        return lstm_seq_ref(U, xw, h0, c0)
+        if lstm:
+            return lstm_seq_ref(U, xw, h0, c0)
+        return gru_seq_ref(U, xw, h0) + (None,)
 
     return _rungs(_on_card(xw), [fused, per_step], reference)
 
 
-def _rows_finite(h_rows, c_rows) -> bool:
+def _rows_finite(h_rows, c_rows=None) -> bool:
     """True when one cell's slice of post-launch state is all-finite."""
-    return bool(torch.isfinite(h_rows).all() and torch.isfinite(c_rows).all())
+    ok = bool(torch.isfinite(h_rows).all())
+    if ok and c_rows is not None:
+        ok = bool(torch.isfinite(c_rows).all())
+    return ok
 
 
 def _dir_state(st, item, direction: str) -> dict:
     """Stack one direction's per-layer end-of-walk state into the
-    documented {"h": (L,B,H), "c": (L,B,H)} shape."""
-    return {"h": torch.stack([st["h"][(l, direction)]
-                              for l in range(item.L)]),
-            "c": torch.stack([st["c"][(l, direction)]
-                              for l in range(item.L)])}
+    documented {"h": (L,B,H)[, "c": (L,B,H)]} shape ("c" whenever any
+    layer is an LSTM; a mixed stack's gru rows are fp32 zeros)."""
+    out = {"h": torch.stack([st["h"][(l, direction)]
+                             for l in range(item.L)])}
+    if st["c"] is not None:
+        zeros = torch.zeros((item.B, item.H), dtype=torch.float32,
+                            device=out["h"].device)
+        out["c"] = torch.stack(
+            [zeros if st["c"][(l, direction)] is None
+             else st["c"][(l, direction)] for l in range(item.L)])
+    return out
 
 
 def _cell_layer_params(params, st, cell):
@@ -445,16 +513,15 @@ def _cat_pad(rows, B: int):
                                          + tuple(cat.shape[1:]))])
 
 
-def prepare_decode_stack(stack_params: dict, family: str = "lstm") -> dict:
-    """Stack a parameter stack into the decode kernel's (L, ...) weight
-    layout: {"Ws", "bs", "Us"}.  Steady-state callers (the serving engine)
-    compute this ONCE per stack and pass it to ``execute(prepared=...)``.
+def prepare_decode_stack(stack_params: dict, family: str) -> dict:
+    """Stack a parameter stack of one ``family`` ("lstm" or "gru") into
+    the decode kernels' (L, ...) weight layout: {"Ws", "bs", "Us"}.
+    Steady-state callers (the serving engine) compute this ONCE per stack
+    and pass it to ``execute(prepared=...)``.
 
     Ws[0] is a zero placeholder when layer 0's input width differs from H;
     the kernel never reads it (layer 0's input half arrives pre-hoisted).
     """
-    if family != "lstm":
-        raise not_ported("the GRU family", "P3")
     gates = GATES[family]
     stack = stack_params["layers"]
     H = stack[0]["U"].shape[0]
@@ -504,15 +571,18 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
         h0 = torch.stack([_cat_pad([live[c.uid]["h"][(l, "fwd")]
                                     for c in row_cells], slot.B)
                           for l in range(L)])   # (L, B, H)
-        c0 = torch.stack([_cat_pad([live[c.uid]["c"][(l, "fwd")]
-                                    for c in row_cells], slot.B)
-                          for l in range(L)])
+        c0 = None
+        if slot.family == "lstm":
+            c0 = torch.stack([_cat_pad([live[c.uid]["c"][(l, "fwd")]
+                                        for c in row_cells], slot.B)
+                              for l in range(L)])
     uids = sorted({c.uid for c in row_cells})
     sig = slot.signature() if tracer.enabled else ""
     with tracer.span("slot_launch", slot=slot.index, sig=sig,
                      uids=uids) as sp:
         h_n, c_n = _guarded_launch(
-            slot.index, uids, _chained_ladder(xw0, Ws, bs, Us, h0, c0),
+            slot.index, uids,
+            _chained_ladder(slot.family, xw0, Ws, bs, Us, h0, c0),
             on_fault=on_fault, inject=inject, report=report, tracer=tracer)
         h_n, c_n = tracer.fence((h_n, c_n))
     if tracer.enabled:
@@ -526,12 +596,14 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
         st = live[cell.uid]
         nb = st["plan"].item.B
         dtype = inputs[cell.uid].dtype
-        if check_finite and not _rows_finite(h_n[:, off:off + nb],
-                                             c_n[:, off:off + nb]):
+        if check_finite and not _rows_finite(
+                h_n[:, off:off + nb],
+                None if c_n is None else c_n[:, off:off + nb]):
             bad.append(cell.uid)
         for l in range(L):
             st["h"][(l, "fwd")] = h_n[l, off:off + nb].to(h0.dtype)
-            st["c"][(l, "fwd")] = c_n[l, off:off + nb]
+            if c_n is not None:
+                st["c"][(l, "fwd")] = c_n[l, off:off + nb]
             # layer l's new h IS its T=1 output frame
             st["outs"][(l, "fwd")][0] = h_n[l, off:off + nb, None].to(dtype)
         off += nb
@@ -542,21 +614,25 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
             f"(uids {bad})", uids=bad, slot=slot.index, where="decode tick")
 
 
-def _chained_ladder(xw0, Ws, bs, Us, h0, c0):
+def _chained_ladder(family: str, xw0, Ws, bs, Us, h0, c0):
     """The launch strategies for a chained T=1 decode slot: the planned
     single decode-kernel launch; per-layer — L separate T=1
     sequence-kernel launches with the inter-layer value (and its input
     GEMM) chained on the host; and, on the CPU only, the plain reference
-    cells walked the same way.  All return ((L,B,H) h_n, (L,B,H) c_n).
+    cells walked the same way.  All return ((L,B,H) h_n, (L,B,H) c_n fp32
+    or None for a gru stack).
 
     What per-layer can recover on the card: it runs the other kernel
-    (``lstm_seq``), so it absorbs a fault of ``lstm_decode``'s own code;
-    both kernels take the same shared memory per block, so a fault of
-    size recurs there and is raised."""
+    (the sequence kernel), so it absorbs a fault of the decode kernel's
+    own code; both kernels take the same shared memory per block, so a
+    fault of size recurs there and is raised."""
+    lstm = family == "lstm"
     L = h0.shape[0]
 
     def fused():
-        return lstm_decode(xw0, Ws, bs, Us, h0, c0)
+        if lstm:
+            return lstm_decode(xw0, Ws, bs, Us, h0, c0)
+        return gru_decode(xw0, Ws, bs, Us, h0), None
 
     def chain(step):
         # walk the layer chain on the host: layer l>0's input half is the
@@ -573,15 +649,90 @@ def _chained_ladder(xw0, Ws, bs, Us, h0, c0):
             h, c = step(l, xw_t)
             hs.append(h)
             cs.append(c)
-        return torch.stack(hs), torch.stack(cs)
+        return torch.stack(hs), (torch.stack(cs) if lstm else None)
 
     def per_layer(l, xw_t):
-        _, h, c = lstm_seq(Us[l][None], xw_t[None, :, None], h0[l][None],
-                           c0[l][None], block_t=1)
-        return h[0], c[0]
+        if lstm:
+            _, h, c = lstm_seq(Us[l][None], xw_t[None, :, None],
+                               h0[l][None], c0[l][None], block_t=1)
+            return h[0], c[0]
+        _, h = gru_seq(Us[l][None], xw_t[None, :, None], h0[l][None],
+                       block_t=1)
+        return h[0], None
 
     def reference(l, xw_t):
-        return lstm_cell_ref(Us[l], xw_t, h0[l], c0[l])
+        if lstm:
+            return lstm_cell_ref(Us[l], xw_t, h0[l], c0[l])
+        return gru_step_ref(Us[l], xw_t, h0[l]), None
 
     return _rungs(_on_card(h0), [fused, lambda: chain(per_layer)],
                   lambda: chain(reference))
+
+
+# ---------------------------------------------------------------------------
+# off the packed timeline: the schedule library
+# ---------------------------------------------------------------------------
+
+
+def _run_reference(stack, xs, schedule, *, block_t: int = 0):
+    """External (unpacked) execution of a stack through the schedule
+    library — per-layer family aware (families inferred from the bound
+    parameters by ``core.schedules.walk_stack``), with the bidirectional
+    fwd/bwd split.
+
+    ``fused`` is one sequence-kernel launch per layer (and per direction);
+    ``per_step`` is one ``lstm_cell`` launch per (layer, step) for lstm
+    layers.  Two paths run plain PyTorch on any device, because the
+    reference runs no Pallas kernel there either: the research schedules
+    (sequential/batch/intergate/unfolded, which ARE the oracle), and a gru
+    layer under per_step ("gru has no per-step pallas kernel — pure-jnp
+    unfolded scan, zero launches" in the reference planner and executor).
+    Everywhere else the kernels launch on the card or raise."""
+    from repro_torch.core import gru as gru_mod
+    from repro_torch.core import schedules as sch
+    from repro_torch.kernels.lstm_cell.ops import as_cell_kernel
+
+    if schedule not in ("fused", "per_step"):
+        # research schedules ARE the oracle: delegate, one dispatch table
+        return sch.reference_stack(stack, xs, schedule)
+
+    def one(family, layer, y):
+        if schedule == "fused":
+            fn = (sch.run_layer_fused if family == "lstm"
+                  else gru_mod.run_layer_fused)
+            return fn(layer, y, block_t=block_t)
+        if family == "lstm":  # per_step: one cell-kernel launch per step
+            return sch.run_layer_unfolded(layer, y,
+                                          cell_kernel=as_cell_kernel())
+        return gru_mod.run_layer_unfolded(layer, y)
+
+    return sch.walk_stack(stack, xs, one)
+
+
+def _run_stack_collect(item, stack, xs):
+    """Unidirectional stack, layer by layer through the fused schedules
+    (``return_state=True``), returning (outputs, exact t=T states) — the
+    path when a caller needs state (serving prefill) for an unpacked item.
+    Mixed stacks: gru layers contribute zero rows to "c" (present whenever
+    any layer is an LSTM)."""
+    from repro_torch.core import gru as gru_mod
+    from repro_torch.core import schedules as sch
+
+    y = xs
+    any_lstm = "lstm" in item.families
+    hs_f, cs_f = [], []
+    for fam, layer in zip(item.families, stack["layers"]):
+        if fam == "lstm":
+            y, (h_n, c_n) = sch.run_layer_fused(layer, y, return_state=True)
+            cs_f.append(c_n)
+        else:
+            y, h_n = gru_mod.run_layer_fused(layer, y, return_state=True)
+            if any_lstm:
+                cs_f.append(torch.zeros((xs.shape[0], item.H),
+                                        dtype=torch.float32,
+                                        device=xs.device))
+        hs_f.append(h_n.to(xs.dtype))
+    state = {"h": torch.stack(hs_f)}
+    if cs_f:
+        state["c"] = torch.stack(cs_f)
+    return y, state

@@ -1,123 +1,16 @@
-"""Build and bind the LSTM CUDA kernels (``src/repro_torch/csrc``).
-
-Each kernel is one ``.cu`` file with a plain C entry point, compiled by
-``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds).  Builds happen at first
-use, never at import, into ``build/repro_torch_kernels/`` at the root of
-the checkout; a library's file name carries a hash of its sources and
-flags, so an edited source rebuilds and a checkout builds from its own
-sources only.  A failed build raises ``KernelBuildError`` with nvcc's
-stderr.
+"""The LSTM CUDA kernels (``csrc/lstm_seq.cu``, ``csrc/lstm_decode.cu``,
+``csrc/lstm_cell.cu``), registered with the shared build
+(``kernels.build``: nvcc for ``sm_90a`` at first use, ctypes binding).
 
 The Python wrappers that check tensors and launch live in
 ``kernels.lstm_cell.ops``.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict
+from repro_torch.kernels.build import I, P, entry, register
 
-from repro_torch.kernels.common import KernelBuildError
+register("lstm_seq", "lstm_seq_launch", [P] * 8 + [I] * 7 + [P])
+register("lstm_decode", "lstm_decode_launch", [P] * 8 + [I] * 6 + [P])
+register("lstm_cell", "lstm_cell_launch", [P] * 6 + [I] * 7 + [P])
 
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-#: kernel -> (C entry point, its argtypes); every pointer and the stream
-#: are c_void_p, every size or flag c_int (see the .cu files' signatures)
-KERNELS = {
-    "lstm_seq": ("lstm_seq_launch", [_P] * 8 + [_I] * 7 + [_P]),
-    "lstm_decode": ("lstm_decode_launch", [_P] * 8 + [_I] * 6 + [_P]),
-}
-_HEADERS = ("lstm_common.cuh",)
-
-_loaded: dict = {}  # kernel name -> bound C entry point
-
-
-def nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise KernelBuildError(
-            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): "
-            "the CUDA kernels build only where the CUDA toolkit is installed")
-    return found
-
-
-def library_path(name: str) -> Path:
-    """Where ``name``'s shared library lives: keyed on a hash of its
-    source, the shared header and the nvcc flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu",) + _HEADERS:
-        h.update((CSRC / src).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(*names: str) -> Dict[str, float]:
-    """Compile the named kernels (all of them by default) that are not
-    built yet, one nvcc process per source, all started together.  Returns
-    each kernel's build seconds (0.0 when it was already built)."""
-    names = names or tuple(KERNELS)
-    for name in names:
-        if name not in KERNELS:
-            raise ValueError(f"unknown kernel {name!r}; "
-                             f"allowed: {', '.join(KERNELS)}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    secs = {name: 0.0 for name in names}
-    procs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        stdout, stderr = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(stdout + stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
-                          f"{stderr}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    if failed:
-        raise KernelBuildError("CUDA kernel build failed:\n"
-                               + "\n".join(failed))
-    return secs
-
-
-def build_log(name: str) -> str:
-    """nvcc's output for ``name``'s last build (``-Xptxas -v``: registers,
-    shared memory and spills per kernel instance)."""
-    log = library_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
-
-
-def entry(name: str):
-    """The bound C entry point of kernel ``name``, building it first if
-    needed.  Loaded once per process."""
-    fn = _loaded.get(name)
-    if fn is None:
-        build(name)
-        symbol, argtypes = KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return fn
+__all__ = ["entry"]

@@ -1,13 +1,17 @@
 """Public entry points of the fused LSTM kernels: ``lstm_seq`` (a whole
-sequence, G recurrences, one launch) and ``lstm_decode`` (one T=1 tick
-through an L-layer stack, one launch).
+sequence, G recurrences, one launch), ``lstm_decode`` (one T=1 tick
+through an L-layer stack, one launch) and ``lstm_cell`` (one recurrent
+step, one launch — the per_step schedule's kernel), plus the
+``as_cell_kernel`` / ``as_seq_kernel`` adapters the reference schedules
+plug them in with.
 
 The device of the tensors decides how an entry point runs: on the CPU it
 runs the kernel's plain PyTorch version beside it in this module
-(``lstm_seq_plain`` / ``lstm_decode_plain``, which repeat the kernel's
-arithmetic and rounding points); on a CUDA device it launches the
-hand-written kernel (``csrc/lstm_seq.cu`` / ``csrc/lstm_decode.cu``) or
-raises.  There is no fallback from one to the other.
+(``lstm_seq_plain`` / ``lstm_decode_plain`` / ``lstm_cell_plain``, which
+repeat the kernel's arithmetic and rounding points); on a CUDA device it
+launches the hand-written kernel (``csrc/lstm_seq.cu`` /
+``csrc/lstm_decode.cu`` / ``csrc/lstm_cell.cu``) or raises.  There is no
+fallback from one to the other.
 
 Each entry point carries two counters (``kernels.common.counted``):
 ``calls`` (every invocation, any device) and ``kernel_launches`` (real
@@ -17,12 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import counted, ragged_b_mask
+from repro_torch.core.autotune import table
+from repro_torch.kernels.common import (check_operands, check_shape,
+                                        counted, dtype_flag, launched,
+                                        on_cuda, operand, ptr, ragged_b_mask)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
 from repro_torch.runtime.errors import not_ported
-
-_FLOATS = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -90,49 +95,16 @@ def lstm_decode_plain(xw0, Ws, bs, Us, h0, c0):
     return torch.stack(hn), torch.stack(cn)
 
 
+#: The cell kernel's arithmetic in plain PyTorch is the oracle's: one fp32
+#: product h·U (the kernel's block_h / block_k tiling only reorders its
+#: fp32 sum), the gate and cell epilogue in fp32, h out in h_prev's dtype
+#: and c in fp32.
+lstm_cell_plain = lstm_cell_ref
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch wrappers
 # ---------------------------------------------------------------------------
-
-
-def _check(name: str, device, **tensors) -> None:
-    """Device, contiguity and 16-byte alignment of every kernel operand."""
-    if device.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
-                         f"{device}")
-    for arg, t in tensors.items():
-        if t is None:
-            continue
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
-                             f"{device} like the other operands")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-
-
-def _dtype_flag(name: str, arg: str, t) -> int:
-    if t.dtype not in _FLOATS:
-        raise TypeError(f"{name}: {arg} must be float32 or bfloat16, got "
-                        f"{t.dtype}")
-    return int(t.dtype == torch.bfloat16)
-
-
-def _shape(name: str, arg: str, t, shape) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _launched(name: str, rc: int) -> None:
-    if rc:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError {rc}")
 
 
 def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None):
@@ -140,29 +112,30 @@ def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None):
     stream; shapes and dtypes as ``lstm_seq_plain``, c0 fp32."""
     G, B, T, _, H = xw.shape
     dev = xw.device
-    _check("lstm_seq", dev, U4=U4, xw=xw, h0=h0, c0=c0, b_mask=b_mask)
-    _shape("lstm_seq", "U4", U4, (G, H, 4, H))
-    _shape("lstm_seq", "h0", h0, (G, B, H))
-    _shape("lstm_seq", "c0", c0, (G, B, H))
+    check_operands("lstm_seq", dev, U4=U4, xw=xw, h0=h0, c0=c0,
+                   b_mask=b_mask)
+    check_shape("lstm_seq", "U4", U4, (G, H, 4, H))
+    check_shape("lstm_seq", "h0", h0, (G, B, H))
+    check_shape("lstm_seq", "c0", c0, (G, B, H))
     if c0.dtype != torch.float32:
         raise TypeError("lstm_seq: c0 must be float32")
     if b_mask is not None:
-        _shape("lstm_seq", "b_mask", b_mask, (G, B))
+        check_shape("lstm_seq", "b_mask", b_mask, (G, B))
         if b_mask.dtype != torch.int32:
             raise TypeError("lstm_seq: b_mask must be int32")
-    flags = (_dtype_flag("lstm_seq", "U4", U4),
-             _dtype_flag("lstm_seq", "xw", xw),
-             _dtype_flag("lstm_seq", "h0", h0))
+    flags = (dtype_flag("lstm_seq", "U4", U4),
+             dtype_flag("lstm_seq", "xw", xw),
+             dtype_flag("lstm_seq", "h0", h0))
     hs = torch.empty((G, B, T, H), dtype=h0.dtype, device=dev)
     h_n = torch.empty((G, B, H), dtype=h0.dtype, device=dev)
     c_n = torch.empty((G, B, H), dtype=torch.float32, device=dev)
     launch = kernel.entry("lstm_seq")
     with torch.cuda.device(dev):
         rc = launch(U4.data_ptr(), xw.data_ptr(), h0.data_ptr(),
-                    c0.data_ptr(), _ptr(b_mask), hs.data_ptr(),
+                    c0.data_ptr(), ptr(b_mask), hs.data_ptr(),
                     h_n.data_ptr(), c_n.data_ptr(), G, B, T, H, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
-    _launched("lstm_seq", rc)
+    launched("lstm_seq", rc)
     lstm_seq.kernel_launches += 1
     return hs, h_n, c_n
 
@@ -172,20 +145,21 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
     dtypes as ``lstm_decode_plain``, Ws/bs/Us in one dtype, c0 fp32."""
     L, B, H = h0.shape
     dev = h0.device
-    _check("lstm_decode", dev, xw0=xw0, Ws=Ws, bs=bs, Us=Us, h0=h0, c0=c0)
-    _shape("lstm_decode", "xw0", xw0, (B, 4, H))
-    _shape("lstm_decode", "Ws", Ws, (L, H, 4, H))
-    _shape("lstm_decode", "bs", bs, (L, 4, H))
-    _shape("lstm_decode", "Us", Us, (L, H, 4, H))
-    _shape("lstm_decode", "c0", c0, (L, B, H))
+    check_operands("lstm_decode", dev, xw0=xw0, Ws=Ws, bs=bs, Us=Us, h0=h0,
+                   c0=c0)
+    check_shape("lstm_decode", "xw0", xw0, (B, 4, H))
+    check_shape("lstm_decode", "Ws", Ws, (L, H, 4, H))
+    check_shape("lstm_decode", "bs", bs, (L, 4, H))
+    check_shape("lstm_decode", "Us", Us, (L, H, 4, H))
+    check_shape("lstm_decode", "c0", c0, (L, B, H))
     if c0.dtype != torch.float32:
         raise TypeError("lstm_decode: c0 must be float32")
     if not Ws.dtype == bs.dtype == Us.dtype:
         raise TypeError(f"lstm_decode: Ws, bs and Us must share one dtype, "
                         f"got {Ws.dtype}, {bs.dtype}, {Us.dtype}")
-    flags = (_dtype_flag("lstm_decode", "Ws", Ws),
-             _dtype_flag("lstm_decode", "xw0", xw0),
-             _dtype_flag("lstm_decode", "h0", h0))
+    flags = (dtype_flag("lstm_decode", "Ws", Ws),
+             dtype_flag("lstm_decode", "xw0", xw0),
+             dtype_flag("lstm_decode", "h0", h0))
     h_n = torch.empty((L, B, H), dtype=h0.dtype, device=dev)
     c_n = torch.empty((L, B, H), dtype=torch.float32, device=dev)
     launch = kernel.entry("lstm_decode")
@@ -194,30 +168,96 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
                     Us.data_ptr(), h0.data_ptr(), c0.data_ptr(),
                     h_n.data_ptr(), c_n.data_ptr(), L, B, H, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
-    _launched("lstm_decode", rc)
+    launched("lstm_decode", rc)
     lstm_decode.kernel_launches += 1
     return h_n, c_n
 
 
-def _operand(t):
-    """Contiguous and 16-byte aligned (a view at an odd offset is copied)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _route(name: str, device) -> bool:
-    """True for the CUDA kernel, False for the plain CPU version."""
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: tensors on {device}; the port runs on cuda "
-                     "(kernel) or cpu (plain version)")
+def lstm_cell_cuda(U4, xw_t, h_prev, c_prev, block_h: int, block_k: int):
+    """Launch ``csrc/lstm_cell.cu`` on the current stream; shapes and
+    dtypes as ``lstm_cell_plain``, c_prev fp32."""
+    B, H = h_prev.shape
+    dev = h_prev.device
+    check_operands("lstm_cell", dev, U4=U4, xw_t=xw_t, h_prev=h_prev,
+                   c_prev=c_prev)
+    check_shape("lstm_cell", "U4", U4, (H, 4, H))
+    check_shape("lstm_cell", "xw_t", xw_t, (B, 4, H))
+    check_shape("lstm_cell", "c_prev", c_prev, (B, H))
+    if c_prev.dtype != torch.float32:
+        raise TypeError("lstm_cell: c_prev must be float32")
+    if block_h < 1 or block_k < 1:
+        raise ValueError(f"lstm_cell: block_h={block_h} and "
+                         f"block_k={block_k} must be >= 1")
+    flags = (dtype_flag("lstm_cell", "U4", U4),
+             dtype_flag("lstm_cell", "xw_t", xw_t),
+             dtype_flag("lstm_cell", "h_prev", h_prev))
+    h = torch.empty((B, H), dtype=h_prev.dtype, device=dev)
+    c = torch.empty((B, H), dtype=torch.float32, device=dev)
+    launch = kernel.entry("lstm_cell")
+    with torch.cuda.device(dev):
+        rc = launch(U4.data_ptr(), xw_t.data_ptr(), h_prev.data_ptr(),
+                    c_prev.data_ptr(), h.data_ptr(), c.data_ptr(), B, H,
+                    block_h, block_k, *flags,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    launched("lstm_cell", rc)
+    lstm_cell.kernel_launches += 1
+    return h, c
 
 
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+@counted
+def lstm_cell(U4, xw_t, h_prev, c_prev, *, block_h: int = 0,
+              block_k: int = 0):
+    """Fused recurrent LSTM step, ONE launch.  U4 (H,4,H); xw_t (B,4,H)
+    precomputed input half; h_prev (B,H); c_prev (B,H) in any float dtype,
+    read as fp32 -> (h in h_prev's dtype, c fp32).
+
+    ``block_h`` (hidden units per block) and ``block_k`` (reduction
+    stripe) default to the autotune table's choice under a 2 MiB budget,
+    as in the reference; they change the fp32 summation order only."""
+    lstm_cell.calls += 1
+    H = U4.shape[0]
+    if not block_h or not block_k:
+        bk, bh = table().block(H, H, vmem_budget=2 * 2**20)
+        block_h = block_h or min(bh, H)
+        block_k = block_k or min(bk, H)
+    if on_cuda("lstm_cell", h_prev.device):
+        return lstm_cell_cuda(operand(U4), operand(xw_t), operand(h_prev),
+                              operand(c_prev.float()), block_h, block_k)
+    return lstm_cell_plain(U4, xw_t, h_prev, c_prev)
+
+
+def as_cell_kernel():
+    """Adapter for ``core.schedules.run_layer_unfolded(cell_kernel=...)``.
+
+    Schedules store U as (H, 4H) gate-major; the kernel wants (H, 4, H)."""
+
+    def cell(U, xw_t, h, c):
+        H = U.shape[0]
+        return lstm_cell(U.reshape(H, 4, H),
+                         xw_t.reshape(xw_t.shape[0], 4, H), h, c)
+
+    return cell
+
+
+def as_seq_kernel(block_t: int = 0):
+    """Adapter for ``core.schedules.run_layer_fused`` /
+    ``core.unfolded.unfold``.
+
+    Schedules store U as (H, 4H) gate-major and the hoisted input half as
+    (B, T, 4H); the kernel wants the gate axis unpacked to (4, H)."""
+
+    def seq(U, xw, h0=None, c0=None):
+        H = U.shape[0]
+        B, T = xw.shape[0], xw.shape[1]
+        return lstm_seq(U.reshape(H, 4, H), xw.reshape(B, T, 4, H), h0, c0,
+                        block_t=block_t)
+
+    return seq
 
 
 @counted
@@ -269,9 +309,9 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
     else:
         b_mask = (None if b_valid is None
                   else ragged_b_mask(G, B, b_valid, device=xw.device))
-        if _route("lstm_seq", xw.device):
-            out = lstm_seq_cuda(_operand(U4), _operand(xw), _operand(h0),
-                                _operand(c0), b_mask)
+        if on_cuda("lstm_seq", xw.device):
+            out = lstm_seq_cuda(operand(U4), operand(xw), operand(h0),
+                                operand(c0), b_mask)
         else:
             out = lstm_seq_plain(U4, xw, h0, c0, b_mask)
     return out if stacked else tuple(o[0] for o in out)
@@ -288,13 +328,14 @@ def lstm_decode(xw0, Ws, bs, Us, h0, c0):
     Equal to L per-layer ``lstm_seq(..., T=1)`` calls with the input GEMM
     rounded through promote(h0.dtype, Ws.dtype) between them."""
     lstm_decode.calls += 1
-    if _route("lstm_decode", h0.device):
-        return lstm_decode_cuda(_operand(xw0), _operand(Ws), _operand(bs),
-                                _operand(Us), _operand(h0),
-                                _operand(c0.float()))
+    if on_cuda("lstm_decode", h0.device):
+        return lstm_decode_cuda(operand(xw0), operand(Ws), operand(bs),
+                                operand(Us), operand(h0),
+                                operand(c0.float()))
     return lstm_decode_plain(xw0, Ws, bs, Us, h0, c0)
 
 
-__all__ = ["lstm_seq", "lstm_decode", "lstm_seq_plain", "lstm_decode_plain",
-           "lstm_seq_cuda", "lstm_decode_cuda", "lstm_cell_ref",
-           "lstm_seq_ref"]
+__all__ = ["lstm_seq", "lstm_decode", "lstm_cell", "lstm_seq_plain",
+           "lstm_decode_plain", "lstm_cell_plain", "lstm_seq_cuda",
+           "lstm_decode_cuda", "lstm_cell_cuda", "as_cell_kernel",
+           "as_seq_kernel", "lstm_cell_ref", "lstm_seq_ref"]

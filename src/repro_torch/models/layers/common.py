@@ -19,3 +19,16 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
     x = torch.empty(tuple(shape), dtype=torch.float32)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * scale).to(device=device, dtype=dtype)
+
+
+def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype JAX's ``@`` promotes mixed operands to
+    (bfloat16 with float32 -> float32); torch's matmul wants one dtype."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def input_half(params, xs: torch.Tensor) -> torch.Tensor:
+    """The hoisted input GEMM of every step of a recurrent layer:
+    (B, T, X) @ W (X, gates·H) + b, in JAX's promoted dtype."""
+    return promoted_matmul(xs, params["W"]) + params["b"]

@@ -59,3 +59,26 @@ def cell_update(gates, c_prev):
     c = torch.sigmoid(f) * c_prev.float() + torch.sigmoid(i) * torch.tanh(g)
     h = torch.sigmoid(o) * torch.tanh(c)
     return h, c
+
+
+def lstm_step(params, x_t, h_prev, c_prev):
+    """One full step: both product halves + pointwise tail.  x_t (B, X);
+    the weights and h_prev are cast to x_t's dtype, as in the reference."""
+    dt = x_t.dtype
+    gates = (x_t @ params["W"].to(dt) + h_prev.to(dt) @ params["U"].to(dt)
+             + params["b"].to(dt))
+    h, c = cell_update(gates, c_prev)
+    return h.to(dt), c
+
+
+def reference_unroll(params, xs):
+    """Ground-truth layer evaluation: Python loop over time. xs (B, T, X)."""
+    B, T, _ = xs.shape
+    H = params["U"].shape[0]
+    h = xs.new_zeros((B, H))
+    c = torch.zeros((B, H), dtype=torch.float32, device=xs.device)
+    outs = []
+    for t in range(T):
+        h, c = lstm_step(params, xs[:, t], h, c)
+        outs.append(h)
+    return torch.stack(outs, dim=1)

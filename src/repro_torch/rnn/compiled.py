@@ -1,18 +1,21 @@
 """compile() -> CompiledStack: the one planned execution path.
 
 The port of ``repro.rnn.compiled``.  ``compile`` takes either a
-``repro_torch.configs`` ModelConfig (family "rnn") or an LSTM parameter
-stack ``{"layers": [...]}`` plus an ``ExecutionPolicy`` and a device, and
-returns a ``CompiledStack`` whose every entry point lowers to
-``dispatch.WorkItem``s and executes through the tile dispatcher's
-planner/executor:
+``repro_torch.configs`` ModelConfig (family "rnn", initialised as an LSTM
+or, with ``rnn_family="gru"``, as the paper's §8 GRU) or a parameter
+stack ``{"layers": [...]}`` (lstm, gru or mixed lstm/gru layers, the
+family inferred per layer from the gate width) plus an
+``ExecutionPolicy`` and a device, and returns a ``CompiledStack`` whose
+every entry point lowers to ``dispatch.WorkItem``s and executes through
+the tile dispatcher's planner/executor:
 
     forward(xs)          whole-sequence evaluation (one stack; batch B)
     prefill(xs | [xs..]) forward + exact t=T recurrent state; a list packs
                          all requests into ONE DispatchPlan (the serving
                          admission wave)
     decode(x_t, state)   one T=1 tick resumed from ``state`` — a single
-                         chained ``lstm_decode`` launch
+                         chained ``lstm_decode`` / ``gru_decode`` launch
+                         (a mixed stack: L per-layer launches)
     plan                 the most recent DispatchPlan (``.describe()``
                          prints every launch the executor will make)
     stats                launches / est_cycles / plans_built accounting
@@ -39,8 +42,7 @@ from repro_torch.dispatch import (DispatchPlan, WorkItem, execute, plan,
                                   plan_decode, prepare_decode_stack)
 from repro_torch.kernels.common import dtype_name, torch_dtype
 from repro_torch.rnn.policy import ExecutionPolicy
-from repro_torch.runtime.errors import (ExecutionReport, FaultInjector,
-                                        not_ported)
+from repro_torch.runtime.errors import ExecutionReport, FaultInjector
 from repro_torch.runtime.obs import NULL_TRACER, Tracer
 
 
@@ -139,15 +141,15 @@ def compile(model, policy: Optional[ExecutionPolicy] = None, *,
     ``model``: a ModelConfig (family "rnn") or a parameter stack
     ``{"layers": [...]}``.  For a config, ``params`` binds existing
     parameters; otherwise they are initialized from a ``torch.Generator``
-    seeded with ``seed``.  ``device``: where every entry point runs
-    ("cuda" by default; "cpu" for the plain PyTorch versions); the
-    parameters are moved there.
+    seeded with ``seed`` (``rnn_family`` picks lstm or the paper §8 GRU
+    variant).  For a parameter stack, families are inferred per layer from
+    the gate widths — mixed lstm/gru stacks are first-class.  ``device``:
+    where every entry point runs ("cuda" by default; "cpu" for the plain
+    PyTorch versions); the parameters are moved there.
     """
     policy = _as_policy(policy)
     device = resolve_device(device)
-    if rnn_family == "gru":
-        raise not_ported("the GRU family (rnn_family='gru')", "P3")
-    if rnn_family != "lstm":
+    if rnn_family not in ("lstm", "gru"):
         raise ValueError(f"compile: rnn_family={rnn_family!r} invalid; "
                          "allowed: lstm, gru")
     if isinstance(model, ModelConfig):
@@ -157,10 +159,22 @@ def compile(model, policy: Optional[ExecutionPolicy] = None, *,
                 "is not a recurrent stack; the rnn facade compiles "
                 "family='rnn' configs or {'layers': [...]} parameter stacks")
         if params is None:
-            from repro_torch.models.layers.lstm import init_lstm_stack
+            gen = torch.Generator().manual_seed(seed)
+            dtype = torch_dtype(model.dtype)
+            if rnn_family == "lstm":
+                from repro_torch.models.layers.lstm import init_lstm_stack
 
-            params = init_lstm_stack(torch.Generator().manual_seed(seed),
-                                     model, torch_dtype(model.dtype))
+                params = init_lstm_stack(gen, model, dtype)
+            else:
+                if model.bidirectional:
+                    raise ValueError(
+                        "compile: no bidirectional GRU initializer; pass "
+                        "params= explicitly")
+                from repro_torch.core.gru import init_gru_stack
+
+                params = init_gru_stack(gen, model.lstm_input,
+                                        model.lstm_hidden, model.n_layers,
+                                        dtype)
     elif isinstance(model, dict) and "layers" in model:
         if params is not None:
             raise ValueError(
@@ -186,14 +200,16 @@ class CompiledStack:
         self.device = device
         self.params = params
         self.families: Tuple[str, ...] = stack_families(params)
-        if "gru" in self.families:
-            raise not_ported("the GRU family (gru layers in the stack)",
-                             "P3")
         self.bidirectional = any("fwd" in l for l in params["layers"])
         if self.bidirectional and not all("fwd" in l
                                           for l in params["layers"]):
             raise ValueError(
                 "CompiledStack: mixed uni/bidirectional layers unsupported")
+        if self.bidirectional and self.heterogeneous:
+            # fail at compile() like every other stack-shape error, not at
+            # the first forward() from WorkItem validation
+            raise ValueError(
+                "CompiledStack: mixed-family stacks cannot be bidirectional")
         layer0 = params["layers"][0]
         half0 = layer0.get("fwd", layer0)
         self.H = int(half0["U"].shape[0])
@@ -219,6 +235,11 @@ class CompiledStack:
         self._prepared: Optional[dict] = None
 
     # ------------------------------------------------------------------
+    @property
+    def heterogeneous(self) -> bool:
+        """True for a mixed lstm/gru stack."""
+        return len(set(self.families)) > 1
+
     @property
     def plan(self) -> Optional[DispatchPlan]:
         """The most recent forward/prefill DispatchPlan (decode keeps its
@@ -360,11 +381,12 @@ class CompiledStack:
     def prefill(self, xs, priorities: Optional[Sequence[int]] = None):
         """forward + exact t=T recurrent state.
 
-        One array -> ``(ys, state)`` with state {"h": (L, B, H), "c"}.  A
-        SEQUENCE of arrays (the serving admission wave) packs every request
-        into ONE DispatchPlan — their (layer, time-chunk) cells share
-        wavefront slots and cross-B rows — and returns a list of
-        (ys, state).
+        One array -> ``(ys, state)`` with state {"h": (L, B, H)[, "c"]}
+        ("c" whenever any layer is an LSTM; rows of a mixed stack's gru
+        layers are zeros).  A SEQUENCE of arrays (the serving admission
+        wave) packs every request into ONE DispatchPlan — their (layer,
+        time-chunk) cells share wavefront slots and cross-B rows — and
+        returns a list of (ys, state).
 
         Bidirectional stacks return per-direction state
         ``{"fwd": {"h", "c"}, "bwd": {...}}`` — fwd's walk ends at t=T,
@@ -412,13 +434,14 @@ class CompiledStack:
         return res[0] if single else res
 
     def decode(self, x_t, state):
-        """One planned T=1 tick resumed from ``state`` ({"h": (L, B, H),
-        "c": (L, B, H)}); returns (y_t (B, 1, H), new_state).
+        """One planned T=1 tick resumed from ``state`` ({"h": (L, B, H)
+        [, "c"]}); returns (y_t (B, 1, H), new_state).
 
-        The whole tick runs as ONE chained ``lstm_decode`` launch (the
-        serving steady state).  The policy's schedule preference does not
-        apply here — decode is always state-resumed, which only the
-        dispatcher paths support.
+        Homogeneous lstm/gru stacks run the whole tick as ONE chained
+        ``lstm_decode`` / ``gru_decode`` launch (the serving steady state);
+        mixed stacks run a per-layer T=1 plan (L launches).  The policy's
+        schedule preference does not apply here — decode is always
+        state-resumed, which only the dispatcher paths support.
         """
         if self.bidirectional:
             raise ValueError(
@@ -440,16 +463,33 @@ class CompiledStack:
                  for k, v in state.items()}
         tr = self.tracer
         with tr.span("decode_tick", B=B) as sp:
-            p = self._cached(("dec", B, dtype), lambda: plan_decode(
-                [self._item(0, B, 1, dtype)], macs=self.policy.macs,
-                tracer=tr))
-            if self._prepared is None:
-                self._prepared = prepare_decode_stack(self.params)
+            key = ("dec", B, dtype)
+            if not self.heterogeneous:
+                p = self._cached(key, lambda: plan_decode(
+                    [self._item(0, B, 1, dtype)], macs=self.policy.macs,
+                    tracer=tr))
+                if self._prepared is None:
+                    self._prepared = prepare_decode_stack(
+                        self.params, self.families[0])
+                prepared = {0: self._prepared}
+            else:
+                # mixed stacks: per-layer T=1 plan — FORCED onto the packed
+                # timeline (schedule="wavefront" at bt=1 collapses to
+                # packable per-layer cells), because only packed items
+                # resume from init_state; at T=1 the auto scorer's fused
+                # and per_step estimates tie to within rounding, and a
+                # per_step pick would route external, where execute()
+                # rejects init_state
+                p = self._cached(key, lambda: plan(
+                    [self._item(0, B, 1, dtype)], macs=self.policy.macs,
+                    cross_b=self.policy.packing, schedule="wavefront",
+                    block_t=1, tracer=tr))
+                prepared = None
             rep, guard = self._guard()
             outs, states = execute(p, {0: self.params}, {0: x_t},
                                    collect_state=True,
                                    init_state={0: state},
-                                   prepared={0: self._prepared}, **guard)
+                                   prepared=prepared, **guard)
             outs, states = tr.fence((outs, states))
             if tr.enabled:
                 sp.tag(plan=tr.plan_id(p), launches=p.launches)
@@ -460,10 +500,12 @@ class CompiledStack:
 
     # ------------------------------------------------------------------
     def describe(self) -> str:
+        fams = ("/".join(self.families) if self.heterogeneous
+                else self.families[0])
         bi = " bidirectional" if self.bidirectional else ""
         s = self.stats
         lines = [
-            f"CompiledStack: {self.families[0]} L{self.L} H{self.H} "
+            f"CompiledStack: {fams} L{self.L} H{self.H} "
             f"X{self.X}{bi} on {self.device}",
             f"  {self.policy.describe()}",
             "  cost model: analytic (perfmodel cycle formulas)",

@@ -2,8 +2,10 @@
 
 The port of ``repro.serving.recurrent``, with the same semantics.  The
 engine runs on ``device`` ("cuda" by default — the hand-written
-``lstm_seq`` / ``lstm_decode`` kernels; "cpu" for their plain versions)
-and keeps its batched (h, c) decode state there in fp32.
+``lstm_seq`` / ``lstm_decode`` kernels, or ``gru_seq`` / ``gru_decode``
+for ``rnn_family="gru"``; "cpu" for their plain versions) and keeps its
+batched decode state there in fp32: (h, c) for an LSTM stack, h alone
+for a GRU stack (``self.c`` is None).
 
 A transformer engine admits requests one prefill at a time; recurrent stacks can do strictly better, because *prefill itself is a
 recurrence* — an (L layers x T steps) dependency grid.  This engine admits
@@ -81,7 +83,7 @@ from repro_torch.rnn import (CompiledStack, ExecutionPolicy,
 from repro_torch.runtime import obs
 from repro_torch.runtime.errors import (LaunchError, NonFiniteStateError,
                                         PlanRejected, QueueFull,
-                                        RequestTimeout, not_ported)
+                                        RequestTimeout)
 from repro_torch.runtime.ft import StragglerWatchdog
 
 #: completion statuses: "ok" = ran to its frame budget; "failed" = faulted
@@ -137,8 +139,6 @@ class RecurrentServingEngine:
         if rnn_family not in ("lstm", "gru"):
             raise PlanRejected(f"rnn_family={rnn_family!r} invalid; "
                                "allowed: lstm, gru")
-        if rnn_family == "gru":
-            raise not_ported("the GRU family (rnn_family='gru')", "P3")
         if backpressure not in BACKPRESSURE:
             raise ValueError(f"backpressure={backpressure!r} invalid; "
                              f"allowed: {', '.join(BACKPRESSURE)}")
@@ -173,8 +173,9 @@ class RecurrentServingEngine:
         dev = self.device
         self.h = torch.zeros((L, max_batch, H), dtype=torch.float32,
                              device=dev)
-        self.c = torch.zeros((L, max_batch, H), dtype=torch.float32,
-                             device=dev)
+        # cell state exists for LSTM stacks only; a GRU engine keeps h
+        self.c = (torch.zeros((L, max_batch, H), dtype=torch.float32,
+                              device=dev) if rnn_family == "lstm" else None)
         self.last_y = torch.zeros((max_batch, 1, H), dtype=torch.float32,
                                   device=dev)
 
@@ -351,7 +352,7 @@ class RecurrentServingEngine:
                 "can only serve stacks whose executor surfaces exact "
                 "t=T (h[, c]) state", uids=(req.uid,))
         h_col = st["h"][:, 0].float()
-        c_col = st["c"][:, 0].float()
+        c_col = st["c"][:, 0].float() if self.c is not None else None
         if self.poison_slot_at.get(req.uid) == -1:
             # injected fault: the quarantine below sees a REAL poisoned
             # splice, not a simulated flag
@@ -359,7 +360,7 @@ class RecurrentServingEngine:
         out_t = out_b[0]                            # (T, H)
         finite = bool(torch.isfinite(h_col).all()
                       and torch.isfinite(out_t).all()
-                      and torch.isfinite(c_col).all())
+                      and (c_col is None or torch.isfinite(c_col).all()))
         out = out_t.float().cpu().numpy()
         if not finite:
             self._fail_unadmitted(req, str(NonFiniteStateError(
@@ -368,7 +369,8 @@ class RecurrentServingEngine:
                 where="prefill state")))
             return
         self.h[:, slot] = h_col
-        self.c[:, slot] = c_col
+        if self.c is not None:
+            self.c[:, slot] = c_col
         self.prefill_out[slot] = out
         self.last_y[slot, 0] = out_t[-1].float()
         self.slots[slot] = req
@@ -399,7 +401,9 @@ class RecurrentServingEngine:
                     self.slots[s].uid) == self.slot_ticks[s]:
                 self.h[:, s] = float("nan")
         idx = torch.as_tensor(active, device=self.device)
-        state = {"h": self.h[:, idx], "c": self.c[:, idx]}
+        state = {"h": self.h[:, idx]}
+        if self.c is not None:
+            state["c"] = self.c[:, idx]
         t0 = obs.monotonic_s()
         y, st = self.compiled.decode(self.last_y[idx], state)
         p = self.compiled.last_decode_plan
@@ -424,13 +428,16 @@ class RecurrentServingEngine:
                 self.tracer.metrics.counter("straggler_ticks").add()
 
         self.h[:, idx] = st["h"].float()
-        self.c[:, idx] = st["c"]
+        if self.c is not None:
+            self.c[:, idx] = st["c"]
         frames = y[:, 0].float()                        # (k, H)
         self.last_y[idx, 0] = frames
         # one host copy per tick: the frames and a per-row finiteness flag
         rows_ok = (torch.isfinite(st["h"]).all(dim=2).all(dim=0)
-                   & torch.isfinite(frames).all(dim=1)
-                   & torch.isfinite(st["c"]).all(dim=2).all(dim=0)).tolist()
+                   & torch.isfinite(frames).all(dim=1))
+        if self.c is not None:
+            rows_ok &= torch.isfinite(st["c"]).all(dim=2).all(dim=0)
+        rows_ok = rows_ok.tolist()
         frames_np = frames.cpu().numpy()
         poisoned = []
         for i, s in enumerate(active):

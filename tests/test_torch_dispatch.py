@@ -208,15 +208,27 @@ def test_policy_validation_messages_match_reference():
 
 
 def test_unported_families_and_schedules_raise():
+    """What the port does not carry yet raises, naming its ROADMAP item:
+    rglru items (P4) and quantized recurrent weights (P1).  The GRU family
+    and the off-timeline schedules are ported (tests/test_torch_gru.py,
+    tests/test_torch_offpath.py)."""
+    rglru = dispatch.plan([dispatch.WorkItem(uid=0, family="rglru", B=1,
+                                             T=4, H=8, L=1)])
+    with pytest.raises(NotImplementedError, match="P4"):
+        dispatch.execute(rglru, {}, {})
+    quant = dispatch.plan([dispatch.WorkItem(uid=0, family="lstm", B=1,
+                                             T=4, H=8, L=1,
+                                             precision="int8")])
+    with pytest.raises(NotImplementedError, match="P1"):
+        dispatch.execute(quant, {}, {})
     gru = {"layers": [{"W": torch.zeros(8, 24), "U": torch.zeros(8, 24),
                        "b": torch.zeros(24)}]}
-    with pytest.raises(NotImplementedError, match="P3"):
-        rnn.compile(gru, device="cpu")
+    assert rnn.compile(gru, device="cpu").forward(
+        torch.zeros(1, 5, 8)).shape == (1, 5, 8)
     _, params = _stacks(False)
     cs = rnn.compile(params, rnn.ExecutionPolicy(schedule="sequential"),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="P5"):
-        cs.forward(torch.zeros(1, 5, 24))
+    assert cs.forward(torch.zeros(1, 5, 24)).shape == (1, 5, 24)
 
 
 def test_guarded_ladder_recovers_and_build_errors_pass_through(

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from repro.kernels.lstm_cell import ops as jops
+from repro_torch.kernels import build as kernel
 from repro_torch.kernels.common import KernelBuildError, reset_counts
-from repro_torch.kernels.lstm_cell import kernel, ops
+from repro_torch.kernels.lstm_cell import ops
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
