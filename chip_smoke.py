@@ -8,12 +8,15 @@ Phases, one line (or a few) of output each:
 
   1 card       the card's name and power limit (nvidia-smi), torch and
                CUDA
-  2 build      nvcc builds all five kernels from src/repro_torch/csrc
+  2 build      nvcc builds all six kernels from src/repro_torch/csrc
                (sm_90a), one process per source, all started together
   3 kernels    each CUDA kernel against its plain PyTorch version on the
                card, at the main path's shapes; median times (CUDA events)
                of the kernel, the plain version and one PyTorch library
-               call (cuDNN nn.LSTM / nn.GRU / nn.LSTMCell) as a yardstick
+               call (cuDNN nn.LSTM / nn.GRU / nn.LSTMCell) as a yardstick;
+               lstm_seq and gru_seq also with int8 U, with row-compacted U
+               and with both, at a BYSDNE int8 wavefront slot; rglru_scan
+               at the rglru phase's shape and at a ragged W = 513
   4 serve      RecurrentServingEngine serves the paper's BYSDNE LSTM (L=5,
                H=X=340, bf16 weights from a seeded torch.Generator): 6
                requests in two admission waves, then decode ticks; every
@@ -36,8 +39,23 @@ Phases, one line (or a few) of output each:
                decode tick resumed from its prefill state: 4 launches);
                the "unfolded" research schedule (plain PyTorch, zero
                kernel launches); each held against the CPU path
-  8 summary    one JSON line {"kernels": [...]} with each kernel's
-               launches, max error, times and bound
+  8 rglru      one RG-LRU layer of RecurrentGemma-2B at full width (W =
+               2560, B = 4, T = 2048, random weights from a seeded
+               torch.Generator): gate_inputs, then dispatch.execute of an
+               L=1 rglru item — one rglru_scan launch == plan.launches;
+               held against the device="cpu" path; the model's L=18 item
+               stays plan-only; a mixed plan of one BYSDNE LSTM item and
+               one rglru item runs in one execute
+  9 precision  BYSDNE as an LSTM and as a GRU (bf16 weights, layer l's U
+               with every 8-row tile t, t % (l + 2) == 0, zeroed) under
+               ExecutionPolicy(precision="int8", sparsity="block") at B=4,
+               T=30: forward, prefill, then decode ticks resumed from the
+               prefill state; then int8 alone and bf16 + block sparsity,
+               forward; launches == the plans' launches in every run, each
+               output held against the CPU path
+ 10 summary    one JSON line {"kernels": [...]} with each kernel's (and
+               each lstm_seq / gru_seq weight branch's) launches, max
+               error, times and bound
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  The script imports nothing of JAX and nothing of the
@@ -56,15 +74,30 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "serve_gru",
-          "offpath", "summary")
-#: kernel -> (ctx key of its measurements, the TPU kernel it replaces)
+          "offpath", "rglru", "precision", "summary")
+#: kernel source -> the TPU kernel it replaces
 KERNELS = {
-    "lstm_seq": ("seq", "src/repro/kernels/lstm_cell/kernel.py:205"),
-    "lstm_decode": ("decode", "src/repro/kernels/lstm_cell/kernel.py:337"),
-    "lstm_cell": ("cell", "src/repro/kernels/lstm_cell/kernel.py:76"),
-    "gru_seq": ("gru_seq", "src/repro/kernels/gru_cell/kernel.py:111"),
-    "gru_decode": ("gru_decode", "src/repro/kernels/gru_cell/kernel.py:217"),
+    "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
+    "lstm_decode": "src/repro/kernels/lstm_cell/kernel.py:337",
+    "lstm_cell": "src/repro/kernels/lstm_cell/kernel.py:76",
+    "gru_seq": "src/repro/kernels/gru_cell/kernel.py:111",
+    "gru_decode": "src/repro/kernels/gru_cell/kernel.py:217",
+    "rglru_scan": "src/repro/kernels/rglru/kernel.py:40",
 }
+#: the sequence kernels' weight branches (kernels.common.seq_variant): a
+#: summary row each, "lstm_seq" for dense U, "lstm_seq[int8]" and so on
+VARIANTS = ("dense", "int8", "compact", "int8+compact")
+SEQ_KERNELS = ("lstm_seq", "gru_seq")
+
+
+def row_name(kernel: str, variant: str = "dense") -> str:
+    return kernel if variant == "dense" else f"{kernel}[{variant}]"
+
+
+#: summary rows: (row name — also the ctx key of its measurements —,
+#: kernel source)
+ROWS = tuple((row_name(k, v), k) for k in KERNELS
+             for v in (VARIANTS if k in SEQ_KERNELS else ("dense",)))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit): the
 # kernels compute in fp32 on the CUDA cores, so fp32 is their rate
@@ -152,6 +185,27 @@ def bound(nbytes: float, flops: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def entries():
+    """Every kernel entry point of the port (each carries its counters)."""
+    from repro_torch import kernels
+
+    return (kernels.lstm_seq, kernels.lstm_decode, kernels.lstm_cell,
+            kernels.gru_seq, kernels.gru_decode, kernels.rglru_scan)
+
+
+def tally(ctx, *fns) -> None:
+    """Add the kernel launches ``fns`` counted since their last reset to
+    the summary's rows (the sequence kernels by weight branch)."""
+    for fn in fns:
+        if fn.__name__ in SEQ_KERNELS:
+            check(sum(fn.variant_launches.values()) == fn.kernel_launches,
+                  f"{fn.__name__}: branch counts disagree with its launches")
+            for variant, n in fn.variant_launches.items():
+                ctx["launches"][row_name(fn.__name__, variant)] += n
+        else:
+            ctx["launches"][fn.__name__] += fn.kernel_launches
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +356,7 @@ def phase_kernels(ctx):
                   + G * B * T * H + 2 * G * B * H)
     flops = G * B * T * (8 * H * H + 4 * H + 10 * H)
     b_ms, b_by = bound(nbytes, flops)
-    ctx["seq"] = dict(max_abs_err=seq_err, ms=k_ms, plain_ms=p_ms,
+    ctx["lstm_seq"] = dict(max_abs_err=seq_err, ms=k_ms, plain_ms=p_ms,
                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                       shape=f"G={G} B={B} T={T} H={H} fp32")
     print(f"kernels: lstm_seq at G={G} B={B} T={T} H={H} fp32: kernel "
@@ -325,7 +379,7 @@ def phase_kernels(ctx):
               + 4 * (B * 4 * H + 4 * L * B * H))
     flops = B * ((2 * L - 1) * 8 * H * H + L * 14 * H)
     b_ms, b_by = bound(nbytes, flops)
-    ctx["decode"] = dict(max_abs_err=dec_err, ms=k_ms, plain_ms=p_ms,
+    ctx["lstm_decode"] = dict(max_abs_err=dec_err, ms=k_ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"L={L} B={B} H={H} bf16 weights")
     print(f"kernels: lstm_decode at L={L} B={B} H={H} bf16 weights: kernel "
@@ -334,6 +388,8 @@ def phase_kernels(ctx):
           f"{b_ms:.6f} ms ({b_by})")
     _kernels_gru(ctx, dev)
     _kernels_cell(ctx, dev)
+    _kernels_seq_variants(ctx, dev)
+    _kernels_rglru(ctx, dev)
 
 
 def _kernels_gru(ctx, dev):
@@ -489,12 +545,202 @@ def _kernels_cell(ctx, dev):
     nbytes = 2 * H * 4 * H + 4 * (B * 4 * H + 4 * B * H)
     flops = B * (8 * H * H + 14 * H)
     b_ms, b_by = bound(nbytes, flops)
-    ctx["cell"] = dict(max_abs_err=cell_err, ms=k_ms, plain_ms=p_ms,
+    ctx["lstm_cell"] = dict(max_abs_err=cell_err, ms=k_ms, plain_ms=p_ms,
                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                        shape=f"B={B} H={H} bf16 U, fp32 xw/h/c")
     print(f"kernels: lstm_cell at B={B} H={H} bf16 U: kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms, nn.LSTMCell (fp32, input GEMM included) "
           f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+
+def _weight_branch(U, variant: str, first_layer: int = 0):
+    """(U, u_scales, u_rows) of one sequence-kernel weight branch for the
+    G cells of U (G, H, gates, H): cell g stands for layer first_layer + g
+    of the precision phase's stack, whose 8-row tiles t with
+    t % (layer + 2) == 0 are zeroed (so the cells keep different row
+    counts and a compacted launch pads them to one Ha); then U is
+    quantized per gate ("int8") and/or row-compacted ("compact")."""
+    import torch
+
+    from repro_torch.kernels import quant
+
+    G, H = U.shape[0], U.shape[1]
+    U = U.float().clone()
+    maps = []
+    for g in range(G):
+        keep = tuple(int(t % (first_layer + g + 2) != 0)
+                     for t in range(-(-H // 8)))
+        for t, bit in enumerate(keep):
+            if not bit:
+                U[g, t * 8:(t + 1) * 8] = 0.0
+        maps.append(keep)
+    scales = rows = None
+    if "int8" in variant:
+        q = [quant.quantize_per_gate(U[g]) for g in range(G)]
+        U = torch.stack([u for u, _ in q])
+        scales = torch.stack([sc for _, sc in q])
+    if "compact" in variant:
+        Ha = max(len(quant.active_row_indices(m, H)) for m in maps)
+        c = [quant.compact_rows(U[g], maps[g], pad_to=Ha) for g in range(G)]
+        U = torch.stack([u for u, _ in c])
+        rows = torch.stack([r for _, r in c])
+    return U, scales, rows
+
+
+def _seq_bound(family, G, B, T, H, U, scales, rows, act_bytes=4):
+    """Least time of one sequence-kernel launch: bytes (U in its stored
+    type, its scales and row index, xw, state in and out, hs) or FLOPs
+    (the h·U products over the rows U holds, and the cell's pointwise
+    work), whichever is larger."""
+    gates = 4 if family == "lstm" else 3
+    Hr = U.shape[1]
+    nbytes = (U.numel() * U.element_size()
+              + (0 if scales is None else 4 * scales.numel())
+              + (0 if rows is None else 4 * rows.numel())
+              + act_bytes * (G * B * T * gates * H + G * B * T * H
+                             + 2 * G * B * H))
+    if family == "lstm":
+        nbytes += 4 * 2 * G * B * H  # c0 in, c_T out
+        flops = G * B * T * (8 * Hr * H + 4 * H + 10 * H)
+    else:
+        flops = G * B * T * (6 * Hr * H + 12 * H)
+    if scales is not None:
+        flops += G * B * T * gates * H
+    return bound(nbytes, flops)
+
+
+def _kernels_seq_variants(ctx, dev):
+    """lstm_seq and gru_seq with int8 U, with row-compacted U and with
+    both, against their plain versions on the same operands, then timed at
+    a BYSDNE int8 wavefront slot (G=2 cells of layers 1 and 2, B=4, 15
+    steps, H=340)."""
+    import torch
+
+    from repro_torch.kernels.common import ragged_b_mask
+    from repro_torch.kernels.gru_cell import ops as gops
+    from repro_torch.kernels.lstm_cell import ops as lops
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    fams = {"lstm": (4, lops.lstm_seq, lops.lstm_seq_plain),
+            "gru": (3, gops.gru_seq, gops.gru_seq_plain)}
+    # wavefront slots at H=340 (ragged B, remainder chunks, bf16
+    # activations) and H=50, whose last 8-row tile is 2 rows and whose 3H
+    # takes the GRU kernel's scalar path
+    cases = [(2, 4, 15, 340, f32, None, 1), (5, 4, 8, 340, f32,
+                                             [4, 3, 4, 1, 1], 0),
+             (3, 4, 8, 340, bf16, [4, 2, 1], 2), (2, 3, 9, 50, f32, [3, 1], 0)]
+    for family, (gates, seq, plain) in fams.items():
+        for variant in VARIANTS[1:]:
+            err_max = 0.0
+            for i, (G, B, T, H, ad, b_valid, l0) in enumerate(cases):
+                U, xw, h0, c0 = _seq_case(G, B, T, H, f32, ad, seed=60 + i,
+                                          dev=dev, gates=gates)
+                U, sc, rows = _weight_branch(U, variant, first_layer=l0)
+                mask = (None if b_valid is None
+                        else ragged_b_mask(G, B, b_valid, dev))
+                st = (h0, c0) if family == "lstm" else (h0,)
+                ref = plain(U, xw, *st, mask, sc, rows)
+                out = seq(U, xw, *st, b_valid=b_valid, u_scales=sc,
+                          u_rows=rows)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                tol = TOL_FP32 if ad == f32 else TOL_BF16
+                print(f"kernels: {family}_seq[{variant}] G={G} B={B} T={T} "
+                      f"H={H} Hr={U.shape[1]} act={ad} b_valid={b_valid}: "
+                      f"max_abs_err {err:.3e} (tol {tol:g})")
+                check(err <= tol, f"{family}_seq[{variant}] disagrees with "
+                                  f"its plain version: {err:.3e} > {tol:g}")
+                if ad == f32:
+                    err_max = max(err_max, err)
+            # a remainder walk: chunks 8+8+8+5 chained through the state
+            # against one plain walk over T=29
+            U, xw, h0, c0 = _seq_case(2, 4, 29, 340, f32, f32, seed=70,
+                                      dev=dev, gates=gates)
+            U, sc, rows = _weight_branch(U, variant, first_layer=3)
+            st = [h0, c0] if family == "lstm" else [h0]
+            ref = plain(U, xw, *st, None, sc, rows)
+            outs = []
+            for t0 in range(0, 29, 8):
+                o, *st = seq(U, xw[:, :, t0:t0 + 8], *st, u_scales=sc,
+                             u_rows=rows, block_t=8)
+                outs.append(o)
+            err = max_err([torch.cat(outs, 2)] + st, ref)
+            print(f"kernels: {family}_seq[{variant}] chunked 8+8+8+5 vs one "
+                  f"plain walk T=29: max_abs_err {err:.3e} (tol "
+                  f"{TOL_FP32:g})")
+            check(err <= TOL_FP32, f"chunked {family}_seq[{variant}] walk "
+                                   "disagrees")
+            err_max = max(err_max, err)
+
+            G, B, T, H = 2, 4, 15, 340
+            U, xw, h0, c0 = _seq_case(G, B, T, H, f32, f32, seed=71,
+                                      dev=dev, gates=gates)
+            U, sc, rows = _weight_branch(U, variant, first_layer=1)
+            st = (h0, c0) if family == "lstm" else (h0,)
+            k_ms = median_ms(lambda: seq(U, xw, *st, u_scales=sc,
+                                         u_rows=rows), reps=20)
+            p_ms = median_ms(lambda: plain(U, xw, *st, None, sc, rows),
+                             reps=20)
+            b_ms, b_by = _seq_bound(family, G, B, T, H, U, sc, rows)
+            key = row_name(f"{family}_seq", variant)
+            ctx[key] = dict(max_abs_err=err_max, ms=k_ms, plain_ms=p_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                            shape=f"G={G} B={B} T={T} H={H} Hr={U.shape[1]} "
+                                  f"{U.dtype} U, fp32 xw/h")
+            print(f"kernels: {key} at G={G} B={B} T={T} H={H} "
+                  f"Hr={U.shape[1]} U={U.dtype}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no "
+                  f"library call takes this weight form")
+
+
+def _rglru_case(B, T, W, seed, dev):
+    """(log_a, gx, h0) of the scan: log_a = -|N|·0.3, gx and h0 N(0, 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    log_a = -torch.randn((B, T, W), generator=g).abs() * 0.3
+    gx = torch.randn((B, T, W), generator=g)
+    h0 = torch.randn((B, W), generator=g)
+    return [t.to(dev) for t in (log_a, gx, h0)]
+
+
+def _kernels_rglru(ctx, dev):
+    """rglru_scan against its plain version at the rglru phase's shape and
+    at ragged widths, then timed at the rglru phase's shape."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops
+
+    err_max = 0.0
+    for i, (B, T, W) in enumerate(((4, 2048, 2560), (1, 64, 513),
+                                   (3, 13, 100), (2, 1, 33))):
+        args = _rglru_case(B, T, W, seed=80 + i, dev=dev)
+        ref = ops.rglru_scan_plain(*args)
+        out = ops.rglru_scan(*args)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        exact = bool(torch.equal(out[0][:, -1], out[1]))
+        print(f"kernels: rglru_scan B={B} T={T} W={W}: max_abs_err "
+              f"{err:.3e} (tol {TOL_FP32:g}); hs[:, -1] == h_T {exact}")
+        check(err <= TOL_FP32 and exact,
+              f"rglru_scan disagrees with its plain version: {err:.3e}")
+        err_max = max(err_max, err)
+
+    B, T, W = 4, 2048, 2560
+    args = _rglru_case(B, T, W, seed=90, dev=dev)
+    k_ms = median_ms(lambda: ops.rglru_scan(*args), reps=20)
+    p_ms = median_ms(lambda: ops.rglru_scan_plain(*args), reps=1, trials=3)
+    # read log_a, gx and h0, write hs and h_T; per element two exps, a
+    # sqrt and six adds, multiplies or maxima
+    nbytes = 4 * (3 * B * T * W + 2 * B * W)
+    b_ms, b_by = bound(nbytes, 9 * B * T * W)
+    ctx["rglru_scan"] = dict(max_abs_err=err_max, ms=k_ms, plain_ms=p_ms,
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                             shape=f"B={B} T={T} W={W} fp32")
+    print(f"kernels: rglru_scan at B={B} T={T} W={W}: kernel {k_ms:.4f} ms "
+          f"({nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); no single PyTorch call computes a "
+          f"gated linear recurrence")
 
 
 REQUESTS = (30, 30, 17, 45, 8, 30)
@@ -520,19 +766,17 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
     import torch
 
     from repro_torch.configs.sharp_lstm import BYSDNE
-    from repro_torch.kernels import (gru_decode, gru_seq, lstm_cell,
-                                     lstm_decode, lstm_seq)
     from repro_torch.kernels.common import reset_counts
 
     rng = np.random.default_rng(0)
     frames = [(rng.standard_normal((t, BYSDNE.lstm_input)) * 0.5)
               .astype(np.float32) for t in REQUESTS]
-    entries = (lstm_seq, lstm_decode, lstm_cell, gru_seq, gru_decode)
-    reset_counts(*entries)
+    everything = entries()
+    reset_counts(*everything)
     eng, done = _serve("cuda", params, frames, family)
     torch.cuda.synchronize()
     seq_n, dec_n = seq_k.kernel_launches, dec_k.kernel_launches
-    others = sum(f.calls for f in entries if f not in (seq_k, dec_k))
+    others = sum(f.calls for f in everything if f not in (seq_k, dec_k))
     st = eng.compiled.stats
     print(f"{label}: {len(done)} requests, statuses "
           f"{[c.status for c in done]}, {eng.prefill_waves} waves "
@@ -553,8 +797,7 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
           "family's kernel was called")
     check(st.degraded_launches == 0 and st.fallback_level == 0,
           "a launch degraded down the guarded ladder")
-    ctx["launches"][seq_k.__name__] += seq_n
-    ctx["launches"][dec_k.__name__] += dec_n
+    tally(ctx, seq_k, dec_k)
 
     _, cpu_done = _serve("cpu", params, frames, family)
     err = max(max(float(np.abs(g.outputs - c.outputs).max()),
@@ -610,7 +853,7 @@ def phase_forward(ctx):
     xs = (np.random.default_rng(1).standard_normal((4, 300, 340)) * 0.5
           ).astype(np.float32)
     cs = rnn.compile(cfg, device="cuda", seed=0)
-    reset_counts(lstm_seq, lstm_decode)
+    reset_counts(*entries())
     ys = cs.forward(xs)
     torch.cuda.synchronize()
     n, p = lstm_seq.kernel_launches, cs.plan.launches
@@ -624,7 +867,7 @@ def phase_forward(ctx):
           "forward launches != plan.launches")
     check(cs.stats.degraded_launches == 0 and cs.stats.fallback_level == 0,
           "a forward launch degraded down the guarded ladder")
-    ctx["launches"]["lstm_seq"] += n
+    tally(ctx, lstm_seq)
 
     ref = rnn.compile(cfg, device="cpu", seed=0).forward(xs)
     err = float((ys.cpu() - ref).abs().max())
@@ -717,22 +960,21 @@ def phase_offpath(ctx):
     from repro_torch import rnn
     from repro_torch.configs.sharp_lstm import BYSDNE
     from repro_torch.kernels.common import reset_counts
-    from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
-    from repro_torch.kernels.lstm_cell.ops import (lstm_cell, lstm_decode,
-                                                   lstm_seq)
+    from repro_torch.kernels.gru_cell.ops import gru_seq
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_seq
 
-    entries = (lstm_seq, lstm_decode, lstm_cell, gru_seq, gru_decode)
+    everything = entries()
     xs = (np.random.default_rng(2).standard_normal((4, 30, 340)) * 0.5
           ).astype(np.float32)
 
     # (1) BYSDNE under per_step: one lstm_cell launch per (layer, step)
     pol = rnn.ExecutionPolicy(schedule="per_step")
     cs = rnn.compile(BYSDNE, pol, device="cuda", seed=0)
-    reset_counts(*entries)
+    reset_counts(*everything)
     ys = cs.forward(xs)
     torch.cuda.synchronize()
     n, p = lstm_cell.kernel_launches, cs.plan.launches
-    others = sum(f.calls for f in entries if f is not lstm_cell)
+    others = sum(f.calls for f in everything if f is not lstm_cell)
     print(f"offpath: per_step BYSDNE B=4 T=30 -> {tuple(ys.shape)}; "
           f"lstm_cell kernel launches {n}, calls {lstm_cell.calls}, "
           f"plan.launches {p}; other kernels called {others} times")
@@ -740,7 +982,7 @@ def phase_offpath(ctx):
           "per_step launches != plan.launches == 150")
     check(tuple(ys.shape) == (4, 30, 340) and bool(torch.isfinite(ys).all()),
           "per_step output has the wrong shape or is not finite")
-    ctx["launches"]["lstm_cell"] += n
+    tally(ctx, lstm_cell)
     ref = rnn.compile(BYSDNE, pol, device="cpu", seed=0).forward(xs)
     err = float((ys.cpu() - ref).abs().max())
     print(f"offpath: per_step vs the CPU path max_abs_err {err:.3e} (tol "
@@ -760,19 +1002,21 @@ def phase_offpath(ctx):
     params = _mixed_stack(340, seed=3)
     cs = rnn.compile(params, device="cuda")
     cpu = rnn.compile(params, device="cpu")
-    reset_counts(*entries)
+    reset_counts(*everything)
     ys = cs.forward(xs)
     torch.cuda.synchronize()
     fwd_n = (lstm_seq.kernel_launches, gru_seq.kernel_launches)
     check(sum(fwd_n) == cs.plan.launches
-          and sum(f.calls for f in entries) == cs.plan.launches,
+          and sum(f.calls for f in everything) == cs.plan.launches,
           "mixed forward launches != plan.launches")
+    tally(ctx, lstm_seq, gru_seq)
     err = float((ys.cpu() - cpu.forward(xs)).abs().max())
     (ys, st), (cys, cst) = cs.prefill(xs), cpu.prefill(xs)
-    reset_counts(*entries)
+    reset_counts(*everything)
     y, st = cs.decode(ys[:, -1:], st)
     torch.cuda.synchronize()
     dec_n = (lstm_seq.kernel_launches, gru_seq.kernel_launches)
+    tally(ctx, lstm_seq, gru_seq)
     cy, cst = cpu.decode(cys[:, -1:], cst)
     dec_err = max(float((y.cpu() - cy).abs().max()),
                   max(float((st[k].cpu() - cst[k]).abs().max())
@@ -787,16 +1031,14 @@ def phase_offpath(ctx):
           "the mixed stack disagrees with the CPU path")
     check(sum(dec_n) == cs.last_decode_plan.launches == 4,
           "the mixed decode tick did not take its 4 per-layer launches")
-    ctx["launches"]["lstm_seq"] += fwd_n[0] + dec_n[0]
-    ctx["launches"]["gru_seq"] += fwd_n[1] + dec_n[1]
 
     # (3) a research schedule: plain PyTorch on the card, zero launches
     pol = rnn.ExecutionPolicy(schedule="unfolded")
     cs = rnn.compile(BYSDNE, pol, device="cuda", seed=0)
-    reset_counts(*entries)
+    reset_counts(*everything)
     ys = cs.forward(xs)
     torch.cuda.synchronize()
-    calls = sum(f.calls for f in entries)
+    calls = sum(f.calls for f in everything)
     err = float((ys.cpu() - rnn.compile(BYSDNE, pol, device="cpu", seed=0)
                  .forward(xs)).abs().max())
     print(f"offpath: unfolded BYSDNE B=4 T=30: {calls} kernel calls "
@@ -807,14 +1049,245 @@ def phase_offpath(ctx):
     check(err <= TOL_E2E, "unfolded output disagrees with the CPU path")
 
 
+def _stack(family: str, seed: int):
+    """BYSDNE (L=5, H=X=340) as ``family``, bf16 weights from a seeded
+    torch.Generator, with layer l's U zeroed on every 8-row tile t with
+    t % (l + 2) == 0 (H=340 has 43 tiles, the last one 4 rows)."""
+    import torch
+
+    from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.core.gru import init_gru_stack
+    from repro_torch.models.layers.lstm import init_lstm_stack
+
+    gen = torch.Generator().manual_seed(seed)
+    if family == "lstm":
+        params = init_lstm_stack(gen, BYSDNE, torch.bfloat16)
+    else:
+        params = init_gru_stack(gen, BYSDNE.lstm_input, BYSDNE.lstm_hidden,
+                                BYSDNE.n_layers, torch.bfloat16)
+    H = BYSDNE.lstm_hidden
+    for l, layer in enumerate(params["layers"]):
+        for t in range(0, -(-H // 8), l + 2):
+            layer["U"][t * 8:(t + 1) * 8] = 0
+    return params
+
+
+def phase_rglru(ctx):
+    """RecurrentGemma-2B's RG-LRU layer at full width through the
+    dispatcher: one rglru_scan launch per L=1 item."""
+    import numpy as np
+    import torch
+
+    from repro_torch import dispatch, rnn
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.models.layers.lstm import init_lstm_stack
+    from repro_torch.models.layers.rglru import gate_inputs, init_rglru
+
+    dev = rnn.resolve_device("cuda")  # also keeps the gate GEMMs out of TF32
+    everything = entries()
+    cfg = recurrentgemma_2b.config()
+    W, B, T = cfg.rglru_width, 4, cfg.window
+    params = init_rglru(torch.Generator().manual_seed(0), W, cfg.dtype)
+    x = (np.random.default_rng(4).standard_normal((B, T, W)) * 0.5
+         ).astype(np.float32)
+    with torch.no_grad():
+        la, gx = gate_inputs({k: v.to(dev) for k, v in params.items()},
+                             torch.from_numpy(x).to(dev))
+        cla, cgx = gate_inputs(params, torch.from_numpy(x))
+    item = dispatch.WorkItem(uid=0, family="rglru", B=B, T=T, H=W, X=W, L=1)
+    p = dispatch.plan([item])
+    reset_counts(*everything)
+    hs = dispatch.execute(p, {}, {0: (la, gx)})[0]
+    torch.cuda.synchronize()
+    n = rglru_scan.kernel_launches
+    others = sum(f.calls for f in everything if f is not rglru_scan)
+    print(f"rglru: {cfg.name} RG-LRU layer W={W} B={B} T={T} -> "
+          f"{tuple(hs.shape)}; rglru_scan kernel launches {n}, calls "
+          f"{rglru_scan.calls}, plan.launches {p.launches}; other kernels "
+          f"called {others} times")
+    check(n == rglru_scan.calls == p.launches == 1 and others == 0,
+          "the rglru item did not take exactly one rglru_scan launch")
+    tally(ctx, rglru_scan)
+    check(tuple(hs.shape) == (B, T, W) and bool(torch.isfinite(hs).all()),
+          "rglru output has the wrong shape or is not finite")
+    ref = dispatch.execute(p, {}, {0: (cla, cgx)})[0]
+    err = float((hs.cpu() - ref).abs().max())
+    print(f"rglru: vs the device=\"cpu\" path (gate GEMMs and scan) "
+          f"max_abs_err {err:.3e} (tol {TOL_E2E:g})")
+    check(err <= TOL_E2E, "rglru output disagrees with the CPU path")
+
+    full = dispatch.WorkItem.from_config(cfg, T, B=B)
+    try:
+        dispatch.execute(dispatch.plan([full]), {}, {})
+        refused = False
+    except NotImplementedError:
+        refused = True
+    print(f"rglru: the whole model's item (L={full.L}) is plan-only: "
+          f"execute refuses it {refused}")
+    check(full.L == 18 and refused, "the L=18 rglru item was not refused")
+
+    # one BYSDNE LSTM item and the rglru item in one plan and one execute
+    lstm = init_lstm_stack(torch.Generator().manual_seed(0), BYSDNE,
+                           torch.bfloat16)
+    xl = (np.random.default_rng(5).standard_normal((B, 30, 340)) * 0.5
+          ).astype(np.float32)
+    mixed = dispatch.plan([
+        dispatch.WorkItem(uid=0, family="lstm", B=B, T=30, H=340, X=340,
+                          L=5),
+        dispatch.WorkItem(uid=1, family="rglru", B=B, T=T, H=W, X=W, L=1)])
+    dparams = {0: {"layers": [{k: v.to(dev) for k, v in layer.items()}
+                              for layer in lstm["layers"]]}}
+    reset_counts(*everything)
+    outs = dispatch.execute(mixed, dparams,
+                            {0: torch.from_numpy(xl).to(dev), 1: (la, gx)})
+    torch.cuda.synchronize()
+    ns = (lstm_seq.kernel_launches, rglru_scan.kernel_launches)
+    calls = sum(f.calls for f in everything)
+    tally(ctx, lstm_seq, rglru_scan)
+    cpu = dispatch.execute(mixed, {0: lstm},
+                           {0: torch.from_numpy(xl), 1: (cla, cgx)})
+    err = max(float((outs[k].cpu() - cpu[k]).abs().max()) for k in (0, 1))
+    same = bool(torch.equal(outs[1], hs))
+    print(f"rglru: mixed plan (BYSDNE lstm item + rglru item): lstm_seq "
+          f"{ns[0]} + rglru_scan {ns[1]} launches == plan.launches "
+          f"{mixed.launches}; rglru output equal to the lone item's {same}; "
+          f"vs CPU max_abs_err {err:.3e} (tol {TOL_E2E:g})")
+    check(sum(ns) == calls == mixed.launches and ns[1] == 1,
+          "mixed plan launches != plan.launches")
+    check(same and err <= TOL_E2E, "the mixed plan disagrees")
+
+    t0 = time.perf_counter()
+    dispatch.execute(p, {}, {0: (la, gx)})
+    torch.cuda.synchronize()
+    ctx["rglru_s"] = time.perf_counter() - t0
+    print(f"rglru: warm rerun {ctx['rglru_s'] * 1e3:.2f} ms wall "
+          f"(1 launch)")
+    if ctx["profile"]:
+        profile_breakdown(lambda: dispatch.execute(p, {}, {0: (la, gx)}),
+                          "rglru")
+
+
+def _precision_run(ctx, label, cs, cpu, xs, seq_k, variant):
+    """forward on the card and on the CPU: launches == plan.launches, all
+    of them ``seq_k`` launches in ``variant``, output within TOL_E2E."""
+    import torch
+
+    from repro_torch.kernels.common import reset_counts
+
+    everything = entries()
+    reset_counts(*everything)
+    ys = cs.forward(xs)
+    torch.cuda.synchronize()
+    n, p = seq_k.kernel_launches, cs.plan.launches
+    calls = sum(f.calls for f in everything)
+    branches = dict(seq_k.variant_launches)
+    tally(ctx, seq_k)
+    err = float((ys.cpu() - cpu.forward(xs)).abs().max())
+    print(f"precision: {label} forward B=4 T=30: {seq_k.__name__} "
+          f"launches {n} {branches}, plan.launches {p}; vs CPU max_abs_err "
+          f"{err:.3e} (tol {TOL_E2E:g})")
+    check(n == p == calls and branches == {variant: n},
+          f"{label}: forward launches != plan.launches in {variant}")
+    check(bool(torch.isfinite(ys).all()) and err <= TOL_E2E,
+          f"{label}: forward disagrees with the CPU path")
+
+
+def phase_precision(ctx):
+    """BYSDNE under int8 + block sparsity (forward, prefill, decode), int8
+    alone and bf16 + block sparsity, as an LSTM and as a GRU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
+    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
+
+    everything = entries()
+    xs = (np.random.default_rng(6).standard_normal((4, 30, 340)) * 0.5
+          ).astype(np.float32)
+    kernels = {"lstm": (lstm_seq, lstm_decode), "gru": (gru_seq, gru_decode)}
+    for family, (seq_k, dec_k) in kernels.items():
+        params = _stack(family, seed=7)
+        pol = rnn.ExecutionPolicy(precision="int8", sparsity="block")
+        cs = rnn.compile(params, pol, device="cuda")
+        cpu = rnn.compile(params, pol, device="cpu")
+        label = f"{family} int8+block"
+        _precision_run(ctx, label, cs, cpu, xs, seq_k, "int8+compact")
+
+        reset_counts(*everything)
+        ys, st = cs.prefill(xs)
+        torch.cuda.synchronize()
+        n, p = seq_k.kernel_launches, cs.plan.launches
+        ok = (n == p == sum(f.calls for f in everything)
+              and seq_k.variant_launches == {"int8+compact": n})
+        tally(ctx, seq_k)
+        cys, cst = cpu.prefill(xs)
+        err = max([float((ys.cpu() - cys).abs().max())]
+                  + [float((st[k].cpu() - cst[k]).abs().max()) for k in st])
+        print(f"precision: {label} prefill: {seq_k.__name__} launches {n}, "
+              f"plan.launches {p}; outputs and state vs CPU max_abs_err "
+              f"{err:.3e} (tol {TOL_E2E:g})")
+        check(ok, f"{label}: prefill launches != plan.launches")
+        check(err <= TOL_E2E, f"{label}: prefill disagrees with the CPU path")
+
+        y, cy = ys[:, -1:], cys[:, -1:]
+        ticks, launched = 4, 0
+        for _ in range(ticks):
+            reset_counts(*everything)
+            y, st = cs.decode(y, st)
+            torch.cuda.synchronize()
+            launched += dec_k.kernel_launches
+            check(dec_k.kernel_launches == cs.last_decode_plan.launches == 1
+                  and sum(f.calls for f in everything) == 1,
+                  f"{label}: a decode tick did not take one "
+                  f"{dec_k.__name__} launch")
+            tally(ctx, dec_k)
+            cy, cst = cpu.decode(cy, cst)
+        err = max([float((y.cpu() - cy).abs().max())]
+                  + [float((st[k].cpu() - cst[k]).abs().max()) for k in st])
+        print(f"precision: {label} {ticks} decode ticks resumed from the "
+              f"prefill state: {dec_k.__name__} launches {launched} (1 per "
+              f"tick, the dense kernel on the fake-quantized U); last frame "
+              f"and state vs CPU max_abs_err {err:.3e} (tol {TOL_E2E:g})")
+        check(bool(torch.isfinite(y).all()) and err <= TOL_E2E,
+              f"{label}: decode disagrees with the CPU path")
+
+        for prec, sparsity, variant in (("int8", "none", "int8"),
+                                        ("bf16", "block", "compact")):
+            pol = rnn.ExecutionPolicy(precision=prec, sparsity=sparsity)
+            _precision_run(ctx, f"{family} {prec}+{sparsity}",
+                           rnn.compile(params, pol, device="cuda"),
+                           rnn.compile(params, pol, device="cpu"), xs,
+                           seq_k, variant)
+
+    cs = rnn.compile(_stack("lstm", seed=7), rnn.ExecutionPolicy(
+        precision="int8", sparsity="block"), device="cuda")
+    cs.forward(xs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs.forward(xs)
+    torch.cuda.synchronize()
+    ctx["precision_s"] = time.perf_counter() - t0
+    print(f"precision: lstm int8+block forward warm rerun "
+          f"{ctx['precision_s'] * 1e3:.1f} ms wall ({cs.plan.launches} "
+          f"launches)")
+    if ctx["profile"]:
+        profile_breakdown(lambda: cs.forward(xs), "precision")
+
+
 def phase_summary(ctx):
     rows = []
-    for name, (key, replaces) in KERNELS.items():
-        m = ctx.get(key, {})
+    for name, kernel in ROWS:
+        m = ctx.get(name, {})
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces,
+            "source": f"src/repro_torch/csrc/{kernel}.cu",
+            "replaces": KERNELS[kernel],
             "launches": ctx["launches"][name],
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
@@ -831,8 +1304,8 @@ def main(argv=None) -> int:
                     help="directory for nvcc's -Xptxas -v logs and a JSON "
                          "record of this run (none by default)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the timed reruns, run serve and forward "
-                         "once more under torch.profiler and print the "
+                    help="after each phase's timed rerun, run its main "
+                         "path once more under torch.profiler and print the "
                          "device's busy share and time by kernel")
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
@@ -857,7 +1330,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     ctx = {"out": args.out, "profile": args.profile,
-           "launches": {name: 0 for name in KERNELS}}
+           "launches": {name: 0 for name, _ in ROWS}}
     t0 = time.perf_counter()
     try:
         for name in phases:

@@ -3,10 +3,12 @@ for an NVIDIA H100.
 
 The recurrent main path — ``rnn.compile`` and
 ``serving.RecurrentServingEngine`` over the tile dispatcher, for LSTM,
-GRU and mixed lstm/gru stacks, and the off-timeline schedules — runs on
-the card through the hand-written ``lstm_seq``, ``lstm_decode``,
-``lstm_cell``, ``gru_seq`` and ``gru_decode`` CUDA kernels, and on the
-CPU through their plain PyTorch versions:
+GRU and mixed lstm/gru stacks with fp32, bf16 or int8 and dense or
+block-sparse recurrent weights, the off-timeline schedules, and rglru
+items — runs on the card through the hand-written ``lstm_seq``,
+``lstm_decode``, ``lstm_cell``, ``gru_seq``, ``gru_decode`` and
+``rglru_scan`` CUDA kernels, and on the CPU through their plain PyTorch
+versions:
 
     from repro_torch import rnn
     compiled = rnn.compile(stack_or_config, rnn.ExecutionPolicy(...),

@@ -28,7 +28,8 @@
 // W.dtype); b_l, cast to xw_dtype, is added in xw_dtype; the result goes
 // to fp32.  h = (1 - z) * n + z * h0[l] with h0[l] read in its stored
 // dtype; the inter-layer value y is h rounded through h0's dtype.  W[0] is
-// never read.
+// never read.  U is upcast to fp32 before its product, so its type (UT) is
+// independent of W's (WT, which alone sets xw_dtype).
 
 #include "rnn_common.cuh"
 
@@ -41,10 +42,10 @@ __device__ __forceinline__ float round_xw(float x) {
   return XW_BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
-template <typename WT, typename XT, typename HT, int RB, int VEC>
+template <typename WT, typename UT, typename XT, typename HT, int RB, int VEC>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const XT* __restrict__ xw0, const WT* __restrict__ Ws,
-              const WT* __restrict__ bs, const WT* __restrict__ Us,
+              const WT* __restrict__ bs, const UT* __restrict__ Us,
               const HT* __restrict__ h0, HT* __restrict__ hn, int L, int B,
               int H) {
   // xw_dtype is bf16 only when both the activations and the weights are
@@ -67,7 +68,7 @@ decode_kernel(const XT* __restrict__ xw0, const WT* __restrict__ Ws,
       hp_s[idx] = idx / H < nrows ? to_f32(h0[state0 + idx]) : 0.f;
     __syncthreads();
 
-    const WT* Ul = Us + (size_t)l * H * G3;
+    const UT* Ul = Us + (size_t)l * H * G3;
     const WT* Wl = Ws + (size_t)l * H * G3;
     for (int q = threadIdx.x; q < G3 / VEC; q += blockDim.x) {
       const int col = VEC * q;
@@ -155,63 +156,70 @@ struct DecodeArgs {
   const void* h0;
   void* hn;
   int L, B, H;
-  int w_bf16, xw_bf16, h_bf16;
+  int w_bf16, u_bf16, xw_bf16, h_bf16;
   cudaStream_t stream;
 };
 
-template <typename WT, typename XT, typename HT, int RB, int VEC>
+template <typename WT, typename UT, typename XT, typename HT, int RB, int VEC>
 int launch_vec(const DecodeArgs& a) {
-  auto kernel = decode_kernel<WT, XT, HT, RB, VEC>;
+  auto kernel = decode_kernel<WT, UT, XT, HT, RB, VEC>;
   const size_t smem = sizeof(float) * RB * 8 * (size_t)a.H;
   cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.B + RB - 1) / RB);
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const XT*>(a.xw0), static_cast<const WT*>(a.Ws),
-      static_cast<const WT*>(a.bs), static_cast<const WT*>(a.Us),
+      static_cast<const WT*>(a.bs), static_cast<const UT*>(a.Us),
       static_cast<const HT*>(a.h0), static_cast<HT*>(a.hn), a.L, a.B, a.H);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename WT, typename XT, typename HT, int RB>
+template <typename WT, typename UT, typename XT, typename HT, int RB>
 int launch_rb(const DecodeArgs& a) {
-  return a.H % 4 == 0 ? launch_vec<WT, XT, HT, RB, 4>(a)
-                      : launch_vec<WT, XT, HT, RB, 1>(a);
+  return a.H % 4 == 0 ? launch_vec<WT, UT, XT, HT, RB, 4>(a)
+                      : launch_vec<WT, UT, XT, HT, RB, 1>(a);
 }
 
-template <typename WT, typename XT, typename HT>
+template <typename WT, typename UT, typename XT, typename HT>
 int launch_typed(const DecodeArgs& a) {
   switch (rows_per_block(a.B)) {
-    case 1: return launch_rb<WT, XT, HT, 1>(a);
-    case 2: return launch_rb<WT, XT, HT, 2>(a);
-    default: return launch_rb<WT, XT, HT, 4>(a);
+    case 1: return launch_rb<WT, UT, XT, HT, 1>(a);
+    case 2: return launch_rb<WT, UT, XT, HT, 2>(a);
+    default: return launch_rb<WT, UT, XT, HT, 4>(a);
   }
 }
 
-template <typename WT, typename XT>
+template <typename WT, typename UT, typename XT>
 int launch_h(const DecodeArgs& a) {
-  return a.h_bf16 ? launch_typed<WT, XT, bf16>(a)
-                  : launch_typed<WT, XT, float>(a);
+  return a.h_bf16 ? launch_typed<WT, UT, XT, bf16>(a)
+                  : launch_typed<WT, UT, XT, float>(a);
 }
 
-template <typename WT>
+template <typename WT, typename UT>
 int launch_x(const DecodeArgs& a) {
-  return a.xw_bf16 ? launch_h<WT, bf16>(a) : launch_h<WT, float>(a);
+  return a.xw_bf16 ? launch_h<WT, UT, bf16>(a) : launch_h<WT, UT, float>(a);
 }
 
 }  // namespace gru
 
 // Plain C entry point (bound with ctypes).  Layouts, all contiguous:
-// xw0 (B, 3, H); Ws, Us (L, H, 3, H) and bs (L, 3, H) in one dtype;
-// h0 (L, B, H); output hn (L, B, H) in h0's dtype.  *_bf16 flags pick
-// bfloat16 over fp32 per operand.  Launches on `stream` and returns
+// xw0 (B, 3, H); Ws (L, H, 3, H) and bs (L, 3, H) in one dtype; Us
+// (L, H, 3, H) in Ws's dtype or, under bf16 Ws, fp32 (the fake-quantized
+// U of a bf16 stack under a reduced recurrent-weight precision); h0
+// (L, B, H); output hn (L, B, H) in h0's dtype.  *_bf16 flags pick
+// bfloat16 over fp32 per operand (fp32 Ws with bf16 Us is refused: the
+// wrapper upcasts such a U).  Launches on `stream` and returns
 // cudaGetLastError() (0 = ok).
 extern "C" int gru_decode_launch(const void* xw0, const void* Ws,
                                  const void* bs, const void* Us,
                                  const void* h0, void* hn, int L, int B,
-                                 int H, int w_bf16, int xw_bf16, int h_bf16,
-                                 void* stream) {
-  gru::DecodeArgs a{xw0, Ws, bs, Us, h0, hn, L, B, H, w_bf16, xw_bf16,
-                    h_bf16, static_cast<cudaStream_t>(stream)};
-  return a.w_bf16 ? gru::launch_x<gru::bf16>(a) : gru::launch_x<float>(a);
+                                 int H, int w_bf16, int u_bf16, int xw_bf16,
+                                 int h_bf16, void* stream) {
+  gru::DecodeArgs a{xw0, Ws, bs, Us, h0, hn, L, B, H, w_bf16, u_bf16,
+                    xw_bf16, h_bf16, static_cast<cudaStream_t>(stream)};
+  if (a.w_bf16)
+    return a.u_bf16 ? gru::launch_x<gru::bf16, gru::bf16>(a)
+                    : gru::launch_x<gru::bf16, float>(a);
+  return a.u_bf16 ? static_cast<int>(cudaErrorInvalidValue)
+                  : gru::launch_x<float, float>(a);
 }

@@ -26,6 +26,14 @@
 // four only when H is, so an H % 4 != 0 takes the scalar (VEC = 1)
 // instantiation instead of the vector loads, which would read out of line.
 //
+// The reference's two weight branches (kernel.py:69-89), chosen at run
+// time as in lstm_seq.cu: int8 U (`scales` given) is upcast without its
+// scale and accumulated in fp32, and the per-gate scale multiplies the raw
+// h . U of all three gates in phase 1 — BEFORE phase 2 couples r * hu_n
+// into the candidate (kernel.py:88-93), so the gates see (h . Uq) * s;
+// row-compacted U (`rows` given) runs the dot over its Ha rows with h
+// gathered through the row index, padding rows adding exactly 0.0.
+//
 // Numerics copied from the reference: U is upcast to fp32 before the
 // product and accumulated in fp32; h is seeded from h0 in fp32, carried in
 // fp32 between steps and rounded to h0's dtype only where it is stored
@@ -40,18 +48,22 @@ using namespace rnn;
 
 template <typename UT, typename XT, typename HT, int RB, int VEC>
 __global__ void __launch_bounds__(kThreads)
-seq_kernel(const UT* __restrict__ U, const XT* __restrict__ xw,
+seq_kernel(const UT* __restrict__ U, const float* __restrict__ scales,
+           const int* __restrict__ rows, const XT* __restrict__ xw,
            const HT* __restrict__ h0, const int* __restrict__ mask,
-           HT* __restrict__ hs, HT* __restrict__ hT, int B, int T, int H) {
+           HT* __restrict__ hs, HT* __restrict__ hT, int B, int T, int H,
+           int Hr) {
   extern __shared__ float smem[];
   const int G3 = 3 * H;
   float* h_s = smem;          // RB x H   recurrent h, fp32
   float* hu_s = h_s + RB * H; // RB x 3H  this step's raw h . U
+  int* rows_s = reinterpret_cast<int*>(hu_s + RB * G3);  // Hr (sparse)
 
   const int g = blockIdx.x;
   const int b0 = blockIdx.y * RB;
   const int nrows = min(RB, B - b0);
-  const UT* Ug = U + (size_t)g * H * G3;
+  const UT* Ug = U + (size_t)g * Hr * G3;
+  const float* scales_g = scales == nullptr ? nullptr : scales + 3 * g;
   const size_t row0 = (size_t)g * B + b0;  // first (g, b) row of the block
 
   for (int idx = threadIdx.x; idx < RB * H; idx += blockDim.x) {
@@ -59,29 +71,23 @@ seq_kernel(const UT* __restrict__ U, const XT* __restrict__ xw,
     // rows past B stay zero and are never stored
     h_s[idx] = r < nrows ? to_f32(h0[(row0 + r) * H + idx % H]) : 0.f;
   }
+  if (rows != nullptr)
+    for (int k = threadIdx.x; k < Hr; k += blockDim.x)
+      rows_s[k] = rows[(size_t)g * Hr + k];
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    // phase 1: hu[r, col] = sum_k h[r, k] * U[k, col], VEC columns a thread
+    // phase 1: hu[r, col] = sum_k h[r, k] * U[k, col], VEC columns a
+    // thread (times the gate's scale for int8 U; over the gathered rows of
+    // h for row-compacted U)
     for (int q = threadIdx.x; q < G3 / VEC; q += blockDim.x) {
       const int col = VEC * q;
       float acc[RB][VEC];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
-      const UT* u = Ug + col;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        float uk[VEC];
-        loadv<VEC>(u + (size_t)k * G3, uk);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float hk = h_s[r * H + k];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(hk, uk[e], acc[r][e]);
-        }
-      }
+      if (rows != nullptr)
+        recurrent_dot<true>(Ug + col, G3, h_s, rows_s, Hr, H, acc);
+      else
+        recurrent_dot<false>(Ug + col, G3, h_s, rows_s, Hr, H, acc);
+      if (scales_g != nullptr) scale_acc(scales_g, col, H, acc);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         if (r < nrows) {
@@ -114,27 +120,30 @@ seq_kernel(const UT* __restrict__ U, const XT* __restrict__ xw,
 
 struct SeqArgs {
   const void* U;
+  const float* scales;
+  const int* rows;
   const void* xw;
   const void* h0;
   const int* mask;
   void* hs;
   void* hT;
-  int G, B, T, H;
-  int u_bf16, xw_bf16, h_bf16;
+  int G, B, T, H, Hr;
+  int u_type, xw_bf16, h_bf16;
   cudaStream_t stream;
 };
 
 template <typename UT, typename XT, typename HT, int RB, int VEC>
 int launch_vec(const SeqArgs& a) {
   auto kernel = seq_kernel<UT, XT, HT, RB, VEC>;
-  const size_t smem = sizeof(float) * RB * 4 * (size_t)a.H;
+  const size_t smem = sizeof(float) * RB * 4 * (size_t)a.H +
+                      (a.rows != nullptr ? sizeof(int) * (size_t)a.Hr : 0);
   cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(a.G, (a.B + RB - 1) / RB);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const UT*>(a.U), static_cast<const XT*>(a.xw),
-      static_cast<const HT*>(a.h0), a.mask, static_cast<HT*>(a.hs),
-      static_cast<HT*>(a.hT), a.B, a.T, a.H);
+      static_cast<const UT*>(a.U), a.scales, a.rows,
+      static_cast<const XT*>(a.xw), static_cast<const HT*>(a.h0), a.mask,
+      static_cast<HT*>(a.hs), static_cast<HT*>(a.hT), a.B, a.T, a.H, a.Hr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,16 +176,27 @@ int launch_x(const SeqArgs& a) {
 }  // namespace gru
 
 // Plain C entry point (bound with ctypes).  Layouts, all contiguous:
-// U (G, H, 3, H); xw (G, B, T, 3, H); h0 (G, B, H); mask (G, B) int32 or
-// NULL; outputs hs (G, B, T, H) and hT (G, B, H) in h0's dtype.  *_bf16
-// flags pick bfloat16 over fp32 per operand.  Launches on `stream` and
-// returns cudaGetLastError() (0 = ok).
-extern "C" int gru_seq_launch(const void* U, const void* xw, const void* h0,
-                              const void* mask, void* hs, void* hT, int G,
-                              int B, int T, int H, int u_bf16, int xw_bf16,
-                              int h_bf16, void* stream) {
-  gru::SeqArgs a{U, xw, h0, static_cast<const int*>(mask), hs, hT, G, B, T,
-                 H, u_bf16, xw_bf16, h_bf16,
+// U (G, Hr, 3, H) with Hr = H, or Hr = Ha rows when `rows` is given;
+// scales (G, 3) fp32 or NULL; rows (G, Ha) int32 or NULL; xw (G, B, T, 3,
+// H); h0 (G, B, H); mask (G, B) int32 or NULL; outputs hs (G, B, T, H) and
+// hT (G, B, H) in h0's dtype.  u_type picks U's type (0 fp32, 1 bf16, 2
+// int8, which comes with scales); *_bf16 flags pick bfloat16 over fp32 for
+// xw and h.  Launches on `stream` and returns cudaGetLastError() (0 = ok).
+extern "C" int gru_seq_launch(const void* U, const void* scales,
+                              const void* rows, const void* xw,
+                              const void* h0, const void* mask, void* hs,
+                              void* hT, int G, int B, int T, int H, int Hr,
+                              int u_type, int xw_bf16, int h_bf16,
+                              void* stream) {
+  gru::SeqArgs a{U, static_cast<const float*>(scales),
+                 static_cast<const int*>(rows), xw, h0,
+                 static_cast<const int*>(mask), hs, hT, G, B, T, H, Hr,
+                 u_type, xw_bf16, h_bf16,
                  static_cast<cudaStream_t>(stream)};
-  return a.u_bf16 ? gru::launch_x<gru::bf16>(a) : gru::launch_x<float>(a);
+  switch (a.u_type) {
+    case 0: return gru::launch_x<float>(a);
+    case 1: return gru::launch_x<gru::bf16>(a);
+    case 2: return gru::launch_x<int8_t>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

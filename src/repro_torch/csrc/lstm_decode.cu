@@ -27,6 +27,8 @@
 // promote(h0.dtype, W.dtype); b_l, cast to xw_dtype, is added in xw_dtype
 // (one rounding of the fp32 sum); the result goes to fp32.  The
 // inter-layer value y is h rounded through h0's dtype.  W[0] is never read.
+// U is upcast to fp32 before its product, so its type (UT) is independent
+// of W's (WT, which alone sets xw_dtype).
 
 #include "rnn_common.cuh"
 
@@ -39,10 +41,10 @@ __device__ __forceinline__ float round_xw(float x) {
   return XW_BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
-template <typename WT, typename XT, typename HT, int RB>
+template <typename WT, typename UT, typename XT, typename HT, int RB>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const XT* __restrict__ xw0, const WT* __restrict__ Ws,
-              const WT* __restrict__ bs, const WT* __restrict__ Us,
+              const WT* __restrict__ bs, const UT* __restrict__ Us,
               const HT* __restrict__ h0, const float* __restrict__ c0,
               HT* __restrict__ hn, float* __restrict__ cn, int L, int B,
               int H) {
@@ -65,7 +67,7 @@ decode_kernel(const XT* __restrict__ xw0, const WT* __restrict__ Ws,
       hp_s[idx] = idx / H < nrows ? to_f32(h0[state0 + idx]) : 0.f;
     __syncthreads();
 
-    const WT* Ul = Us + (size_t)l * H * G4;
+    const UT* Ul = Us + (size_t)l * H * G4;
     const WT* Wl = Ws + (size_t)l * H * G4;
     for (int q = threadIdx.x; q < H; q += blockDim.x) {
       const int col = 4 * q;
@@ -159,60 +161,67 @@ struct DecodeArgs {
   void* hn;
   float* cn;
   int L, B, H;
-  int w_bf16, xw_bf16, h_bf16;
+  int w_bf16, u_bf16, xw_bf16, h_bf16;
   cudaStream_t stream;
 };
 
-template <typename WT, typename XT, typename HT, int RB>
+template <typename WT, typename UT, typename XT, typename HT, int RB>
 int launch_rb(const DecodeArgs& a) {
-  auto kernel = decode_kernel<WT, XT, HT, RB>;
+  auto kernel = decode_kernel<WT, UT, XT, HT, RB>;
   const size_t smem = sizeof(float) * RB * 6 * (size_t)a.H;
   cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.B + RB - 1) / RB);
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const XT*>(a.xw0), static_cast<const WT*>(a.Ws),
-      static_cast<const WT*>(a.bs), static_cast<const WT*>(a.Us),
+      static_cast<const WT*>(a.bs), static_cast<const UT*>(a.Us),
       static_cast<const HT*>(a.h0), a.c0, static_cast<HT*>(a.hn), a.cn, a.L,
       a.B, a.H);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename WT, typename XT, typename HT>
+template <typename WT, typename UT, typename XT, typename HT>
 int launch_typed(const DecodeArgs& a) {
   switch (rows_per_block(a.B)) {
-    case 1: return launch_rb<WT, XT, HT, 1>(a);
-    case 2: return launch_rb<WT, XT, HT, 2>(a);
-    default: return launch_rb<WT, XT, HT, 4>(a);
+    case 1: return launch_rb<WT, UT, XT, HT, 1>(a);
+    case 2: return launch_rb<WT, UT, XT, HT, 2>(a);
+    default: return launch_rb<WT, UT, XT, HT, 4>(a);
   }
 }
 
-template <typename WT, typename XT>
+template <typename WT, typename UT, typename XT>
 int launch_h(const DecodeArgs& a) {
-  return a.h_bf16 ? launch_typed<WT, XT, bf16>(a)
-                  : launch_typed<WT, XT, float>(a);
+  return a.h_bf16 ? launch_typed<WT, UT, XT, bf16>(a)
+                  : launch_typed<WT, UT, XT, float>(a);
 }
 
-template <typename WT>
+template <typename WT, typename UT>
 int launch_x(const DecodeArgs& a) {
-  return a.xw_bf16 ? launch_h<WT, bf16>(a) : launch_h<WT, float>(a);
+  return a.xw_bf16 ? launch_h<WT, UT, bf16>(a) : launch_h<WT, UT, float>(a);
 }
 
 }  // namespace lstm
 
 // Plain C entry point (bound with ctypes).  Layouts, all contiguous:
-// xw0 (B, 4, H); Ws, Us (L, H, 4, H) and bs (L, 4, H) in one dtype;
-// h0 (L, B, H); c0 (L, B, H) fp32; outputs hn (L, B, H) in h0's dtype and
-// cn (L, B, H) fp32.  *_bf16 flags pick bfloat16 over fp32 per operand.
+// xw0 (B, 4, H); Ws (L, H, 4, H) and bs (L, 4, H) in one dtype; Us
+// (L, H, 4, H) in Ws's dtype or, under bf16 Ws, fp32 (the fake-quantized
+// U of a bf16 stack under a reduced recurrent-weight precision); h0
+// (L, B, H); c0 (L, B, H) fp32; outputs hn (L, B, H) in h0's dtype and
+// cn (L, B, H) fp32.  *_bf16 flags pick bfloat16 over fp32 per operand
+// (fp32 Ws with bf16 Us is refused: the wrapper upcasts such a U).
 // Launches on `stream` and returns cudaGetLastError() (0 = ok).
 extern "C" int lstm_decode_launch(const void* xw0, const void* Ws,
                                   const void* bs, const void* Us,
                                   const void* h0, const void* c0, void* hn,
                                   void* cn, int L, int B, int H, int w_bf16,
-                                  int xw_bf16, int h_bf16, void* stream) {
+                                  int u_bf16, int xw_bf16, int h_bf16,
+                                  void* stream) {
   lstm::DecodeArgs a{xw0, Ws, bs, Us, h0, static_cast<const float*>(c0),
-                     hn, static_cast<float*>(cn), L, B, H, w_bf16, xw_bf16,
-                     h_bf16, static_cast<cudaStream_t>(stream)};
-  return a.w_bf16 ? lstm::launch_x<lstm::bf16>(a)
-                  : lstm::launch_x<float>(a);
+                     hn, static_cast<float*>(cn), L, B, H, w_bf16, u_bf16,
+                     xw_bf16, h_bf16, static_cast<cudaStream_t>(stream)};
+  if (a.w_bf16)
+    return a.u_bf16 ? lstm::launch_x<lstm::bf16, lstm::bf16>(a)
+                    : lstm::launch_x<lstm::bf16, float>(a);
+  return a.u_bf16 ? static_cast<int>(cudaErrorInvalidValue)
+                  : lstm::launch_x<float, float>(a);
 }

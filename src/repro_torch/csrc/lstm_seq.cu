@@ -24,6 +24,18 @@
 // of SMs (h exchanged through distributed shared memory each step) is
 // later work (ROADMAP.md, Queue 2).
 //
+// The reference's two weight branches (kernel.py:170-177), both chosen at
+// run time so they add no kernel instances beyond one U type:
+//  - int8 U (`scales` given): the payload is upcast to fp32 WITHOUT its
+//    scale and accumulated in fp32; the per-gate scale then multiplies the
+//    (rows, 4, H) accumulate before xw is added, as (h . Uq) * s.  h is
+//    never quantized.  An int8 U is a quarter of fp32's bytes per step.
+//  - row-compacted U (`rows` given): U holds only the Ha rows whose
+//    8-row tiles are not all zero, and the dot runs over those Ha rows with
+//    h gathered from the block's fp32 h in shared memory through the row
+//    index (staged in shared memory once per launch).  Padding rows are
+//    zero U rows at index 0 and add exactly 0.0.
+//
 // Numerics copied from the reference: U is upcast to fp32 before the
 // product and accumulated in fp32; h is carried in fp32 between steps and
 // rounded to h0's dtype only where it is stored (hs, h_T), so block_t
@@ -37,21 +49,24 @@ using namespace rnn;
 
 template <typename UT, typename XT, typename HT, int RB>
 __global__ void __launch_bounds__(kThreads)
-seq_kernel(const UT* __restrict__ U, const XT* __restrict__ xw,
+seq_kernel(const UT* __restrict__ U, const float* __restrict__ scales,
+           const int* __restrict__ rows, const XT* __restrict__ xw,
            const HT* __restrict__ h0, const float* __restrict__ c0,
            const int* __restrict__ mask, HT* __restrict__ hs,
-           HT* __restrict__ hT, float* __restrict__ cT, int B, int T,
-           int H) {
+           HT* __restrict__ hT, float* __restrict__ cT, int B, int T, int H,
+           int Hr) {
   extern __shared__ float smem[];
   const int G4 = 4 * H;
   float* h_s = smem;              // RB x H   recurrent h, fp32
   float* c_s = h_s + RB * H;      // RB x H   cell state, fp32
   float* gates_s = c_s + RB * H;  // RB x 4H  this step's pre-activations
+  int* rows_s = reinterpret_cast<int*>(gates_s + RB * G4);  // Hr (sparse)
 
   const int g = blockIdx.x;
   const int b0 = blockIdx.y * RB;
   const int nrows = min(RB, B - b0);
-  const UT* Ug = U + (size_t)g * H * G4;
+  const UT* Ug = U + (size_t)g * Hr * G4;
+  const float* scales_g = scales == nullptr ? nullptr : scales + 4 * g;
   const size_t row0 = (size_t)g * B + b0;  // first (g, b) row of the block
 
   for (int idx = threadIdx.x; idx < RB * H; idx += blockDim.x) {
@@ -65,29 +80,23 @@ seq_kernel(const UT* __restrict__ U, const XT* __restrict__ xw,
     h_s[idx] = hv;
     c_s[idx] = cv;
   }
+  if (rows != nullptr)
+    for (int k = threadIdx.x; k < Hr; k += blockDim.x)
+      rows_s[k] = rows[(size_t)g * Hr + k];
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     // phase 1: gates[r, col] = xw[r, t, col] + sum_k h[r, k] * U[k, col]
+    // (times the gate's scale for int8 U; over the gathered rows of h for
+    // row-compacted U)
     for (int q = threadIdx.x; q < H; q += blockDim.x) {
       const int col = 4 * q;
       float acc[RB][4];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-      const UT* u = Ug + col;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float4 uk = load4(u + (size_t)k * G4);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float hk = h_s[r * H + k];
-          acc[r][0] = fmaf(hk, uk.x, acc[r][0]);
-          acc[r][1] = fmaf(hk, uk.y, acc[r][1]);
-          acc[r][2] = fmaf(hk, uk.z, acc[r][2]);
-          acc[r][3] = fmaf(hk, uk.w, acc[r][3]);
-        }
-      }
+      if (rows != nullptr)
+        recurrent_dot<true>(Ug + col, G4, h_s, rows_s, Hr, H, acc);
+      else
+        recurrent_dot<false>(Ug + col, G4, h_s, rows_s, Hr, H, acc);
+      if (scales_g != nullptr) scale_acc(scales_g, col, H, acc);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         if (r < nrows) {
@@ -130,6 +139,8 @@ seq_kernel(const UT* __restrict__ U, const XT* __restrict__ xw,
 
 struct SeqArgs {
   const void* U;
+  const float* scales;
+  const int* rows;
   const void* xw;
   const void* h0;
   const float* c0;
@@ -137,22 +148,24 @@ struct SeqArgs {
   void* hs;
   void* hT;
   float* cT;
-  int G, B, T, H;
-  int u_bf16, xw_bf16, h_bf16;
+  int G, B, T, H, Hr;
+  int u_type, xw_bf16, h_bf16;
   cudaStream_t stream;
 };
 
 template <typename UT, typename XT, typename HT, int RB>
 int launch_rb(const SeqArgs& a) {
   auto kernel = seq_kernel<UT, XT, HT, RB>;
-  const size_t smem = sizeof(float) * RB * 6 * (size_t)a.H;
+  const size_t smem = sizeof(float) * RB * 6 * (size_t)a.H +
+                      (a.rows != nullptr ? sizeof(int) * (size_t)a.Hr : 0);
   cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(a.G, (a.B + RB - 1) / RB);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const UT*>(a.U), static_cast<const XT*>(a.xw),
-      static_cast<const HT*>(a.h0), a.c0, a.mask, static_cast<HT*>(a.hs),
-      static_cast<HT*>(a.hT), a.cT, a.B, a.T, a.H);
+      static_cast<const UT*>(a.U), a.scales, a.rows,
+      static_cast<const XT*>(a.xw), static_cast<const HT*>(a.h0), a.c0,
+      a.mask, static_cast<HT*>(a.hs), static_cast<HT*>(a.hT), a.cT, a.B,
+      a.T, a.H, a.Hr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,19 +192,30 @@ int launch_x(const SeqArgs& a) {
 }  // namespace lstm
 
 // Plain C entry point (bound with ctypes).  Layouts, all contiguous:
-// U (G, H, 4, H); xw (G, B, T, 4, H); h0 (G, B, H); c0 (G, B, H) fp32;
-// mask (G, B) int32 or NULL; outputs hs (G, B, T, H) and hT (G, B, H) in
-// h0's dtype, cT (G, B, H) fp32.  *_bf16 flags pick bfloat16 over fp32 per
-// operand.  Launches on `stream` and returns cudaGetLastError() (0 = ok).
-extern "C" int lstm_seq_launch(const void* U, const void* xw, const void* h0,
-                               const void* c0, const void* mask, void* hs,
-                               void* hT, void* cT, int G, int B, int T, int H,
-                               int u_bf16, int xw_bf16, int h_bf16,
+// U (G, Hr, 4, H) with Hr = H, or Hr = Ha rows when `rows` is given;
+// scales (G, 4) fp32 or NULL; rows (G, Ha) int32 or NULL; xw (G, B, T, 4,
+// H); h0 (G, B, H); c0 (G, B, H) fp32; mask (G, B) int32 or NULL; outputs
+// hs (G, B, T, H) and hT (G, B, H) in h0's dtype, cT (G, B, H) fp32.
+// u_type picks U's type (0 fp32, 1 bf16, 2 int8, which comes with
+// scales); *_bf16 flags pick bfloat16 over fp32 for xw and h.  Launches
+// on `stream` and returns cudaGetLastError() (0 = ok).
+extern "C" int lstm_seq_launch(const void* U, const void* scales,
+                               const void* rows, const void* xw,
+                               const void* h0, const void* c0,
+                               const void* mask, void* hs, void* hT,
+                               void* cT, int G, int B, int T, int H, int Hr,
+                               int u_type, int xw_bf16, int h_bf16,
                                void* stream) {
-  lstm::SeqArgs a{U, xw, h0, static_cast<const float*>(c0),
+  lstm::SeqArgs a{U, static_cast<const float*>(scales),
+                  static_cast<const int*>(rows), xw, h0,
+                  static_cast<const float*>(c0),
                   static_cast<const int*>(mask), hs, hT,
-                  static_cast<float*>(cT), G, B, T, H, u_bf16, xw_bf16,
+                  static_cast<float*>(cT), G, B, T, H, Hr, u_type, xw_bf16,
                   h_bf16, static_cast<cudaStream_t>(stream)};
-  return a.u_bf16 ? lstm::launch_x<lstm::bf16>(a)
-                  : lstm::launch_x<float>(a);
+  switch (a.u_type) {
+    case 0: return lstm::launch_x<float>(a);
+    case 1: return lstm::launch_x<lstm::bf16>(a);
+    case 2: return lstm::launch_x<int8_t>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,5 +1,6 @@
 // Helpers shared by the recurrent kernels (lstm_seq, lstm_decode,
-// lstm_cell, gru_seq, gru_decode): dtype conversion, vector column loads,
+// lstm_cell, gru_seq, gru_decode): dtype conversion (fp32, bf16, and the
+// int8 recurrent weights of the sequence kernels), vector column loads,
 // the gate activations, and the launch shape.
 #pragma once
 
@@ -19,6 +20,10 @@ constexpr int kThreads = 512;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// int8 weights are upcast without their scale (exact: |q| <= 127)
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -42,6 +47,10 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  return make_float4(v.x, v.y, v.z, v.w);
+}
 
 // VEC adjacent elements as fp32: VEC = 4 is one aligned vector load (see
 // load4), VEC = 1 a scalar load that needs no alignment.  The GRU kernels
@@ -60,6 +69,54 @@ __device__ __forceinline__ void loadv(const T* p, float* out) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// The recurrent product of the sequence kernels, for one thread's VEC
+// adjacent columns u[0 .. VEC) of every U row and the block's RB batch
+// rows: acc[r][e] += h[r][k] * U[k][e] over the Hr rows of U, in fp32.
+// Dense U (SPARSE = false) has Hr = H rows and row k reads h[k];
+// row-compacted U (SPARSE = true) has Hr = Ha rows and row k reads
+// h[rows_s[k]], the h gather of the reference's block-sparse branch.
+// Padding rows are zero U rows with index 0, so they add exactly 0.0.
+template <bool SPARSE, int RB, int VEC, typename UT>
+__device__ __forceinline__ void recurrent_dot(const UT* __restrict__ u,
+                                              size_t ld,
+                                              const float* __restrict__ h_s,
+                                              const int* __restrict__ rows_s,
+                                              int Hr, int H,
+                                              float (&acc)[RB][VEC]) {
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < Hr; ++k) {
+    float uk[VEC];
+    loadv<VEC>(u + (size_t)k * ld, uk);
+    const int hk_idx = SPARSE ? rows_s[k] : k;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const float hk = h_s[r * H + hk_idx];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(hk, uk[e], acc[r][e]);
+    }
+  }
+}
+
+// The int8 branch's per-gate scale on the fp32 accumulate, after the dot
+// and before anything else touches it (__fmul_rn: a rounded product, never
+// contracted into the following add, as the reference computes it).
+// scales_g is the cell's (gates,) row; column c belongs to gate c / H.
+template <int RB, int VEC>
+__device__ __forceinline__ void scale_acc(const float* __restrict__ scales_g,
+                                          int col, int H,
+                                          float (&acc)[RB][VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const float s = scales_g[(col + e) / H];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r][e] = __fmul_rn(acc[r][e], s);
+  }
 }
 
 // Rows of the batch one block owns: 4 when there are at least 3 rows,

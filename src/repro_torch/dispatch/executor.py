@@ -42,12 +42,20 @@ kernel that does not BUILD is not a launch fault: ``KernelBuildError``
 passes through every rung.  ``check_finite`` raises
 ``NonFiniteStateError`` naming exactly the poisoned items.
 
-Items the planner routes off the packed timeline (the reference
-schedules, per_step, T=0 items) run first, one at a time, through the
-schedule library (``_run_reference``, ``_run_stack_collect``).
+Recurrent-weight precision and block sparsity (a slot's ``precision``,
+its items' ``tile_map``): ``_slot_weights`` hoists each cell's U once per
+plan — bf16 round-tripped, int8 quantized per gate (the payload plus
+(G, gates) scales) and/or row-compacted to the slot's one active-row
+width Ha (plus a (G, Ha) row index) — and every kernel rung receives the
+same operands; the CPU reference rung dequantizes and expands them back to
+dense.  Decode ticks run the dense decode kernels on the fake-quantized
+weights (``prepare_decode_stack(precision=)``).
 
-Not ported yet (``NotImplementedError``): rglru items (P4) and int8 /
-bf16 / block-sparse recurrent weights (P1) — see ROADMAP.md.
+Items the planner routes off the packed timeline (the reference
+schedules, per_step, T=0 items, and single-layer rglru items, which run
+``kernels.rglru.rglru_scan`` on a ``(log_a, gx)`` input pair) run first,
+one at a time (``_run_reference``, ``_run_stack_collect``,
+``_run_rglru``).
 """
 from __future__ import annotations
 
@@ -55,16 +63,21 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.core.perfmodel import MXU_ROWS
 from repro_torch.dispatch.planner import DispatchPlan, ItemPlan
 from repro_torch.dispatch.workitem import GATES
-from repro_torch.kernels.common import KernelBuildError
+from repro_torch.kernels.common import KernelBuildError, cdiv
 from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
+from repro_torch.kernels.quant import (active_row_indices, bf16_roundtrip,
+                                       compact_rows, expand_rows,
+                                       fake_quant_stack, quantize_per_gate)
+from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.runtime.errors import (FALLBACK_LEVELS, ExecutionReport,
                                         FaultInjector, LaunchError,
-                                        NonFiniteStateError, not_ported)
+                                        NonFiniteStateError)
 from repro_torch.runtime.obs import NULL_TRACER, as_tracer
 
 
@@ -80,38 +93,31 @@ def _hoist(layer_params, src, gates: int):
     return xw.reshape(B, bt, gates, H)
 
 
-def _check_ported(plan: DispatchPlan) -> None:
-    """Fail before any work on what the port does not carry yet."""
-    for ip in plan.items:
-        it = ip.item
-        if it.family == "rglru":
-            raise not_ported("rglru items", "P4")
-        if it.precision != "fp32" or it.tile_map is not None:
-            raise not_ported(f"precision={it.precision!r} / block-sparse "
-                             "recurrent weights", "P1")
-
-
 @torch.no_grad()
 def execute(plan: DispatchPlan, params: Dict[int, dict],
             inputs: Dict[int, torch.Tensor], *,
             collect_state: bool = False,
             init_state: Optional[Dict[int, dict]] = None,
             prepared: Optional[Dict[int, dict]] = None,
+            quant_cache: Optional[dict] = None,
             on_fault: str = "raise",
             check_finite: bool = False,
             inject: Optional[FaultInjector] = None,
             report: Optional[ExecutionReport] = None,
             tracer=None):
     """Run ``plan``.  params[uid] = stack params ({"layers": [...]}),
-    inputs[uid] = xs (B, T, X) on the device the stack's tensors lie on.
+    inputs[uid] = xs (B, T, X) on the device the stack's tensors lie on —
+    for an rglru item the (log_a, gx) pair of its hoisted gate inputs, each
+    (B, T, W) fp32 (``models.layers.rglru.gate_inputs``), with no params.
     Returns outputs {uid: (B, T, H)} — (B, T, 2H) for bidirectional items
-    (fwd‖bwd concat) — or (outputs, states) when ``collect_state``:
-    states[uid] is {"h": (L,B,H)[, "c": (L,B,H)]} (exact t=T recurrent
-    state; "c" whenever any layer is an LSTM, a mixed stack's gru rows
-    zeros), for bidirectional items a per-direction pair
+    (fwd‖bwd concat), hs (B, T, W) for rglru items — or (outputs, states)
+    when ``collect_state``: states[uid] is {"h": (L,B,H)[, "c": (L,B,H)]}
+    (exact t=T recurrent state; "c" whenever any layer is an LSTM, a mixed
+    stack's gru rows zeros), for bidirectional items a per-direction pair
     {"fwd": {...}, "bwd": {...}} (fwd is the exact t=T state, bwd the
-    exact t=0 state — the end of its walk), or ``None`` for a
-    bidirectional item executed through an external stateless schedule.
+    exact t=0 state — the end of its walk), or ``None`` for items that
+    expose no (h[, c]) state: rglru items and items executed through an
+    external stateless schedule.
 
     ``init_state`` optionally seeds the recurrent state of packed items:
     init_state[uid] = {"h": (L,B,H)[, "c": (L,B,H)]} replaces the zero
@@ -123,6 +129,13 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     ``prepared`` optionally carries pre-stacked decode weights per uid
     (see ``prepare_decode_stack``) so steady-state decode ticks don't
     restack unchanged parameters every tick.
+
+    ``quant_cache`` memoizes per-(item, layer, direction, precision, Ha)
+    quantized / row-compacted recurrent-weight operands across slots (and
+    across calls, when the caller owns the dict — ``CompiledStack`` keeps
+    one for its lifetime).  None builds a per-call cache, so each layer is
+    still transformed at most once per execute().  Only consulted for
+    slots whose ``precision != "fp32"`` or whose items carry a tile_map.
 
     ``collect_state`` reroutes external unidirectional items through the
     per-layer fused path (``_run_stack_collect``) — the only surface that
@@ -140,7 +153,15 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     if on_fault not in ("raise", "fallback"):
         raise ValueError(f"execute: on_fault={on_fault!r} invalid; "
                          "allowed: raise, fallback")
-    _check_ported(plan)
+    # fail fast, before any work: a plan may legitimately carry plan-only
+    # items (ItemPlan.executable == False) for admission pricing — callers
+    # filter those out before executing (see examples/dispatch_demo.py)
+    plan_only = [ip.uid for ip in plan.items if not ip.executable]
+    if plan_only:
+        raise NotImplementedError(
+            f"plan contains plan-only items (uids {plan_only}): multi-layer "
+            "rglru executes through its model, not the dispatcher — filter "
+            "by ItemPlan.executable before execute()")
     # state resume is a packed-timeline feature only; silently dropping a
     # caller's init_state for an external item would compute from zeros
     dropped = sorted(set(init_state or {}) & set(plan.external))
@@ -152,8 +173,10 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
 
     outputs: Dict[int, torch.Tensor] = {}
     states: Dict[int, dict] = {}
+    if quant_cache is None:
+        quant_cache = {}  # per-call memo: each layer transforms at most once
 
-    # ---- external items (reference schedules / per_step / T=0) —
+    # ---- external items (reference schedules / per_step / rglru / T=0) —
     # bidirectional items land here only under a forced stateless
     # schedule; their planned path is the interleaved packed timeline ----
     for ip in plan.items:
@@ -161,6 +184,11 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
             continue
         it = ip.item
         xs = inputs[it.uid]
+        if it.family == "rglru":
+            outputs[it.uid] = _run_rglru(xs)
+            if collect_state:
+                states[it.uid] = None  # rglru exposes no (h, c) state
+            continue
         if collect_state and not it.bidirectional:
             # state collection forces the per-layer fused path (the seq
             # kernels are the only surface that returns exact t=T state)
@@ -249,9 +277,8 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
                     cs.append(_cat_pad(c_rows, slot.B))
 
             xw = torch.stack(xws)          # (G, B, bt, gates, H)
-            U = torch.stack([
-                _cell_layer_params(params, live[grp[0].uid], grp[0])["U"]
-                .reshape(slot.H, gates, slot.H) for grp in slot.groups])
+            U, u_scales, u_rows = _slot_weights(slot, params, live,
+                                                quant_cache)
             h0 = torch.stack(hs)           # (G, B, H)
             c0 = torch.stack(cs) if slot.family == "lstm" else None
         b_valid = (list(slot.group_b)
@@ -261,7 +288,9 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
         with tracer.span("slot_launch", slot=slot.index, sig=sig,
                          uids=uids) as sp:
             out, h_n, c_n = _guarded_launch(
-                slot.index, uids, _seq_ladder(slot, U, xw, h0, c0, b_valid),
+                slot.index, uids,
+                _seq_ladder(slot, U, xw, h0, c0, b_valid,
+                            u_scales=u_scales, u_rows=u_rows),
                 on_fault=on_fault, inject=inject, report=report,
                 tracer=tracer)
             out, h_n, c_n = tracer.fence((out, h_n, c_n))
@@ -330,6 +359,63 @@ def _slot_est_cycles(slot, macs: int, X: int = 0) -> float:
     return slot_launch_cycles(slot.family, slot.H, slot.chunk_len,
                               list(slot.group_b), design,
                               precision=slot.precision)
+
+
+def _slot_weights(slot, params, live, cache: dict):
+    """Stack one sequence slot's per-group recurrent-weight operands under
+    the slot's precision and its items' block-sparsity tile maps.
+
+    Returns ``(U, u_scales, u_rows)``: dense ``(G, H, gates, H)`` with None
+    markers for a plain fp32 slot; bf16 round-trips the values (still fp32
+    storage — exact); int8 swaps in the per-gate quantized payload plus
+    ``u_scales (G, gates)``; a tile_map row-compacts to the slot's one
+    active-row width ``Ha`` plus ``u_rows (G, Ha)``.  Groups without a
+    tile_map in a sparse slot ride along dense (all-ones bitmap).
+    Per-(item, layer, direction, precision, Ha) transforms memoize in
+    ``cache``, so the chunk slots of one layer transform the weights ONCE
+    per plan."""
+    gates = GATES[slot.family]
+    leads = [grp[0] for grp in slot.groups]
+    quant = slot.precision == "int8"
+
+    def _bitmap(cell):
+        tm = live[cell.uid]["plan"].item.tile_map
+        if tm is None:
+            return (1,) * cdiv(slot.H, MXU_ROWS)
+        return tm[cell.layer]
+
+    sparse = any(live[c.uid]["plan"].item.tile_map is not None
+                 for c in leads)
+    Ha = 0
+    if sparse:
+        # one padded row count for the launch: the stacked (G, Ha) gather
+        # index needs one Ha; padding rows are exact no-ops (kernels.quant)
+        Ha = max(max(len(active_row_indices(_bitmap(c), slot.H))
+                     for c in leads), 1)
+
+    us, scales, rows = [], [], []
+    for cell in leads:
+        key = (cell.uid, cell.layer, cell.direction, slot.precision,
+               Ha if sparse else -1)
+        entry = cache.get(key)
+        if entry is None:
+            U = _cell_layer_params(params, live[cell.uid], cell)["U"] \
+                .reshape(slot.H, gates, slot.H)
+            if slot.precision == "bf16":
+                U = bf16_roundtrip(U)
+            s = None
+            if quant:
+                U, s = quantize_per_gate(U)
+            r = None
+            if sparse:
+                U, r = compact_rows(U, _bitmap(cell), pad_to=Ha)
+            entry = cache[key] = (U, s, r)
+        us.append(entry[0])
+        scales.append(entry[1])
+        rows.append(entry[2])
+    return (torch.stack(us),
+            torch.stack(scales) if quant else None,
+            torch.stack(rows) if sparse else None)
 
 
 # ---------------------------------------------------------------------------
@@ -407,12 +493,17 @@ def _rungs(on_card: bool, kernel_rungs, reference):
     return list(kernel_rungs) + ([] if on_card else [reference])
 
 
-def _seq_ladder(slot, U, xw, h0, c0, b_valid):
+def _seq_ladder(slot, U, xw, h0, c0, b_valid, *, u_scales=None,
+                u_rows=None):
     """The launch strategies for a packed sequence slot, shallowest first:
     the planned fused launch; per-step — the same kernel at block_t=1, one
     launch per timestep; and, on the CPU only, the plain reference.  All
     consume the identical pre-hoisted ``xw`` (bwd cells arrive
     pre-flipped), so the scatter after the launch is rung-agnostic.
+    Quantized / row-compacted slots pass their operands down the kernel
+    rungs unchanged; the reference rung dequantizes and expands them back
+    to the dense matrix (value-identical to what the kernel computes with,
+    see ``kernels.quant``).
 
     What per-step can recover on the card: it relaunches the same kernel
     template with the same shared memory and grid, so a deterministic
@@ -426,9 +517,11 @@ def _seq_ladder(slot, U, xw, h0, c0, b_valid):
 
     def launch(xw_, h, c, block_t):
         # (hs, h_T, c_T | None) from the slot family's sequence kernel
+        kw = dict(b_valid=b_valid, u_scales=u_scales, u_rows=u_rows,
+                  block_t=block_t)
         if lstm:
-            return lstm_seq(U, xw_, h, c, b_valid=b_valid, block_t=block_t)
-        return gru_seq(U, xw_, h, b_valid=b_valid, block_t=block_t) + (None,)
+            return lstm_seq(U, xw_, h, c, **kw)
+        return gru_seq(U, xw_, h, **kw) + (None,)
 
     def fused():
         return launch(xw, h0, c0, slot.chunk_len)
@@ -441,9 +534,15 @@ def _seq_ladder(slot, U, xw, h0, c0, b_valid):
         return torch.cat(outs, dim=2), h, c
 
     def reference():
+        Ud = U
+        if u_scales is not None:  # dequantize the int8 payload
+            Ud = Ud.float() * u_scales[:, None, :, None]
+        if u_rows is not None:    # scatter compacted rows back to dense
+            Ud = torch.stack([expand_rows(Ud[g], u_rows[g], slot.H)
+                              for g in range(Ud.shape[0])])
         if lstm:
-            return lstm_seq_ref(U, xw, h0, c0)
-        return gru_seq_ref(U, xw, h0) + (None,)
+            return lstm_seq_ref(Ud, xw, h0, c0)
+        return gru_seq_ref(Ud, xw, h0) + (None,)
 
     return _rungs(_on_card(xw), [fused, per_step], reference)
 
@@ -513,7 +612,8 @@ def _cat_pad(rows, B: int):
                                          + tuple(cat.shape[1:]))])
 
 
-def prepare_decode_stack(stack_params: dict, family: str) -> dict:
+def prepare_decode_stack(stack_params: dict, family: str,
+                         precision: str = "fp32") -> dict:
     """Stack a parameter stack of one ``family`` ("lstm" or "gru") into
     the decode kernels' (L, ...) weight layout: {"Ws", "bs", "Us"}.
     Steady-state callers (the serving engine) compute this ONCE per stack
@@ -521,8 +621,17 @@ def prepare_decode_stack(stack_params: dict, family: str) -> dict:
 
     Ws[0] is a zero placeholder when layer 0's input width differs from H;
     the kernel never reads it (layer 0's input half arrives pre-hoisted).
+
+    ``precision`` != "fp32" round-trips each layer's recurrent matrix
+    through the precision's fake-quant (``kernels.quant.fake_quant_stack``,
+    U only) before stacking: decode ticks run the dense decode kernels on
+    the dequantized values, so a quantized stack's decode matches its
+    dequantized oracle; the int8 error budget is spent only in the
+    sequence kernels' scaled dot.
     """
     gates = GATES[family]
+    if precision != "fp32":
+        stack_params = fake_quant_stack(stack_params, precision)
     stack = stack_params["layers"]
     H = stack[0]["U"].shape[0]
     L = len(stack)
@@ -566,7 +675,8 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
         xw0 = _cat_pad([_hoist(stack[0], inputs[c.uid], gates)[:, 0]
                         for c in row_cells], slot.B)    # (B, gates, H)
         prep = ((prepared or {}).get(lead_uid)
-                or prepare_decode_stack(params[lead_uid], slot.family))
+                or prepare_decode_stack(params[lead_uid], slot.family,
+                                        precision=slot.precision))
         Ws, bs, Us = prep["Ws"], prep["bs"], prep["Us"]
         h0 = torch.stack([_cat_pad([live[c.uid]["h"][(l, "fwd")]
                                     for c in row_cells], slot.B)
@@ -736,3 +846,16 @@ def _run_stack_collect(item, stack, xs):
     if cs_f:
         state["c"] = torch.stack(cs_f)
     return y, state
+
+
+def _run_rglru(xs):
+    """An rglru item: the recurrence core only (the block mixing around it
+    belongs to the model), ONE ``rglru_scan`` launch.  ``xs`` is the
+    (log_a, gx) pair of the item's hoisted gate inputs; the scan starts
+    from zero state and returns hs.  Multi-layer rglru items are plan-only
+    (``execute`` refuses them before any work)."""
+    log_a, gx = xs
+    B, T, W = gx.shape
+    h0 = torch.zeros((B, W), dtype=gx.dtype, device=gx.device)
+    hs, _ = rglru_scan(log_a, gx, h0)
+    return hs

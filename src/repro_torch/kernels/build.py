@@ -41,7 +41,8 @@ KERNELS: Dict[str, Tuple[str, List]] = {}
 _HEADERS = ("rnn_common.cuh",)
 #: the modules whose import registers their family's kernels
 FAMILIES = ("repro_torch.kernels.lstm_cell.kernel",
-            "repro_torch.kernels.gru_cell.kernel")
+            "repro_torch.kernels.gru_cell.kernel",
+            "repro_torch.kernels.rglru.kernel")
 
 _loaded: dict = {}  # kernel name -> bound C entry point
 

@@ -1,6 +1,8 @@
 """Shared kernel utilities: integer helpers, the ragged-B mask, dtype
-names, the launch counters every kernel entry point carries, and the
-operand checks every CUDA launch wrapper makes."""
+names, the launch counters every kernel entry point carries, the operand
+checks every CUDA launch wrapper makes, and the pieces the LSTM and GRU
+families share: the recurrent product of their plain sequence versions
+and the decode kernels' U operand."""
 from __future__ import annotations
 
 import torch
@@ -53,14 +55,18 @@ class KernelBuildError(RuntimeError):
 
 
 def counted(fn):
-    """Give a kernel entry point its two launch counters:
+    """Give a kernel entry point its launch counters:
 
     ``fn.calls`` counts every invocation on any device — structural, so CPU
-    tests can hold it equal to ``DispatchPlan.launches``; and
+    tests can hold it equal to ``DispatchPlan.launches``;
     ``fn.kernel_launches`` counts only real CUDA launches (the entry point
-    adds one right after its kernel launched)."""
+    adds one right after its kernel launched); and
+    ``fn.variant_launches`` splits those launches by the weight branch the
+    sequence kernels took (``seq_variant``), where the entry point has
+    branches."""
     fn.calls = 0
     fn.kernel_launches = 0
+    fn.variant_launches = {}
     return fn
 
 
@@ -68,6 +74,23 @@ def reset_counts(*entries) -> None:
     for fn in entries:
         fn.calls = 0
         fn.kernel_launches = 0
+        fn.variant_launches = {}
+
+
+def seq_variant(u_scales, u_rows) -> str:
+    """The weight branch a sequence-kernel launch takes: "dense" (fp32 or
+    bf16 U), "int8", "compact" (row-compacted U) or "int8+compact"."""
+    parts = [name for name, t in (("int8", u_scales), ("compact", u_rows))
+             if t is not None]
+    return "+".join(parts) or "dense"
+
+
+def count_launch(fn, variant: str = "") -> None:
+    """Add one real CUDA launch to ``fn``'s counters (the launch wrappers
+    call this right after their kernel launched, and nowhere else)."""
+    fn.kernel_launches += 1
+    if variant:
+        fn.variant_launches[variant] = fn.variant_launches.get(variant, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +131,30 @@ def check_shape(name: str, arg: str, t, shape) -> None:
                          f"expected {tuple(shape)}")
 
 
+def weight_operands(name: str, U, u_scales, u_rows, G: int, H: int,
+                    gates: int):
+    """Check a sequence kernel's recurrent-weight operands and return
+    (Hr, u_type): U (G, Hr, gates, H) is dense (Hr = H) or, with u_rows
+    (G, Ha) int32, row-compacted (Hr = Ha); it is fp32 (u_type 0), bf16 (1)
+    or, exactly when u_scales (G, gates) fp32 is given, int8 (2)."""
+    Hr = H if u_rows is None else u_rows.shape[-1]
+    check_shape(name, "U", U, (G, Hr, gates, H))
+    if u_rows is not None:
+        check_shape(name, "u_rows", u_rows, (G, Hr))
+        if u_rows.dtype != torch.int32:
+            raise TypeError(f"{name}: u_rows must be int32")
+    if u_scales is None:
+        if U.dtype == torch.int8:
+            raise TypeError(f"{name}: an int8 U needs its u_scales")
+        return Hr, dtype_flag(name, "U", U)
+    check_shape(name, "u_scales", u_scales, (G, gates))
+    if u_scales.dtype != torch.float32:
+        raise TypeError(f"{name}: u_scales must be float32")
+    if U.dtype != torch.int8:
+        raise TypeError(f"{name}: u_scales marks U as int8, got {U.dtype}")
+    return Hr, 2
+
+
 def ptr(t):
     """A tensor's device pointer, or None (NULL) for an absent operand."""
     return None if t is None else t.data_ptr()
@@ -134,3 +181,42 @@ def on_cuda(name: str, device) -> bool:
         return False
     raise ValueError(f"{name}: tensors on {device}; the port runs on cuda "
                      "(kernel) or cpu (plain version)")
+
+
+# ---------------------------------------------------------------------------
+# shared by the LSTM and GRU entry points
+# ---------------------------------------------------------------------------
+
+
+def recurrent_product(h, U, gates: int, u_scales=None, rows=None):
+    """h·U of the sequence kernels in plain PyTorch, (G,B,gates,H) fp32.
+
+    h (G,B,H) fp32; U (G,Hr,gates·H) fp32.  ``rows`` (G,B,Ha) int64
+    gathers h to the rows of a row-compacted U; ``u_scales`` (G,gates)
+    multiplies the accumulate of an int8 U's upcast payload after the dot,
+    as (h·Uq)·s."""
+    G, B, H = h.shape
+    h_in = h if rows is None else torch.gather(h, 2, rows)
+    acc = torch.bmm(h_in, U).reshape(G, B, gates, H)
+    if u_scales is not None:
+        acc = acc * u_scales.float()[:, None, :, None]
+    return acc
+
+
+def gather_index(u_rows, B: int):
+    """u_rows (G,Ha) -> the (G,B,Ha) int64 index ``recurrent_product``
+    gathers h with, or None for a dense U."""
+    if u_rows is None:
+        return None
+    G, Ha = u_rows.shape
+    return u_rows.long()[:, None, :].expand(G, B, Ha)
+
+
+def decode_u(Us, Ws):
+    """The Us operand of a decode kernel: a bf16 U under fp32 W is upcast
+    (exact — the kernel reads U only through an fp32 upcast), so the
+    kernels need no (fp32 W, bf16 U) instance.  Every other mix is taken
+    as it is: U's type never sets a rounding point, W's does."""
+    if Us.dtype == torch.bfloat16 and Ws.dtype == torch.float32:
+        return Us.float()
+    return Us

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.build import I, P, entry, register
 
-register("gru_seq", "gru_seq_launch", [P] * 6 + [I] * 7 + [P])
-register("gru_decode", "gru_decode_launch", [P] * 6 + [I] * 6 + [P])
+register("gru_seq", "gru_seq_launch", [P] * 8 + [I] * 8 + [P])
+register("gru_decode", "gru_decode_launch", [P] * 6 + [I] * 7 + [P])
 
 __all__ = ["entry"]

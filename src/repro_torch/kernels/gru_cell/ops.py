@@ -20,11 +20,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (check_operands, check_shape,
-                                        counted, dtype_flag, launched,
-                                        on_cuda, operand, ptr, ragged_b_mask)
+                                        count_launch, counted, decode_u,
+                                        dtype_flag, gather_index, launched,
+                                        on_cuda, operand, ptr, ragged_b_mask,
+                                        recurrent_product, seq_variant,
+                                        weight_operands)
 from repro_torch.kernels.gru_cell import kernel
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
-from repro_torch.runtime.errors import not_ported
 
 
 # ---------------------------------------------------------------------------
@@ -40,20 +42,24 @@ def _gru_update(xw, hu, h):
     return (1 - z) * n + z * h
 
 
-def gru_seq_plain(U3, xw, h0, b_mask=None):
+def gru_seq_plain(U3, xw, h0, b_mask=None, u_scales=None, u_rows=None):
     """The sequence kernel's arithmetic in plain PyTorch (stacked form).
 
-    U3 (G,H,3,H); xw (G,B,T,3,H); h0 (G,B,H); b_mask (G,B) int32 or None.
+    U3 (G,Hr,3,H); xw (G,B,T,3,H); h0 (G,B,H); b_mask (G,B) int32 or None.
     U is upcast to fp32 before the product; h is seeded from h0 in fp32,
     carried in fp32 across all T steps and rounded to h0's dtype only in
-    ``hs`` and ``h_T``; a row with b_mask == 0 freezes h."""
+    ``hs`` and ``h_T``; a row with b_mask == 0 freezes h.  ``u_scales``
+    (G,3): U3 is int8 and the per-gate scale multiplies the whole raw h·U
+    before the reset gate couples r·hu_n; ``u_rows`` (G,Ha) int32: U3
+    holds Hr = Ha compacted rows and h is gathered to them."""
     G, B, T, _, H = xw.shape
-    U = U3.reshape(G, H, 3 * H).float()
+    U = U3.reshape(G, U3.shape[1], 3 * H).float()
     h = h0.float()
+    rows = gather_index(u_rows, B)
     keep = None if b_mask is None else (b_mask != 0)[..., None]
     ys = []
     for t in range(T):
-        hu = torch.bmm(h, U).reshape(G, B, 3, H)
+        hu = recurrent_product(h, U, 3, u_scales, rows)
         h_new = _gru_update(xw[:, :, t].float(), hu, h)
         h = h_new if keep is None else torch.where(keep, h_new, h)
         ys.append(h)
@@ -91,36 +97,39 @@ def gru_decode_plain(xw0, Ws, bs, Us, h0):
 # ---------------------------------------------------------------------------
 
 
-def gru_seq_cuda(U3, xw, h0, b_mask=None):
+def gru_seq_cuda(U3, xw, h0, b_mask=None, u_scales=None, u_rows=None):
     """Launch ``csrc/gru_seq.cu`` (stacked form, T >= 1) on the current
-    stream; shapes and dtypes as ``gru_seq_plain``."""
+    stream; shapes and dtypes as ``gru_seq_plain``, U3 fp32, bf16 or (with
+    u_scales) int8, u_rows int32."""
     G, B, T, _, H = xw.shape
     dev = xw.device
-    check_operands("gru_seq", dev, U3=U3, xw=xw, h0=h0, b_mask=b_mask)
-    check_shape("gru_seq", "U3", U3, (G, H, 3, H))
+    check_operands("gru_seq", dev, U3=U3, xw=xw, h0=h0, b_mask=b_mask,
+                   u_scales=u_scales, u_rows=u_rows)
+    Hr, u_type = weight_operands("gru_seq", U3, u_scales, u_rows, G, H, 3)
     check_shape("gru_seq", "h0", h0, (G, B, H))
     if b_mask is not None:
         check_shape("gru_seq", "b_mask", b_mask, (G, B))
         if b_mask.dtype != torch.int32:
             raise TypeError("gru_seq: b_mask must be int32")
-    flags = (dtype_flag("gru_seq", "U3", U3),
-             dtype_flag("gru_seq", "xw", xw),
+    flags = (u_type, dtype_flag("gru_seq", "xw", xw),
              dtype_flag("gru_seq", "h0", h0))
     hs = torch.empty((G, B, T, H), dtype=h0.dtype, device=dev)
     h_n = torch.empty((G, B, H), dtype=h0.dtype, device=dev)
     launch = kernel.entry("gru_seq")
     with torch.cuda.device(dev):
-        rc = launch(U3.data_ptr(), xw.data_ptr(), h0.data_ptr(), ptr(b_mask),
-                    hs.data_ptr(), h_n.data_ptr(), G, B, T, H, *flags,
+        rc = launch(U3.data_ptr(), ptr(u_scales), ptr(u_rows), xw.data_ptr(),
+                    h0.data_ptr(), ptr(b_mask), hs.data_ptr(),
+                    h_n.data_ptr(), G, B, T, H, Hr, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
     launched("gru_seq", rc)
-    gru_seq.kernel_launches += 1
+    count_launch(gru_seq, seq_variant(u_scales, u_rows))
     return hs, h_n
 
 
 def gru_decode_cuda(xw0, Ws, bs, Us, h0):
     """Launch ``csrc/gru_decode.cu`` on the current stream; shapes and
-    dtypes as ``gru_decode_plain``, Ws/bs/Us in one dtype."""
+    dtypes as ``gru_decode_plain``, Ws/bs in one dtype, Us in Ws's or
+    (under bf16 Ws) fp32."""
     L, B, H = h0.shape
     dev = h0.device
     check_operands("gru_decode", dev, xw0=xw0, Ws=Ws, bs=bs, Us=Us, h0=h0)
@@ -128,12 +137,16 @@ def gru_decode_cuda(xw0, Ws, bs, Us, h0):
     check_shape("gru_decode", "Ws", Ws, (L, H, 3, H))
     check_shape("gru_decode", "bs", bs, (L, 3, H))
     check_shape("gru_decode", "Us", Us, (L, H, 3, H))
-    if not Ws.dtype == bs.dtype == Us.dtype:
-        raise TypeError(f"gru_decode: Ws, bs and Us must share one dtype, "
-                        f"got {Ws.dtype}, {bs.dtype}, {Us.dtype}")
+    if Ws.dtype != bs.dtype:
+        raise TypeError(f"gru_decode: Ws and bs must share one dtype, "
+                        f"got {Ws.dtype}, {bs.dtype}")
     flags = (dtype_flag("gru_decode", "Ws", Ws),
+             dtype_flag("gru_decode", "Us", Us),
              dtype_flag("gru_decode", "xw0", xw0),
              dtype_flag("gru_decode", "h0", h0))
+    if flags[1] and not flags[0]:
+        raise TypeError(f"gru_decode: bfloat16 Us under float32 Ws; the "
+                        "entry point upcasts such a U")
     h_n = torch.empty((L, B, H), dtype=h0.dtype, device=dev)
     launch = kernel.entry("gru_decode")
     with torch.cuda.device(dev):
@@ -141,7 +154,7 @@ def gru_decode_cuda(xw0, Ws, bs, Us, h0):
                     Us.data_ptr(), h0.data_ptr(), h_n.data_ptr(), L, B, H,
                     *flags, torch.cuda.current_stream(dev).cuda_stream)
     launched("gru_decode", rc)
-    gru_decode.kernel_launches += 1
+    count_launch(gru_decode)
     return h_n
 
 
@@ -162,19 +175,22 @@ def gru_seq(U3, xw, h0=None, *, b_valid=None, u_scales=None, u_rows=None,
     in h0's dtype; ``hs`` is (…B,T,H).  U3 and xw/h0 may be float32 or
     bfloat16 independently.
 
+    ``u_scales`` (…3) fp32 marks U3 as the int8 per-gate quantized payload
+    (the scale multiplies the fp32 accumulate of all three gates before
+    the reset gate couples into the candidate); ``u_rows`` (…Ha) int32
+    marks U3 as row-compacted to (…Ha,3,H), with h gathered to the
+    surviving rows.  The two combine (see ``kernels.quant``).
+
     ``b_valid`` (stacked form only): (G,) valid batch rows per cell when
     ragged-B cells were padded to a common B — rows >= b_valid[g] are
     exact no-ops (state passes through).
 
     ``block_t`` is the planner's T-stripe.  It does not change the numbers
-    (h stays fp32 across the whole launch).  Time-reversed walks feed the
-    time-flipped xw and flip ``hs`` back (see ``dispatch.executor``).
-
-    ``u_scales`` / ``u_rows`` (int8 / block-sparse U) are not ported yet."""
+    (h stays fp32 across the whole launch), and the kernel walks the
+    launch's whole T, so the wrapper picks no default (see ``lstm_seq``).
+    Time-reversed walks feed the time-flipped xw and flip ``hs`` back (see
+    ``dispatch.executor``)."""
     gru_seq.calls += 1
-    if u_scales is not None or u_rows is not None:
-        raise not_ported("gru_seq with int8 (u_scales) or block-sparse "
-                         "(u_rows) recurrent weights", "P1")
     if block_t < 0:
         raise ValueError(f"gru_seq: block_t={block_t} must be >= 0")
     stacked = xw.ndim == 5
@@ -183,6 +199,8 @@ def gru_seq(U3, xw, h0=None, *, b_valid=None, u_scales=None, u_rows=None,
             raise ValueError("b_valid requires the stacked (G, ...) form")
         U3, xw = U3[None], xw[None]
         h0 = None if h0 is None else h0[None]
+        u_scales = None if u_scales is None else u_scales[None]
+        u_rows = None if u_rows is None else u_rows[None]
     G, B, T, _, H = xw.shape
     if h0 is None:
         h0 = xw.new_zeros((G, B, H))
@@ -192,9 +210,12 @@ def gru_seq(U3, xw, h0=None, *, b_valid=None, u_scales=None, u_rows=None,
         b_mask = (None if b_valid is None
                   else ragged_b_mask(G, B, b_valid, device=xw.device))
         if on_cuda("gru_seq", xw.device):
-            out = gru_seq_cuda(operand(U3), operand(xw), operand(h0), b_mask)
+            out = gru_seq_cuda(
+                operand(U3), operand(xw), operand(h0), b_mask,
+                None if u_scales is None else operand(u_scales.float()),
+                None if u_rows is None else operand(u_rows.int()))
         else:
-            out = gru_seq_plain(U3, xw, h0, b_mask)
+            out = gru_seq_plain(U3, xw, h0, b_mask, u_scales, u_rows)
     return out if stacked else tuple(o[0] for o in out)
 
 
@@ -212,7 +233,7 @@ def gru_decode(xw0, Ws, bs, Us, h0):
     gru_decode.calls += 1
     if on_cuda("gru_decode", h0.device):
         return gru_decode_cuda(operand(xw0), operand(Ws), operand(bs),
-                               operand(Us), operand(h0))
+                               operand(decode_u(Us, Ws)), operand(h0))
     return gru_decode_plain(xw0, Ws, bs, Us, h0)
 
 

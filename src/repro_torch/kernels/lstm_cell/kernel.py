@@ -9,8 +9,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.build import I, P, entry, register
 
-register("lstm_seq", "lstm_seq_launch", [P] * 8 + [I] * 7 + [P])
-register("lstm_decode", "lstm_decode_launch", [P] * 8 + [I] * 6 + [P])
+register("lstm_seq", "lstm_seq_launch", [P] * 10 + [I] * 8 + [P])
+register("lstm_decode", "lstm_decode_launch", [P] * 8 + [I] * 7 + [P])
 register("lstm_cell", "lstm_cell_launch", [P] * 6 + [I] * 7 + [P])
 
 __all__ = ["entry"]

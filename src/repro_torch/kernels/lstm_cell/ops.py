@@ -23,11 +23,13 @@ import torch
 
 from repro_torch.core.autotune import table
 from repro_torch.kernels.common import (check_operands, check_shape,
-                                        counted, dtype_flag, launched,
-                                        on_cuda, operand, ptr, ragged_b_mask)
+                                        count_launch, counted, decode_u,
+                                        dtype_flag, gather_index, launched,
+                                        on_cuda, operand, ptr, ragged_b_mask,
+                                        recurrent_product, seq_variant,
+                                        weight_operands)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
-from repro_torch.runtime.errors import not_ported
 
 
 # ---------------------------------------------------------------------------
@@ -35,20 +37,26 @@ from repro_torch.runtime.errors import not_ported
 # ---------------------------------------------------------------------------
 
 
-def lstm_seq_plain(U4, xw, h0, c0, b_mask=None):
+def lstm_seq_plain(U4, xw, h0, c0, b_mask=None, u_scales=None,
+                   u_rows=None):
     """The sequence kernel's arithmetic in plain PyTorch (stacked form).
 
-    U4 (G,H,4,H); xw (G,B,T,4,H); h0 (G,B,H); c0 (G,B,H); b_mask (G,B)
+    U4 (G,Hr,4,H); xw (G,B,T,4,H); h0 (G,B,H); c0 (G,B,H); b_mask (G,B)
     int32 or None.  U is upcast to fp32 before the product; h and c are
     carried in fp32 across all T steps and h is rounded to h0's dtype only
-    in ``hs`` and ``h_T``; a row with b_mask == 0 freezes h and c."""
+    in ``hs`` and ``h_T``; a row with b_mask == 0 freezes h and c.
+    ``u_scales`` (G,4): U4 is int8 and the per-gate scale multiplies the
+    fp32 accumulate before xw is added; ``u_rows`` (G,Ha) int32: U4 holds
+    Hr = Ha compacted rows and h is gathered to them."""
     G, B, T, _, H = xw.shape
-    U = U4.reshape(G, H, 4 * H).float()
+    U = U4.reshape(G, U4.shape[1], 4 * H).float()
     h, c = h0.float(), c0.float()
+    rows = gather_index(u_rows, B)
     keep = None if b_mask is None else (b_mask != 0)[..., None]
     ys = []
     for t in range(T):
-        gates = xw[:, :, t].float() + torch.bmm(h, U).reshape(G, B, 4, H)
+        gates = xw[:, :, t].float() + recurrent_product(h, U, 4, u_scales,
+                                                        rows)
         i = torch.sigmoid(gates[:, :, 0])
         f = torch.sigmoid(gates[:, :, 1])
         g = torch.tanh(gates[:, :, 2])
@@ -107,14 +115,16 @@ lstm_cell_plain = lstm_cell_ref
 # ---------------------------------------------------------------------------
 
 
-def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None):
+def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None, u_scales=None,
+                  u_rows=None):
     """Launch ``csrc/lstm_seq.cu`` (stacked form, T >= 1) on the current
-    stream; shapes and dtypes as ``lstm_seq_plain``, c0 fp32."""
+    stream; shapes and dtypes as ``lstm_seq_plain``, c0 fp32, U4 fp32,
+    bf16 or (with u_scales) int8, u_rows int32."""
     G, B, T, _, H = xw.shape
     dev = xw.device
     check_operands("lstm_seq", dev, U4=U4, xw=xw, h0=h0, c0=c0,
-                   b_mask=b_mask)
-    check_shape("lstm_seq", "U4", U4, (G, H, 4, H))
+                   b_mask=b_mask, u_scales=u_scales, u_rows=u_rows)
+    Hr, u_type = weight_operands("lstm_seq", U4, u_scales, u_rows, G, H, 4)
     check_shape("lstm_seq", "h0", h0, (G, B, H))
     check_shape("lstm_seq", "c0", c0, (G, B, H))
     if c0.dtype != torch.float32:
@@ -123,26 +133,27 @@ def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None):
         check_shape("lstm_seq", "b_mask", b_mask, (G, B))
         if b_mask.dtype != torch.int32:
             raise TypeError("lstm_seq: b_mask must be int32")
-    flags = (dtype_flag("lstm_seq", "U4", U4),
-             dtype_flag("lstm_seq", "xw", xw),
+    flags = (u_type, dtype_flag("lstm_seq", "xw", xw),
              dtype_flag("lstm_seq", "h0", h0))
     hs = torch.empty((G, B, T, H), dtype=h0.dtype, device=dev)
     h_n = torch.empty((G, B, H), dtype=h0.dtype, device=dev)
     c_n = torch.empty((G, B, H), dtype=torch.float32, device=dev)
     launch = kernel.entry("lstm_seq")
     with torch.cuda.device(dev):
-        rc = launch(U4.data_ptr(), xw.data_ptr(), h0.data_ptr(),
-                    c0.data_ptr(), ptr(b_mask), hs.data_ptr(),
-                    h_n.data_ptr(), c_n.data_ptr(), G, B, T, H, *flags,
+        rc = launch(U4.data_ptr(), ptr(u_scales), ptr(u_rows),
+                    xw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                    ptr(b_mask), hs.data_ptr(), h_n.data_ptr(),
+                    c_n.data_ptr(), G, B, T, H, Hr, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
     launched("lstm_seq", rc)
-    lstm_seq.kernel_launches += 1
+    count_launch(lstm_seq, seq_variant(u_scales, u_rows))
     return hs, h_n, c_n
 
 
 def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
     """Launch ``csrc/lstm_decode.cu`` on the current stream; shapes and
-    dtypes as ``lstm_decode_plain``, Ws/bs/Us in one dtype, c0 fp32."""
+    dtypes as ``lstm_decode_plain``, Ws/bs in one dtype, Us in Ws's or
+    (under bf16 Ws) fp32, c0 fp32."""
     L, B, H = h0.shape
     dev = h0.device
     check_operands("lstm_decode", dev, xw0=xw0, Ws=Ws, bs=bs, Us=Us, h0=h0,
@@ -154,12 +165,16 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
     check_shape("lstm_decode", "c0", c0, (L, B, H))
     if c0.dtype != torch.float32:
         raise TypeError("lstm_decode: c0 must be float32")
-    if not Ws.dtype == bs.dtype == Us.dtype:
-        raise TypeError(f"lstm_decode: Ws, bs and Us must share one dtype, "
-                        f"got {Ws.dtype}, {bs.dtype}, {Us.dtype}")
+    if Ws.dtype != bs.dtype:
+        raise TypeError(f"lstm_decode: Ws and bs must share one dtype, "
+                        f"got {Ws.dtype}, {bs.dtype}")
     flags = (dtype_flag("lstm_decode", "Ws", Ws),
+             dtype_flag("lstm_decode", "Us", Us),
              dtype_flag("lstm_decode", "xw0", xw0),
              dtype_flag("lstm_decode", "h0", h0))
+    if flags[1] and not flags[0]:
+        raise TypeError(f"lstm_decode: bfloat16 Us under float32 Ws; the "
+                        "entry point upcasts such a U")
     h_n = torch.empty((L, B, H), dtype=h0.dtype, device=dev)
     c_n = torch.empty((L, B, H), dtype=torch.float32, device=dev)
     launch = kernel.entry("lstm_decode")
@@ -169,7 +184,7 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
                     h_n.data_ptr(), c_n.data_ptr(), L, B, H, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
     launched("lstm_decode", rc)
-    lstm_decode.kernel_launches += 1
+    count_launch(lstm_decode)
     return h_n, c_n
 
 
@@ -200,7 +215,7 @@ def lstm_cell_cuda(U4, xw_t, h_prev, c_prev, block_h: int, block_k: int):
                     block_h, block_k, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
     launched("lstm_cell", rc)
-    lstm_cell.kernel_launches += 1
+    count_launch(lstm_cell)
     return h, c
 
 
@@ -271,6 +286,12 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
     Returns (hs, h_T, c_T); ``hs`` is (…B,T,H) and ``h_T`` in h0's dtype,
     ``c_T`` fp32.  U4 and xw/h0 may be float32 or bfloat16 independently.
 
+    ``u_scales`` (…4) fp32 marks U4 as the int8 per-gate quantized payload:
+    h·Uq accumulates in fp32 and the scale multiplies the accumulate after
+    the dot.  ``u_rows`` (…Ha) int32 marks U4 as row-compacted to
+    (…Ha,4,H): h is gathered to the surviving rows before the dot.  The
+    two combine (see ``kernels.quant`` for both transforms).
+
     ``b_valid`` (stacked form only): (G,) valid batch rows per cell when
     ragged-B cells were padded to a common B — rows >= b_valid[g] are
     exact no-ops (state passes through).
@@ -279,15 +300,14 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
     (h stays fp32 across the whole launch), so a chunked walk differs from
     a single launch exactly as it does in the reference: not at all in
     fp32, by the rounding of h to h0's dtype at each chunk edge otherwise.
+    The kernel walks the launch's whole T in one block, so the wrapper has
+    no use for a default stripe; the planner's choice
+    (``core.tiling.select_time_block``, which weighs the precision and the
+    density) sets the T of each launch it plans.
 
     Time-reversed walks (the bwd half of a bidirectional layer) feed the
-    time-flipped xw and flip ``hs`` back (see ``dispatch.executor``).
-
-    ``u_scales`` / ``u_rows`` (int8 / block-sparse U) are not ported yet."""
+    time-flipped xw and flip ``hs`` back (see ``dispatch.executor``)."""
     lstm_seq.calls += 1
-    if u_scales is not None or u_rows is not None:
-        raise not_ported("lstm_seq with int8 (u_scales) or block-sparse "
-                         "(u_rows) recurrent weights", "P1")
     if block_t < 0:
         raise ValueError(f"lstm_seq: block_t={block_t} must be >= 0")
     stacked = xw.ndim == 5
@@ -297,6 +317,8 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
         U4, xw = U4[None], xw[None]
         h0 = None if h0 is None else h0[None]
         c0 = None if c0 is None else c0[None]
+        u_scales = None if u_scales is None else u_scales[None]
+        u_rows = None if u_rows is None else u_rows[None]
     G, B, T, _, H = xw.shape
     if h0 is None:
         h0 = xw.new_zeros((G, B, H))
@@ -310,10 +332,12 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
         b_mask = (None if b_valid is None
                   else ragged_b_mask(G, B, b_valid, device=xw.device))
         if on_cuda("lstm_seq", xw.device):
-            out = lstm_seq_cuda(operand(U4), operand(xw), operand(h0),
-                                operand(c0), b_mask)
+            out = lstm_seq_cuda(
+                operand(U4), operand(xw), operand(h0), operand(c0), b_mask,
+                None if u_scales is None else operand(u_scales.float()),
+                None if u_rows is None else operand(u_rows.int()))
         else:
-            out = lstm_seq_plain(U4, xw, h0, c0, b_mask)
+            out = lstm_seq_plain(U4, xw, h0, c0, b_mask, u_scales, u_rows)
     return out if stacked else tuple(o[0] for o in out)
 
 
@@ -330,7 +354,7 @@ def lstm_decode(xw0, Ws, bs, Us, h0, c0):
     lstm_decode.calls += 1
     if on_cuda("lstm_decode", h0.device):
         return lstm_decode_cuda(operand(xw0), operand(Ws), operand(bs),
-                                operand(Us), operand(h0),
+                                operand(decode_u(Us, Ws)), operand(h0),
                                 operand(c0.float()))
     return lstm_decode_plain(xw0, Ws, bs, Us, h0, c0)
 

@@ -1,0 +1,14 @@
+"""The RG-LRU scan CUDA kernel (``csrc/rglru_scan.cu``), registered with
+the shared build (``kernels.build``: nvcc for ``sm_90a`` at first use,
+ctypes binding).
+
+The Python wrapper that checks tensors and launches lives in
+``kernels.rglru.ops``.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.build import I, P, entry, register
+
+register("rglru_scan", "rglru_scan_launch", [P] * 5 + [I] * 3 + [P])
+
+__all__ = ["entry"]

@@ -26,6 +26,13 @@ the interleaved fwd/bwd wavefront — forward returns the (B, T, 2H) fwd‖bwd
 concat, prefill per-direction end-of-walk state, and decode raises (no
 streaming decode exists).
 
+The policy's ``precision`` ("bf16"/"int8") and ``sparsity`` ("block")
+act on the recurrent weights U only: the stack binds their fake-quant
+view once at compile, the planner prices the narrowed weights, and the
+executor hands the sequence kernels the int8 payload and/or the
+row-compacted U (decode ticks run the dense decode kernels on the
+fake-quant view).
+
 Entry points run on ``device`` ("cuda" by default: the hand-written
 kernels); ``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
@@ -41,6 +48,7 @@ from repro_torch.core.schedules import stack_families
 from repro_torch.dispatch import (DispatchPlan, WorkItem, execute, plan,
                                   plan_decode, prepare_decode_stack)
 from repro_torch.kernels.common import dtype_name, torch_dtype
+from repro_torch.kernels.quant import fake_quant_stack, stack_tile_maps
 from repro_torch.rnn.policy import ExecutionPolicy
 from repro_torch.runtime.errors import ExecutionReport, FaultInjector
 from repro_torch.runtime.obs import NULL_TRACER, Tracer
@@ -198,6 +206,13 @@ class CompiledStack:
             raise ValueError("CompiledStack: empty parameter stack")
         self.policy = policy
         self.device = device
+        if policy.precision != "fp32":
+            # bind the fake-quant view ONCE: packed kernels (which
+            # re-quantize it, an exact idempotent round-trip), decode ticks
+            # and the external schedules then all compute with the SAME
+            # dequantized values, so one oracle (reference_stack over these
+            # params) covers every surface
+            params = fake_quant_stack(params, policy.precision)
         self.params = params
         self.families: Tuple[str, ...] = stack_families(params)
         self.bidirectional = any("fwd" in l for l in params["layers"])
@@ -229,6 +244,17 @@ class CompiledStack:
         #: test/chaos hook: arm with plan slot indices to make launches
         #: raise (see runtime.errors.FaultInjector); disarmed = no-op
         self.fault = FaultInjector()
+        #: block-sparsity occupancy of the bound parameters, derived ONCE
+        #: at compile (policy ``sparsity="block"``): per-layer 8-row tile
+        #: bitmaps the planner prices and the executor row-compacts
+        #: against.  None = dense.
+        self._tile_map: Optional[tuple] = None
+        if policy.sparsity == "block":
+            self._tile_map = stack_tile_maps(params)
+        #: memo of quantized / row-compacted weight operands — valid for
+        #: this stack's lifetime (the bound parameters never change), so
+        #: each layer is transformed at most once across every call
+        self._quant_cache: dict = {}
         self.last_decode_plan: Optional[DispatchPlan] = None
         self._last_plan: Optional[DispatchPlan] = None
         self._plans: Dict[tuple, DispatchPlan] = {}
@@ -254,7 +280,8 @@ class CompiledStack:
                         H=self.H, L=self.L, X=self.X, dtype=dtype,
                         priority=priority, bidirectional=self.bidirectional,
                         share=0, families=self.families,
-                        precision=self.policy.precision)
+                        precision=self.policy.precision,
+                        tile_map=self._tile_map)
 
     @property
     def _dir_key(self) -> str:
@@ -370,7 +397,8 @@ class CompiledStack:
         with tr.span("forward", B=B, T=T) as sp:
             p = self.lower(B, T, dtype_name(xs.dtype))
             rep, guard = self._guard()
-            outs = execute(p, {0: self.params}, {0: xs}, **guard)
+            outs = execute(p, {0: self.params}, {0: xs},
+                           quant_cache=self._quant_cache, **guard)
             outs = tr.fence(outs)
             if tr.enabled:
                 sp.tag(plan=tr.plan_id(p), launches=p.launches)
@@ -422,7 +450,8 @@ class CompiledStack:
                       for x in inputs.values()), tuple(prios))
             rep, guard = self._guard()
             outs, states = execute(p, {i: self.params for i in inputs},
-                                   inputs, collect_state=True, **guard)
+                                   inputs, collect_state=True,
+                                   quant_cache=self._quant_cache, **guard)
             outs, states = tr.fence((outs, states))
             if tr.enabled:
                 sp.tag(plan=tr.plan_id(p), launches=p.launches)
@@ -469,8 +498,13 @@ class CompiledStack:
                     [self._item(0, B, 1, dtype)], macs=self.policy.macs,
                     tracer=tr))
                 if self._prepared is None:
+                    # self.params already carries the fake-quant view, so
+                    # the precision round-trip here is an exact idempotent
+                    # no-op — passed anyway to keep the surfaces honest
+                    # about what decode computes with
                     self._prepared = prepare_decode_stack(
-                        self.params, self.families[0])
+                        self.params, self.families[0],
+                        precision=self.policy.precision)
                 prepared = {0: self._prepared}
             else:
                 # mixed stacks: per-layer T=1 plan — FORCED onto the packed
@@ -489,7 +523,8 @@ class CompiledStack:
             outs, states = execute(p, {0: self.params}, {0: x_t},
                                    collect_state=True,
                                    init_state={0: state},
-                                   prepared=prepared, **guard)
+                                   prepared=prepared,
+                                   quant_cache=self._quant_cache, **guard)
             outs, states = tr.fence((outs, states))
             if tr.enabled:
                 sp.tag(plan=tr.plan_id(p), launches=p.launches)

@@ -65,9 +65,14 @@ class ExecutionPolicy:
                scorer then only weighs the pinned stripe against
                per_step); 0 = autotuned (VMEM-budgeted).
     dtype:     cast inputs before execution; None = keep the caller's.
-    precision: recurrent-weight precision; "fp32" (the weights as bound)
-               runs, "bf16"/"int8" are queued (ROADMAP.md, P1).
-    sparsity:  "none" (dense) runs, "block" is queued (ROADMAP.md, P1).
+    precision: recurrent-weight precision — "fp32" (the weights as bound),
+               "bf16" (U round-tripped through bfloat16: bit-identical to
+               the fp32 path on the fake-quant view) or "int8" (per-gate
+               absmax int8 U; fp32 accumulate, scale after the dot;
+               bounded error vs the dequantized oracle).  The input GEMM
+               (W) always stays full precision.
+    sparsity:  "none" (dense) or "block" — skip all-zero 8-row tiles of U
+               (value-exact; the kernels gather h to the surviving rows).
     packing:   cross-B packing + stripe alignment on/off (off = every cell
                its own launch row; the benchmark baseline).
     macs:      planner tile-engine budget (the paper's K-width exploration
@@ -144,9 +149,6 @@ class ExecutionPolicy:
                        (None, "a path to a measured-cost JSON"))
         if not isinstance(self.trace, bool):
             raise _bad("trace", self.trace, (True, False))
-        if self.precision != "fp32" or self.sparsity != "none":
-            raise not_ported(f"ExecutionPolicy(precision={self.precision!r}, "
-                             f"sparsity={self.sparsity!r})", "P1")
         if self.cost_model != "analytic":
             raise not_ported("ExecutionPolicy(cost_model='measured')", "P2")
 

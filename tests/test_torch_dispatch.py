@@ -193,8 +193,15 @@ def test_default_device_without_cuda_raises():
     ({"precision": "bf16"}, "P1"), ({"sparsity": "block"}, "P1"),
     ({"cost_model": "measured"}, "P2")])
 def test_unported_policy_values_raise(policy_kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        rnn.ExecutionPolicy(**policy_kw)
+    """Only the measured cost model (P2) is still unported, and it raises
+    naming P2 whatever it is combined with.  The P1 values (reduced
+    recurrent-weight precision, block sparsity) are ported: they construct
+    on their own (tests/test_torch_precision.py runs them)."""
+    with pytest.raises(NotImplementedError, match="P2"):
+        rnn.ExecutionPolicy(**{**policy_kw, "cost_model": "measured"})
+    if item == "P1":
+        pol = rnn.ExecutionPolicy(**policy_kw)
+        assert {k: getattr(pol, k) for k in policy_kw} == policy_kw
 
 
 def test_policy_validation_messages_match_reference():
@@ -208,19 +215,31 @@ def test_policy_validation_messages_match_reference():
 
 
 def test_unported_families_and_schedules_raise():
-    """What the port does not carry yet raises, naming its ROADMAP item:
-    rglru items (P4) and quantized recurrent weights (P1).  The GRU family
-    and the off-timeline schedules are ported (tests/test_torch_gru.py,
+    """What the port cannot execute raises before any work: a multi-layer
+    rglru item is plan-only in the reference too (its layers are joined by
+    block mixing that lives in the model), and execute() refuses it with
+    the reference's message.  Single-layer rglru items and quantized
+    recurrent weights run (tests/test_torch_rglru.py,
+    tests/test_torch_precision.py), as do the GRU family and the
+    off-timeline schedules (tests/test_torch_gru.py,
     tests/test_torch_offpath.py)."""
+    multi = dispatch.plan([dispatch.WorkItem(uid=0, family="rglru", B=1,
+                                             T=4, H=8, L=2)])
+    with pytest.raises(NotImplementedError, match="plan-only items"):
+        dispatch.execute(multi, {}, {})
     rglru = dispatch.plan([dispatch.WorkItem(uid=0, family="rglru", B=1,
                                              T=4, H=8, L=1)])
-    with pytest.raises(NotImplementedError, match="P4"):
-        dispatch.execute(rglru, {}, {})
+    assert dispatch.execute(rglru, {}, {0: (torch.zeros(1, 4, 8),
+                                            torch.ones(1, 4, 8))})[0].shape \
+        == (1, 4, 8)
     quant = dispatch.plan([dispatch.WorkItem(uid=0, family="lstm", B=1,
                                              T=4, H=8, L=1,
                                              precision="int8")])
-    with pytest.raises(NotImplementedError, match="P1"):
-        dispatch.execute(quant, {}, {})
+    stack = {"layers": [{"W": torch.ones(8, 32) * 0.1,
+                         "U": torch.ones(8, 32) * 0.1,
+                         "b": torch.zeros(32)}]}
+    assert dispatch.execute(quant, {0: stack}, {0: torch.ones(1, 4, 8)}
+                            )[0].shape == (1, 4, 8)
     gru = {"layers": [{"W": torch.zeros(8, 24), "U": torch.zeros(8, 24),
                        "b": torch.zeros(24)}]}
     assert rnn.compile(gru, device="cpu").forward(

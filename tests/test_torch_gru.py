@@ -228,9 +228,10 @@ def test_counters_and_registered_kernels():
     assert (ops.gru_seq.calls, ops.gru_seq.kernel_launches) == (3, 0)
     assert (ops.gru_decode.calls, ops.gru_decode.kernel_launches) == (1, 0)
     assert {"gru_seq", "gru_decode", "lstm_seq", "lstm_decode",
-            "lstm_cell"} <= set(build.all_kernels())
-    with pytest.raises(NotImplementedError, match="P1"):
-        ops.gru_seq(U3, xw, u_scales=torch.ones(3))
+            "lstm_cell", "rglru_scan"} <= set(build.all_kernels())
+    # the int8 branch counts like any call (and on the CPU launches nothing)
+    ops.gru_seq(U3.to(torch.int8), xw, u_scales=torch.ones(3))
+    assert (ops.gru_seq.calls, ops.gru_seq.kernel_launches) == (4, 0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

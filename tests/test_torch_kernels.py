@@ -221,10 +221,19 @@ def test_counters_count_calls_not_launches_on_cpu():
 
 
 def test_quantized_and_sparse_weights_are_not_ported():
+    """int8 (u_scales) and row-compacted (u_rows) U through lstm_seq equal
+    the dense plain version on the dequantized, re-expanded weights, to
+    fp32 reduction order (1e-6)."""
+    from repro_torch.kernels import quant
+
     U4, xw, _, _ = _torch(_seq_inputs(
-        0, 1, 2, 8, "float32", "float32", seed=0))
-    with pytest.raises(NotImplementedError, match="P1"):
-        ops.lstm_seq(U4, xw, u_scales=torch.ones(4))
+        0, 2, 5, 16, "float32", "float32", seed=0))
+    q, s = quant.quantize_per_gate(U4)
+    Uc, rows = quant.compact_rows(q, (1, 0))
+    got = ops.lstm_seq(Uc, xw, u_scales=s, u_rows=rows)
+    dense = quant.expand_rows(quant.dequantize_per_gate(Uc, s), rows, 16)
+    for a, b in zip(got, ops.lstm_seq(dense, xw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
 def test_build_without_nvcc_raises_build_error(monkeypatch, tmp_path):
