@@ -8,15 +8,21 @@ Phases, one line (or a few) of output each:
 
   1 card       the card's name and power limit (nvidia-smi), torch and
                CUDA
-  2 build      nvcc builds all six kernels from src/repro_torch/csrc
+  2 build      nvcc builds all eight kernels from src/repro_torch/csrc
                (sm_90a), one process per source, all started together
   3 kernels    each CUDA kernel against its plain PyTorch version on the
                card, at the main path's shapes; median times (CUDA events)
                of the kernel, the plain version and one PyTorch library
-               call (cuDNN nn.LSTM / nn.GRU / nn.LSTMCell) as a yardstick;
-               lstm_seq and gru_seq also with int8 U, with row-compacted U
-               and with both, at a BYSDNE int8 wavefront slot; rglru_scan
-               at the rglru phase's shape and at a ragged W = 513
+               call (cuDNN nn.LSTM / nn.GRU / nn.LSTMCell, torch.matmul,
+               F.scaled_dot_product_attention) as a yardstick; lstm_seq and
+               gru_seq also with int8 U, with row-compacted U and with
+               both, at a BYSDNE int8 wavefront slot; rglru_scan at the
+               rglru phase's shape and at a ragged W = 513; mvm at the
+               RecurrentGemma-2B decode projections (bf16, B = 4) and a
+               ragged fp32 shape with bias; decode_attention at its
+               attention layers' decode (bf16, B = 4, T = 2048, 10 query
+               heads on 1 kv head of 256, mixed valid) and an fp32 GQA
+               shape
   4 serve      RecurrentServingEngine serves the paper's BYSDNE LSTM (L=5,
                H=X=340, bf16 weights from a seeded torch.Generator): 6
                requests in two admission waves, then decode ticks; every
@@ -53,7 +59,20 @@ Phases, one line (or a few) of output each:
                prefill state; then int8 alone and bf16 + block sparsity,
                forward; launches == the plans' launches in every run, each
                output held against the CPU path
- 10 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 10 serve_lm   serving.ServingEngine serves RecurrentGemma-2B at full width
+               (26 layers, d_model 2560, vocab 256000, bf16 weights drawn
+               on the card from a seeded torch.Generator; max_batch 4,
+               max_seq 4096: 2048-slot rings) 6 requests of 5, 37, 300,
+               1100, 2100 and 64 prompt tokens, 16 new tokens each: every
+               decode step launches 156 mvm and 8 decode_attention
+               kernels, every prefill 18 rglru_scan, and no plain version
+               runs; the logits of every generated token held against a
+               teacher-forced forward on the card; two requests served
+               again with a fault planted in each decode kernel's call
+               (mvm loses a k-tile, decode_attention the newest slot),
+               which that check must see; the first three layers served
+               on the card and by a device="cpu" engine
+ 11 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -74,8 +93,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "serve_gru",
-          "offpath", "rglru", "precision", "summary")
-#: kernel source -> the TPU kernel it replaces
+          "offpath", "rglru", "precision", "serve_lm", "summary")
+#: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
     "lstm_decode": "src/repro/kernels/lstm_cell/kernel.py:337",
@@ -83,7 +102,11 @@ KERNELS = {
     "gru_seq": "src/repro/kernels/gru_cell/kernel.py:111",
     "gru_decode": "src/repro/kernels/gru_cell/kernel.py:217",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:40",
+    "mvm": "src/repro/kernels/mvm_tile/kernel.py:49",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:63",
 }
+#: entry points whose source file (csrc/<name>.cu) has another name
+SOURCES = {"mvm": "mvm_tile"}
 #: the sequence kernels' weight branches (kernels.common.seq_variant): a
 #: summary row each, "lstm_seq" for dense U, "lstm_seq[int8]" and so on
 VARIANTS = ("dense", "int8", "compact", "int8+compact")
@@ -100,8 +123,11 @@ ROWS = tuple((row_name(k, v), k) for k in KERNELS
              for v in (VARIANTS if k in SEQ_KERNELS else ("dense",)))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit): the
-# kernels compute in fp32 on the CUDA cores, so fp32 is their rate
+# recurrent kernels' operands are fp32 (or upcast to it), so fp32 is their
+# rate; the bf16 rate bounds the operations on bf16 operands (mvm,
+# decode_attention on the RecurrentGemma path)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 # max |kernel - plain| on identical inputs.  fp32 activations: the kernel
@@ -110,9 +136,29 @@ PEAK_BYTES_S = 3.35e12
 # rounding of |h| < 1 is up to 2^-8 and can flip between the two.
 TOL_FP32 = 1e-4
 TOL_BF16 = 2e-2
+# bf16 outputs of a kernel and its plain version that sum the same fp32
+# products in other orders: one bf16 ulp of the largest output (2^-7
+# relative), since a sum near a rounding midpoint may round either way.
+# decode_attention takes it per (row, query head), of that head's largest
+# output: its heads' outputs differ in scale by orders of magnitude (a
+# head with one live slot returns v itself)
+ULP_BF16 = 2.0 ** -7
 # end to end against the CPU path (different GEMM libraries as well, over
 # up to 300 steps x 5 layers)
 TOL_E2E = 1e-3
+# serve_lm, fp32 logits of the bf16 RecurrentGemma-2B (|logit| up to ~5
+# at this init).  Against the teacher-forced forward (26 layers): the
+# decode step and the forward round to bf16 at other points (mvm and
+# cuBLAS sum in other orders, so an output can round to the neighbouring
+# bf16 value, 2^-8 relative; the decode kernel keeps p in fp32 where the
+# prefill paths round it to bf16), and such one-ulp differences enter at
+# each of the 26 residual adds and travel to the logits: a few percent of
+# their range, 0.25.  The JAX package's own bf16 decode differs from its
+# own forward for the same reasons.  Depth 3, the card against the CPU
+# engine: the same code with other summation orders and exp
+# implementations, over 3 residual layers: 0.1.
+TOL_LM = 0.25
+TOL_LM_DEPTH3 = 0.1
 
 
 class SmokeFailure(Exception):
@@ -181,9 +227,9 @@ def profile_breakdown(fn, label: str) -> None:
           f"{100 - 100 * busy / wall_us:.1f}%; by kernel: {top}")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -192,7 +238,8 @@ def entries():
     from repro_torch import kernels
 
     return (kernels.lstm_seq, kernels.lstm_decode, kernels.lstm_cell,
-            kernels.gru_seq, kernels.gru_decode, kernels.rglru_scan)
+            kernels.gru_seq, kernels.gru_decode, kernels.rglru_scan,
+            kernels.mvm, kernels.decode_attention)
 
 
 def tally(ctx, *fns) -> None:
@@ -390,6 +437,8 @@ def phase_kernels(ctx):
     _kernels_cell(ctx, dev)
     _kernels_seq_variants(ctx, dev)
     _kernels_rglru(ctx, dev)
+    _kernels_mvm(ctx, dev)
+    _kernels_decode_attention(ctx, dev)
 
 
 def _kernels_gru(ctx, dev):
@@ -741,6 +790,151 @@ def _kernels_rglru(ctx, dev):
           f"({nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, bound "
           f"{b_ms:.6f} ms ({b_by}); no single PyTorch call computes a "
           f"gated linear recurrence")
+
+
+#: the decode step's projections of RecurrentGemma-2B (X, N) at B = 4:
+#: the MLP's w_gate / w_up, its w_down, the RG-LRU block's w_in / w_gate /
+#: w_out and the attention block's w_q / w_o, and its w_kv
+MVM_SHAPES = ((2560, 7680), (7680, 2560), (2560, 2560), (2560, 512))
+
+
+def _kernels_mvm(ctx, dev):
+    """mvm against its plain version at the decode step's projections and
+    a ragged fp32 shape with bias, then timed at each projection."""
+    import torch
+
+    from repro_torch.kernels.mvm_tile import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator().manual_seed(100)
+    err_max = 0.0
+    cases = [(4, X, N, bf16, False) for X, N in MVM_SHAPES]
+    cases += [(3, 513, 129, f32, True), (1, 2560, 7680, bf16, True)]
+    inputs = {}
+    for B, X, N, dt, with_b in cases:
+        x = torch.randn((B, X), generator=g).to(dev, dt)
+        W = (torch.randn((X, N), generator=g) * X ** -0.5).to(dev, dt)
+        b = torch.randn((N,), generator=g).to(dev) if with_b else None
+        ref = ops.mvm_plain(x, W, b)
+        out = ops.mvm(x, W, b)
+        torch.cuda.synchronize()
+        err = max_err((out,), (ref,))
+        tol = (TOL_FP32 if dt == f32
+               else ULP_BF16 * float(ref.float().abs().max()))
+        print(f"kernels: mvm B={B} X={X} N={N} {dt} bias={with_b}: "
+              f"max_abs_err {err:.3e} (tol {tol:g})")
+        check(err <= tol and out.dtype == dt,
+              f"mvm disagrees with its plain version: {err:.3e} > {tol:g}")
+        err_max = max(err_max, err)
+        if B == 4:
+            inputs[(X, N)] = (x, W)
+
+    for X, N in MVM_SHAPES:
+        x, W = inputs[(X, N)]
+        B = x.shape[0]
+        k_ms = median_ms(lambda: ops.mvm(x, W), reps=50)
+        p_ms = median_ms(lambda: ops.mvm_plain(x, W), reps=50)
+        l_ms = median_ms(lambda: torch.matmul(x, W), reps=50)
+        nbytes = 2 * (X * N + B * X + B * N)
+        b_ms, b_by = bound(nbytes, 2 * B * X * N, PEAK_BF16_FLOPS)
+        print(f"kernels: mvm at B={B} X={X} N={N} bf16: kernel {k_ms:.4f} "
+              f"ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, "
+              f"torch.matmul (cuBLAS) {l_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
+        ctx.setdefault("mvm_shapes", {})[f"{X}x{N}"] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms)
+        if (X, N) == MVM_SHAPES[0]:
+            ctx["mvm"] = dict(max_abs_err=err_max, ms=k_ms, plain_ms=p_ms,
+                              library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                              shape=f"B={B} X={X} N={N} bf16")
+
+
+def _attn_case(B, T, Hq, Hk, D, dt, valid, seed, dev):
+    """(q, k_cache, v_cache, valid) of the decode attention kernel."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Hq, D), generator=g).to(dev, dt)
+    k = torch.randn((B, T, Hk, D), generator=g).to(dev, dt)
+    v = torch.randn((B, T, Hk, D), generator=g).to(dev, dt)
+    return q, k, v, torch.tensor(valid, dtype=torch.int32, device=dev)
+
+
+def _kernels_decode_attention(ctx, dev):
+    """decode_attention against its plain version at the attention layers'
+    decode (mixed valid and a full ring), an fp32 GQA shape and a head dim
+    that takes the scalar loads, then timed on a full and a mixed ring."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, T, Hq, Hk, D = 4, 2048, 10, 1, 256
+    mixed = [1, 700, 1537, 2048]
+    err_max = 0.0
+    for args, label in (
+            (_attn_case(B, T, Hq, Hk, D, bf16, mixed, 110, dev),
+             f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid={mixed}"),
+            (_attn_case(B, T, Hq, Hk, D, bf16, [T] * B, 111, dev),
+             f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid=T"),
+            (_attn_case(2, 256, 8, 2, 64, f32, [3, 256], 112, dev),
+             "B=2 T=256 Hq=8 Hk=2 D=64 fp32 valid=[3, 256]"),
+            # D = 20: the scalar-load instance (not a multiple of 8 bf16)
+            (_attn_case(2, 128, 6, 3, 20, bf16, [50, 128], 114, dev),
+             "B=2 T=128 Hq=6 Hk=3 D=20 bf16 valid=[50, 128]")):
+        bt = ops.default_block_t(args[1].shape[1])
+        ref = ops.decode_attention_plain(*args, block_t=bt)
+        out = ops.decode_attention(*args)
+        torch.cuda.synchronize()
+        err = max_err((out,), (ref,))
+        # |out - ref| over each head's limit; <= 1 passes
+        if ref.dtype == f32:
+            share, tol = err / TOL_FP32, f"{TOL_FP32:g}"
+        else:
+            limit = ULP_BF16 * ref.float().abs().amax(-1)
+            share = float(((out.float() - ref.float()).abs().amax(-1)
+                           / limit).max())
+            tol = (f"per head, {float(limit.min()):.3e} to "
+                   f"{float(limit.max()):.3e}")
+        print(f"kernels: decode_attention {label}: max_abs_err {err:.3e} "
+              f"(tol {tol}; worst head at {share:.3f} of its limit)")
+        check(share <= 1.0, f"decode_attention disagrees with its plain "
+                            f"version: {share:.3f} of the limit ({tol})")
+        err_max = max(err_max, err)
+
+    for valid in ([T] * B, mixed):
+        q, k, v, vl = _attn_case(B, T, Hq, Hk, D, bf16, valid, 113, dev)
+        k_ms = median_ms(lambda: ops.decode_attention(q, k, v, vl), reps=50)
+        p_ms = median_ms(lambda: ops.decode_attention_plain(
+            q, k, v, vl, block_t=512), reps=10)
+        # the yardstick in SDPA's layout (B, H, T, D), a boolean mask of the
+        # live slots, GQA by enable_gqa: the layout change stays untimed
+        qs, ks, vs = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous())
+        mask = (torch.arange(T, device=dev)[None, :] < vl[:, None])[
+            :, None, None, :]
+        l_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), reps=50)
+        # this run's data: the live slots' keys and values are read once,
+        # and each needs 4 Hq D operations (q.k and p.v)
+        live = sum(min(n, T) for n in valid)
+        nbytes = 2 * (2 * live * Hk * D + 2 * B * Hq * D) + 4 * B
+        b_ms, b_by = bound(nbytes, 4 * live * Hq * D, PEAK_BF16_FLOPS)
+        full = valid == [T] * B
+        print(f"kernels: decode_attention at B={B} T={T} Hq={Hq} Hk={Hk} "
+              f"D={D} bf16 valid={'T' if full else valid}: kernel "
+              f"{k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain "
+              f"{p_ms:.4f} ms, F.scaled_dot_product_attention (mask, GQA) "
+              f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if full:
+            ctx["decode_attention"] = dict(
+                max_abs_err=err_max, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                shape=f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16, full ring")
+        else:
+            ctx["decode_attention_mixed"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms)
 
 
 REQUESTS = (30, 30, 17, 45, 8, 30)
@@ -1280,13 +1474,368 @@ def phase_precision(ctx):
         profile_breakdown(lambda: cs.forward(xs), "precision")
 
 
+#: serve_lm's prompt lengths: prefill buckets 4, 32, 256, 1024 (naive
+#: attention), 2048 (blockwise) and 64, with 1 + 5 + 44 + 76 + 52 + 0
+#: remainder tokens through batch-1 decode steps; the 2100-token prompt's
+#: remainder and generation wrap its 2048-slot rings
+LM_PROMPTS = (5, 37, 300, 1100, 2100, 64)
+LM_NEW = 16
+
+
+def _lm_prompts(vocab, lengths, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=n).astype(np.int32) for n in lengths]
+
+
+def _keep_sampled_logits(eng):
+    """Wrap ``eng``'s sampler: every logits row it samples a token from is
+    kept, by request uid, in the order of that request's tokens."""
+    kept, admitting = {}, []
+    sample, admit = eng._sample, eng._prefill_admitted
+
+    def prefill_admitted(pairs):
+        for slot, req in pairs:
+            admitting[:] = [req.uid]
+            admit([(slot, req)])
+        admitting.clear()
+
+    def sample_and_keep(logits):
+        uids = admitting or [None if r is None else r.uid for r in eng.slots]
+        for uid, row in zip(uids, logits):
+            if uid is not None:
+                kept.setdefault(uid, []).append(row.clone())
+        return sample(logits)
+
+    eng._prefill_admitted, eng._sample = prefill_admitted, sample_and_keep
+    return kept
+
+
+def _lm_serve(cfg, params, prompts, max_new, device, max_batch=4,
+              max_seq=4096, hook=None):
+    """Serve ``prompts`` through a fresh ServingEngine; ``hook(kind, B,
+    fn)`` may wrap its decode and prefill calls.  Returns (engine,
+    completions by uid, the sampled logits (tokens, vocab) by uid)."""
+    import torch
+
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
+                        device=device)
+    kept = _keep_sampled_logits(eng)
+    if hook is not None:
+        dec, pre = eng._decode, eng._prefill
+        eng._decode = lambda p, c, t: hook("decode", t.shape[0],
+                                           lambda: dec(p, c, t))
+        eng._prefill = lambda p, t: hook("prefill", t.shape[1],
+                                         lambda: pre(p, t))
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=max_new))
+    done = {c.uid: c for c in eng.run_to_completion()}
+    return eng, done, {uid: torch.stack(rows) for uid, rows in kept.items()}
+
+
+def _teacher_forced(cfg, params, prompt, completion):
+    """The logits a full-sequence forward on the card gives at the
+    positions the engine sampled from (prompt + generated tokens but the
+    last).  Causal: tokens appended after them change nothing, so a length
+    in (1024, 2048], where the blockwise path needs whole chunks, is padded
+    to 2048 (local attention pads itself above the window)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    seq = list(prompt) + completion.tokens[:-1]
+    S, L = len(seq), len(prompt)
+    if tf.NAIVE_ATTN_MAX_SEQ < S < cfg.window:
+        seq = seq + [0] * (cfg.window - S)
+    tokens = torch.tensor(seq, dtype=torch.long, device="cuda")[None]
+    with torch.inference_mode():
+        logits, _, _ = tf.forward(cfg, params, tokens=tokens)
+    out = logits[0, L - 1:L - 1 + len(completion.tokens)].clone()
+    del logits
+    return out
+
+
+def _margin(logits):
+    """Top-1 minus top-2 logit of each row."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def phase_serve_lm(ctx):
+    """RecurrentGemma-2B at full width through serving.ServingEngine: the
+    decode steps on mvm + decode_attention, the prefills on rglru_scan."""
+    import statistics as stats
+
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.configs import recurrentgemma_2b
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = rnn.resolve_device("cuda")
+    # fp32 products in full fp32: the unembed's logits and the plain
+    # versions (resolve_device sets the matmul flag; cuDNN's is stated here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = recurrentgemma_2b.config()
+    kinds = cfg.layer_kinds()
+    n_attn, n_rglru = kinds.count("attn"), kinds.count("rglru")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    ctx["serve_lm_init_s"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve_lm: {cfg.name} L={cfg.n_layers} ({n_rglru} rglru, "
+          f"{n_attn} attn) d_model={cfg.d_model} vocab={cfg.vocab_size} "
+          f"{cfg.dtype}: {n_params:,} parameters drawn on the card in "
+          f"{ctx['serve_lm_init_s']:.2f} s")
+
+    prompts = _lm_prompts(cfg.vocab_size, LM_PROMPTS, seed=8)
+    everything = entries()
+    lm = (mvm, decode_attention, rglru_scan)
+    calls = []  # (kind, rows or tokens, launches of mvm / dattn / scan)
+
+    def count_call(kind, n, fn):
+        before = [f.kernel_launches for f in lm]
+        out = fn()
+        calls.append((kind, n, tuple(f.kernel_launches - b
+                                     for f, b in zip(lm, before))))
+        return out
+
+    reset_counts(*everything)
+    t0 = time.perf_counter()
+    eng, done, logits = _lm_serve(cfg, params, prompts, LM_NEW, "cuda",
+                                  hook=count_call)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ticks = [c for c in calls if c[0] == "decode" and c[1] == 4]
+    rem = [c for c in calls if c[0] == "decode" and c[1] == 1]
+    pre = [c for c in calls if c[0] == "prefill"]
+    others = sum(f.calls for f in everything if f not in lm)
+    print(f"serve_lm: {len(done)} requests in {first_s:.2f} s (first run); "
+          f"{len(pre)} prefills (buckets {sorted(eng.prefill_lengths)}), "
+          f"{len(rem)} batch-1 remainder decode steps, {len(ticks)} batched "
+          f"ticks; kernel launches mvm {mvm.kernel_launches}, "
+          f"decode_attention {decode_attention.kernel_launches}, rglru_scan "
+          f"{rglru_scan.kernel_launches}; other kernels called {others} "
+          f"times")
+    check(sorted(done) == list(range(len(prompts)))
+          and all(len(c.tokens) == LM_NEW for c in done.values()),
+          "serve_lm: a request did not complete with all its tokens")
+    check(all(c[2] == (6 * cfg.n_layers, n_attn, 0)
+              for c in ticks + rem),
+          f"serve_lm: a decode step did not launch {6 * cfg.n_layers} mvm "
+          f"and {n_attn} decode_attention kernels (and no scan): "
+          f"{sorted(set(c[2] for c in ticks + rem))}")
+    check(all(c[2] == (0, 0, n_rglru) for c in pre),
+          f"serve_lm: a prefill did not launch exactly {n_rglru} rglru_scan "
+          f"kernels: {sorted(set(c[2] for c in pre))}")
+    check(all(f.calls == f.kernel_launches for f in lm) and others == 0,
+          "serve_lm: an entry point ran its plain version on the card, or "
+          "another family's kernel was called")
+    check(len(pre) == len(prompts) and len(rem) == sum(
+        n - (1 << (n.bit_length() - 1)) for n in LM_PROMPTS),
+        "serve_lm: prefill buckets or remainder steps differ from the "
+        "engine's rule")
+    tally(ctx, *lm)
+
+    # every generated token's logits against a teacher-forced forward on
+    # the card (torch.matmul, the prefill attention paths, rglru_scan)
+    err, flips, held = 0.0, 0, 0
+    for uid, c in sorted(done.items()):
+        ref = _teacher_forced(cfg, params, prompts[uid], c)
+        e = float((logits[uid] - ref).abs().max())
+        margin = _margin(ref)
+        sure = margin > TOL_LM
+        agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
+        held += int(sure.sum())
+        flips += int((~agree).sum())
+        print(f"serve_lm: request {uid} (prompt {len(prompts[uid])}): "
+              f"logits vs the teacher-forced forward max_abs_err {e:.3e} "
+              f"(tol {TOL_LM:g}; |logit| <= "
+              f"{float(ref.abs().max()):.2f}); greedy tokens == argmax at "
+              f"{int(agree.sum())}/{len(agree)} positions, smallest top-2 "
+              f"margin {float(margin.min()):.3e}")
+        check(bool(torch.isfinite(logits[uid]).all()),
+              f"serve_lm: request {uid} has non-finite logits")
+        check(e <= TOL_LM, f"serve_lm: request {uid}'s logits disagree with "
+                           f"the forward: {e:.3e} > {TOL_LM:g}")
+        check(bool(agree[sure.cpu()].all()),
+              f"serve_lm: request {uid}: a greedy token differs from the "
+              f"forward's argmax where the top-2 margin exceeds {TOL_LM:g}")
+        err = max(err, e)
+        del ref
+    ctx["serve_lm_err"] = err
+    print(f"serve_lm: tokens held at {held} positions with a top-2 margin "
+          f"above {TOL_LM:g}; {flips} near-tie positions differ")
+
+    _planted_faults(cfg, params, prompts)
+    _depth3_vs_cpu(cfg, params)
+
+    # a warm run, each decode step and prefill timed on the host clock
+    # around a synchronize
+    times = []
+
+    def timed(kind, n, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((kind, n, (time.perf_counter() - t) * 1e3))
+        return out
+
+    t0 = time.perf_counter()
+    _lm_serve(cfg, params, prompts, LM_NEW, "cuda", hook=timed)
+    torch.cuda.synchronize()
+    ctx["serve_lm_s"] = time.perf_counter() - t0
+    tick_ms = [t for k, n, t in times if k == "decode" and n == 4]
+    step_ms = [t for k, n, t in times if k == "decode" and n == 1]
+    pre_ms = {n: t for k, n, t in times if k == "prefill"}
+    ctx["serve_lm_tick_ms"] = stats.median(tick_ms)
+    ctx["serve_lm_step1_ms"] = stats.median(step_ms)
+    ctx["serve_lm_prefill_ms"] = pre_ms
+    gen = len(prompts) * LM_NEW
+    print(f"serve_lm: warm run {ctx['serve_lm_s']:.3f} s wall for "
+          f"{len(prompts)} requests ({sum(LM_PROMPTS)} prompt + {gen} "
+          f"generated tokens); batched tick (B=4) median "
+          f"{ctx['serve_lm_tick_ms']:.2f} ms over {len(tick_ms)}; batch-1 "
+          f"decode step median {ctx['serve_lm_step1_ms']:.2f} ms over "
+          f"{len(step_ms)}; prefill ms by bucket "
+          + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(pre_ms.items())))
+    if ctx["profile"]:
+        eng = ServingEngine(cfg, params, max_batch=4, max_seq=4096,
+                            device="cuda")
+        for uid, p in enumerate(_lm_prompts(cfg.vocab_size, (64,) * 4, 9)):
+            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=64))
+        eng.step()  # admission: four prefills, then the first tick
+        torch.cuda.synchronize()
+        profile_breakdown(lambda: [eng.step() for _ in range(8)],
+                          "serve_lm 8 batched ticks")
+        del eng
+    del params
+    torch.cuda.empty_cache()
+
+
+def _planted_faults(cfg, params, prompts):
+    """The logit check above must see a wrong kernel: two requests (37 and
+    64 prompt tokens, 8 new) are served once with each of two planted
+    faults and held against the teacher-forced forward, which runs
+    neither kernel.  The faults, planted at the entry points the model
+    calls: mvm drops the last 64 of the X rows of every decode
+    projection (a lost k-tile), and decode_attention drops the newest
+    live slot (valid - 1, the token's own key).  Each must give logits
+    beyond TOL_LM, or a greedy token that differs from the forward's
+    argmax where its top-2 margin exceeds TOL_LM.  Launches here are
+    outside the counted run."""
+    import types
+
+    import torch
+
+    from repro_torch.models.layers import attention, common
+
+    mvm, dattn = common.mvm, attention.decode_kernel.decode_attention
+    faults = {
+        "mvm drops the last 64 X rows": (
+            common, "mvm",
+            lambda x, W: mvm(x[:, :-64].contiguous(), W[:-64])),
+        "decode_attention drops the newest slot": (
+            attention, "decode_kernel", types.SimpleNamespace(
+                decode_attention=lambda q, k, v, valid: dattn(
+                    q, k, v, torch.clamp(valid - 1, min=1)))),
+    }
+    chosen = [prompts[LM_PROMPTS.index(n)] for n in (37, 64)]
+    for name, (module, attr, planted) in faults.items():
+        orig = getattr(module, attr)
+        setattr(module, attr, planted)
+        try:
+            _, done, logits = _lm_serve(cfg, params, chosen, 8, "cuda")
+        finally:
+            setattr(module, attr, orig)
+        err, wrong = 0.0, 0
+        for uid, c in sorted(done.items()):
+            ref = _teacher_forced(cfg, params, chosen[uid], c)
+            err = max(err, float((logits[uid] - ref).abs().max()))
+            sure = (_margin(ref) > TOL_LM).cpu()
+            agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
+            wrong += int((sure & ~agree).sum())
+        print(f"serve_lm: planted fault, {name}: logits vs the forward "
+              f"max_abs_err {err:.3e} (tol {TOL_LM:g}); {wrong} tokens "
+              f"differ where the top-2 margin exceeds {TOL_LM:g}")
+        check(err > TOL_LM or wrong > 0, f"serve_lm: the logit check "
+              f"does not see the planted fault ({name})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _depth3_vs_cpu(cfg, params):
+    """The first three layers (rglru, rglru, attn) at full width serve two
+    short prompts on the card and in a device="cpu" engine: equal tokens
+    (up to a near-tie, after which the two continue from other tokens)
+    and logits within TOL_LM_DEPTH3."""
+    import dataclasses
+
+    cfg3 = dataclasses.replace(cfg, n_layers=3)
+    p3 = {"final_norm": params["final_norm"], "head": params["head"],
+          "layers": params["layers"][:3]}
+    prompts = _lm_prompts(cfg.vocab_size, (16, 40), seed=10)
+    _, gpu, gpu_logits = _lm_serve(cfg3, p3, prompts, 4, "cuda",
+                                   max_batch=2, max_seq=256)
+    t0 = time.perf_counter()
+    _, cpu, cpu_logits = _lm_serve(cfg3, p3, prompts, 4, "cpu", max_batch=2,
+                                   max_seq=256)
+    cpu_s = time.perf_counter() - t0
+    err, compared = 0.0, 0
+    for uid in sorted(gpu):
+        g, c = gpu[uid], cpu[uid]
+        for i, (tg, tc) in enumerate(zip(g.tokens, c.tokens)):
+            e = float((gpu_logits[uid][i].cpu() - cpu_logits[uid][i])
+                      .abs().max())
+            err = max(err, e)
+            compared += 1
+            check(e <= TOL_LM_DEPTH3,
+                  f"serve_lm depth 3: request {uid} token {i}: logits on "
+                  f"the card and the CPU differ by {e:.3e} > "
+                  f"{TOL_LM_DEPTH3:g}")
+            if tg != tc:
+                m = float(_margin(cpu_logits[uid][i:i + 1])[0])
+                print(f"serve_lm depth 3: request {uid} token {i} differs "
+                      f"at a top-2 margin of {m:.3e}; compared up to here")
+                check(m <= TOL_LM_DEPTH3, "serve_lm depth 3: a token "
+                      "differs between the card and the CPU")
+                break
+    on_card = [gpu[u].tokens for u in sorted(gpu)]
+    on_cpu = [cpu[u].tokens for u in sorted(cpu)]
+    print(f"serve_lm: depth 3 at full width, card vs device=\"cpu\" engine "
+          f"({cpu_s:.1f} s on the CPU): tokens {on_card} vs {on_cpu}; "
+          f"logits max_abs_err {err:.3e} over {compared} tokens (tol "
+          f"{TOL_LM_DEPTH3:g})")
+
+
 def phase_summary(ctx):
     rows = []
     for name, kernel in ROWS:
         m = ctx.get(name, {})
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{kernel}.cu",
+            "source": f"src/repro_torch/csrc/{SOURCES.get(kernel, kernel)}.cu",
             "replaces": KERNELS[kernel],
             "launches": ctx["launches"][name],
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),

@@ -5,10 +5,11 @@ The recurrent main path — ``rnn.compile`` and
 ``serving.RecurrentServingEngine`` over the tile dispatcher, for LSTM,
 GRU and mixed lstm/gru stacks with fp32, bf16 or int8 and dense or
 block-sparse recurrent weights, the off-timeline schedules, and rglru
-items — runs on the card through the hand-written ``lstm_seq``,
-``lstm_decode``, ``lstm_cell``, ``gru_seq``, ``gru_decode`` and
-``rglru_scan`` CUDA kernels, and on the CPU through their plain PyTorch
-versions:
+items — and RecurrentGemma token serving (``models.transformer``,
+``serving.ServingEngine``) run on the card through the hand-written
+``lstm_seq``, ``lstm_decode``, ``lstm_cell``, ``gru_seq``, ``gru_decode``,
+``rglru_scan``, ``mvm`` and ``decode_attention`` CUDA kernels, and on the
+CPU through their plain PyTorch versions:
 
     from repro_torch import rnn
     compiled = rnn.compile(stack_or_config, rnn.ExecutionPolicy(...),
@@ -20,7 +21,7 @@ package imports neither ``jax`` nor ``repro``.
 from importlib import import_module
 
 _SUBMODULES = ("analysis", "configs", "convert", "core", "dispatch",
-               "kernels", "models", "rnn", "runtime", "serving")
+               "kernels", "launch", "models", "rnn", "runtime", "serving")
 
 __all__ = list(_SUBMODULES)
 

@@ -1,7 +1,7 @@
-// Helpers shared by the recurrent kernels (lstm_seq, lstm_decode,
-// lstm_cell, gru_seq, gru_decode): dtype conversion (fp32, bf16, and the
-// int8 recurrent weights of the sequence kernels), vector column loads,
-// the gate activations, and the launch shape.
+// Helpers shared by the kernels (lstm_seq, lstm_decode, lstm_cell,
+// gru_seq, gru_decode, mvm_tile, decode_attention): dtype conversion (fp32,
+// bf16, and the int8 recurrent weights of the sequence kernels), vector
+// loads, the gate activations, and the launch shape.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,15 +52,32 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
   return make_float4(v.x, v.y, v.z, v.w);
 }
 
+// Eight adjacent bf16 elements as fp32: one 16-byte load (the caller
+// guarantees 8-element alignment of p).
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 // VEC adjacent elements as fp32: VEC = 4 is one aligned vector load (see
-// load4), VEC = 1 a scalar load that needs no alignment.  The GRU kernels
-// take VEC = 4 only when H % 4 == 0, so that every 3H-wide row starts on a
-// multiple of four elements.
+// load4), VEC = 8 (bf16 only) one aligned 16-byte load (load8), VEC = 1 a
+// scalar load that needs no alignment.  The GRU kernels take VEC = 4 only
+// when H % 4 == 0, so that every 3H-wide row starts on a multiple of four
+// elements.
 template <int VEC, typename T>
 __device__ __forceinline__ void loadv(const T* p, float* out) {
   if constexpr (VEC == 4) {
     const float4 v = load4(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else if constexpr (VEC == 8) {
+    load8(p, out);
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) out[e] = to_f32(p[e]);

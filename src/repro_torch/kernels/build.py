@@ -42,7 +42,9 @@ _HEADERS = ("rnn_common.cuh",)
 #: the modules whose import registers their family's kernels
 FAMILIES = ("repro_torch.kernels.lstm_cell.kernel",
             "repro_torch.kernels.gru_cell.kernel",
-            "repro_torch.kernels.rglru.kernel")
+            "repro_torch.kernels.rglru.kernel",
+            "repro_torch.kernels.mvm_tile.kernel",
+            "repro_torch.kernels.decode_attention.kernel")
 
 _loaded: dict = {}  # kernel name -> bound C entry point
 

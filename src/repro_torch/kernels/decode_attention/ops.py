@@ -1,0 +1,143 @@
+"""Public entry point of the flash-decode attention kernel:
+``decode_attention`` (one query token per sequence against its KV cache,
+ONE launch).
+
+The device of the tensors decides how it runs: on the CPU it runs the
+plain PyTorch version (``decode_attention_plain``, the Pallas kernel's
+tiled online softmax in fp32); on a CUDA device it launches the
+hand-written kernel (``csrc/decode_attention.cu``) or raises.  There is no
+fallback from one to the other.  Like every kernel entry point it carries
+the ``calls`` and ``kernel_launches`` counters
+(``kernels.common.counted``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.common import (check_operands, check_shape,
+                                        count_launch, counted, dtype_flag,
+                                        launched, on_cuda, operand)
+from repro_torch.kernels.decode_attention import kernel
+from repro_torch.kernels.decode_attention.ref import (NEG_INF,
+                                                      decode_attention_ref)
+
+#: the largest head dim the kernel takes (one thread per column, csrc)
+MAX_HEAD_DIM = 256
+
+
+def default_block_t(T: int) -> int:
+    """The reference's default KV tile: the largest of 512, 256, ... that
+    divides T."""
+    block_t = min(512, T)
+    while T % block_t:
+        block_t //= 2
+    return block_t
+
+
+def decode_attention_plain(q, k_cache, v_cache, valid, *, block_t: int):
+    """What the Pallas kernel computes, in plain PyTorch: q (B, Hq, D),
+    caches (B, T, Hk, D), valid (B,) -> (B, Hq, D) in q's dtype.
+
+    The cache is walked in tiles of ``block_t`` slots with the kernel's
+    online softmax, everything in fp32 (p is not rounded to v's dtype, as
+    it is in ``decode_attention_ref``)."""
+    B, Hq, D = q.shape
+    T, Hk = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hk
+    qg = q.reshape(B, Hk, G, D).float()
+    valid = valid.to(device=q.device, dtype=torch.int32)
+    sqrt_d = torch.tensor(math.sqrt(D), dtype=torch.float32)
+    m = torch.full((B, Hk, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hk, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hk, G, D), dtype=torch.float32, device=q.device)
+    for t0 in range(0, T, block_t):
+        k = k_cache[:, t0:t0 + block_t].float()
+        v = v_cache[:, t0:t0 + block_t].float()
+        s = torch.einsum("bhgd,bthd->bhgt", qg, k) / sqrt_d
+        pos = t0 + torch.arange(block_t, device=q.device)
+        live = pos[None, :] < valid[:, None]  # (B, block_t)
+        s = torch.where(live[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgt,bthd->bhgd", p, v)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_attention_cuda(q, k_cache, v_cache, valid, *, block_t: int):
+    """Launch ``csrc/decode_attention.cu`` on the current stream; shapes as
+    ``decode_attention_plain``; q and the caches fp32 or bf16 (k and v of
+    one dtype), valid int32."""
+    B, Hq, D = q.shape
+    T, Hk = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    check_operands("decode_attention", dev, q=q, k_cache=k_cache,
+                   v_cache=v_cache, valid=valid)
+    check_shape("decode_attention", "v_cache", v_cache, (B, T, Hk, D))
+    check_shape("decode_attention", "valid", valid, (B,))
+    if valid.dtype != torch.int32:
+        raise TypeError("decode_attention: valid must be int32")
+    if v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention: k_cache is {k_cache.dtype}, "
+                        f"v_cache {v_cache.dtype}; they must match")
+    G = Hq // Hk
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {D}; the kernel takes "
+                         f"at most {MAX_HEAD_DIM}")
+    q_type = dtype_flag("decode_attention", "q", q)
+    kv_type = dtype_flag("decode_attention", "k_cache", k_cache)
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
+    launch = kernel.entry("decode_attention")
+    with torch.cuda.device(dev):
+        rc = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    valid.data_ptr(), out.data_ptr(), B, T, Hk, G, D,
+                    block_t, q_type, kv_type,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    launched("decode_attention", rc)
+    count_launch(decode_attention)
+    return out
+
+
+@counted
+def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0):
+    """Flash-decode GQA attention.  q (B, Hq, D) or (B, 1, Hq, D); caches
+    (B, T, Hk, D); valid (B,) int32, the live slots of each row (slots
+    t < valid attend).  Returns q's shape and dtype.
+
+    ``block_t`` is the KV tile of the online softmax (default: the
+    largest of 512, 256, ... dividing T); T % block_t == 0 is required,
+    as in the reference."""
+    decode_attention.calls += 1
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    B, Hq, D = q.shape
+    T, Hk = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape != (B, T, Hk, D) or Hq % Hk:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k_cache "
+                         f"{tuple(k_cache.shape)} do not form (B, Hq, D) / "
+                         "(B, T, Hk, D) with Hk dividing Hq")
+    if not block_t:
+        block_t = default_block_t(T)
+    if block_t < 1 or T % block_t:
+        raise ValueError(f"decode_attention: T={T} is not a multiple of "
+                         f"block_t={block_t}")
+    if on_cuda("decode_attention", q.device):
+        o = decode_attention_cuda(operand(q), operand(k_cache),
+                                  operand(v_cache),
+                                  operand(valid.to(torch.int32)),
+                                  block_t=block_t)
+    else:
+        o = decode_attention_plain(q, k_cache, v_cache, valid,
+                                   block_t=block_t)
+    return o[:, None] if squeeze else o
+
+
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_cuda", "decode_attention_ref",
+           "default_block_t"]

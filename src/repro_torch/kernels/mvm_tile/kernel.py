@@ -1,0 +1,14 @@
+"""The tiled MVM CUDA kernel (``csrc/mvm_tile.cu``), registered with the
+shared build (``kernels.build``: nvcc for ``sm_90a`` at first use, ctypes
+binding).
+
+The Python wrapper that checks tensors and launches lives in
+``kernels.mvm_tile.ops``.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.build import I, P, entry, register
+
+register("mvm_tile", "mvm_launch", [P] * 4 + [I] * 5 + [P])
+
+__all__ = ["entry"]

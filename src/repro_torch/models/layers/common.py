@@ -1,4 +1,5 @@
-"""Parameter initialisers shared by the model layers."""
+"""Shared building blocks of the model layers: the dtype policy, parameter
+initialisers, and the products with fp32 accumulation."""
 from __future__ import annotations
 
 import math
@@ -6,19 +7,52 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.common import torch_dtype
+from repro_torch.kernels.mvm_tile.ops import mvm
+
+
+def param_dtype(cfg) -> torch.dtype:
+    """The parameters' (and activations') dtype of a model config."""
+    return torch_dtype(cfg.dtype)
+
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                scale: Optional[float] = None,
                device="cpu") -> torch.Tensor:
     """Truncated-normal fan-in init (within two standard deviations), drawn
-    in float32 on the CPU from ``gen`` and then cast and moved, so one seed
-    gives the same weights on every device."""
+    in float32 from ``gen`` on the generator's own device and then cast
+    and moved, so one seed gives the same weights on every device it is
+    moved to.  (A CUDA generator draws other numbers than a CPU one: the
+    full-width models draw on the card.)"""
     fan_in = shape[0] if len(shape) > 1 else 1
     if scale is None:
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.empty(tuple(shape), dtype=torch.float32)
+    x = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * scale).to(device=device, dtype=dtype)
+
+
+def project(x, w, *, decode: bool):
+    """A model projection x (..., d) @ w (d, f): fp32 accumulation, output
+    in x's dtype (x and w share the model's dtype).
+
+    The rule for which products go through the ``mvm`` kernel: every
+    projection of the decode step (``decode=True``: the transformer's
+    ``mode == "decode"``, which includes the batch-1 remainder steps of a
+    bucketed prefill) — the MLP's w_gate, w_up and w_down, the attention
+    block's w_q, w_kv and w_o, the RG-LRU block's w_gate, w_in and w_out:
+    6 launches per layer.  Every prefill or full-sequence product goes to
+    ``torch.matmul``, which accumulates same-dtype bf16 products in fp32
+    (on the card with cuBLAS's reduced-precision reductions off, see
+    ``rnn.resolve_device``).  Products that are not such a
+    projection stay ``torch.matmul`` in every mode: the RG-LRU gates'
+    ``x @ w_a + b_a`` and ``x @ w_x + b_x`` (the reference rounds the
+    product to the model dtype before the bias add, which is not mvm's
+    fp32 bias epilogue) and the fp32-logit unembed."""
+    if not decode:
+        return torch.matmul(x, w)
+    lead = x.shape[:-1]
+    return mvm(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
 
 
 def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -10,12 +10,13 @@ Recurrence (per channel):
 The input-dependent pieces (r, i, gated x, a) have no recurrent
 dependency: ``gate_inputs`` computes them for the whole sequence at once
 (two W x W products, left to ``torch.matmul`` as the reference leaves them
-to XLA), and ``scan_recurrence`` keeps only the serial per-channel update.
-As in the reference, ``scan_recurrence`` is plain tensor code (one
-``kernels.rglru.ref.rglru_step`` per step: the reference's compiled scan
-evaluated op for op); the hand-written scan kernel
-(``kernels.rglru.rglru_scan``) runs where the reference runs its Pallas
-kernel, behind ``dispatch.execute``.
+to XLA), and the scan keeps only the serial per-channel update.
+``apply_rglru`` (the model's prefill) runs the scan through the
+``kernels.rglru.rglru_scan`` entry point — the hand-written kernel on CUDA
+tensors, its plain version on the CPU — as ``dispatch.execute`` does for
+rglru items.  Both evaluate each step as the reference's compiled scan
+does (``kernels.rglru.ref``), so the prefill keeps the reference's
+numbers.
 
 Parameters keep the reference's layout, so ``repro_torch.convert.from_jax``
 carries a JAX ``init_rglru`` tree over one to one.
@@ -26,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.common import torch_dtype
-from repro_torch.kernels.rglru.ref import rglru_step, xla_exp
+from repro_torch.kernels.rglru.ops import rglru_scan
+from repro_torch.kernels.rglru.ref import xla_exp
 from repro_torch.models.layers.common import dense_init, promoted_matmul
 
 C_EXP = 8.0
@@ -38,8 +40,8 @@ def init_rglru(gen: torch.Generator, width: int, dtype, device="cpu"):
     dtype = torch_dtype(dtype)
     w_a = dense_init(gen, (width, width), dtype, device=device)
     w_x = dense_init(gen, (width, width), dtype, device=device)
-    u = torch.empty((width,), dtype=torch.float32).uniform_(0.9, 0.999,
-                                                           generator=gen)
+    u = torch.empty((width,), dtype=torch.float32,
+                    device=gen.device).uniform_(0.9, 0.999, generator=gen)
     root = u ** (1.0 / C_EXP)
     lam = torch.log(root / (1 - root))
     return {
@@ -63,26 +65,14 @@ def gate_inputs(params, x):
     return log_a, gx
 
 
-def scan_recurrence(log_a, gx, h0):
-    """The serial half: h_t = a_t h_{t-1} + sqrt(1 - a_t^2) gx_t, all fp32,
-    a Python loop over T.  Returns (h_T, hs (B, T, W))."""
-    h = h0
-    hs = []
-    for t in range(log_a.shape[1]):
-        h = rglru_step(log_a[:, t], gx[:, t], h)
-        hs.append(h)
-    if not hs:
-        return h0, log_a.new_zeros(log_a.shape)
-    return h, torch.stack(hs, dim=1)
-
-
 def apply_rglru(params, x, h0=None):
-    """x (B, T, W) -> (y (B, T, W) in x's dtype, h_T fp32)."""
+    """x (B, T, W) -> (y (B, T, W) in x's dtype, h_T fp32).  The scan is
+    one ``rglru_scan`` call: one kernel launch on the card."""
     B, T, W = x.shape
     if h0 is None:
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
     log_a, gx = gate_inputs(params, x)
-    hT, hs = scan_recurrence(log_a, gx, h0)
+    hs, hT = rglru_scan(log_a, gx, h0)
     return hs.to(x.dtype), hT
 
 
@@ -124,5 +114,5 @@ def apply_conv1d(params, x, state=None):
     return y.to(x.dtype), new_state
 
 
-__all__ = ["C_EXP", "init_rglru", "gate_inputs", "scan_recurrence",
+__all__ = ["C_EXP", "init_rglru", "gate_inputs",
            "apply_rglru", "decode_step", "init_conv1d", "apply_conv1d"]

@@ -61,9 +61,11 @@ def resolve_device(device) -> torch.device:
 
     On CUDA this also sets ``torch.backends.cuda.matmul.allow_tf32 =
     False`` (PyTorch's default) for the process: the executor's hoisted
-    input GEMM stands for the reference's fp32 einsum and must not run in
-    TF32.  It is set here, once per compiled stack or engine, not on each
-    execute() call."""
+    input GEMM and the transformer's fp32 products stand for the
+    reference's fp32 einsums and must not run in TF32; and it sets
+    ``allow_bf16_reduced_precision_reduction = False``, so that cuBLAS
+    sums a bf16 product in fp32 as the reference's einsums do.  They are
+    set here, once per compiled stack or engine, not on each call."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -75,6 +77,8 @@ def resolve_device(device) -> torch.device:
                          "cpu")
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return device
 
 
