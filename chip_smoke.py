@@ -17,9 +17,16 @@ Phases, one line (or a few) of output each:
                F.scaled_dot_product_attention) as a yardstick; lstm_seq and
                gru_seq also with int8 U, with row-compacted U and with
                both, at a BYSDNE int8 wavefront slot; rglru_scan at the
-               rglru phase's shape and at a ragged W = 513; mvm at the
-               RecurrentGemma-2B decode projections (bf16, B = 4) and a
-               ragged fp32 shape with bias; decode_attention at its
+               rglru phase's shape and at a ragged W = 513; mvm (one
+               thread-block cluster per 64-column stripe, X split across
+               its CTAs) at the RecurrentGemma-2B decode projections (bf16,
+               B = 1..4) and at ragged shapes that reach the split's edges
+               (fp32 and bf16, with and without bias), bit-equal run to run
+               and across B, its clusters' occupancy, then timed warm per
+               projection (B = 4 and 1), and cold over the decode step's
+               156 projections on distinct weights (4.0 GB, one CUDA
+               graph; also per shape) beside torch.matmul and the 1.20 ms
+               bound; decode_attention at its
                attention layers' decode (bf16, B = 4, T = 2048, 10 query
                heads on 1 kv head of 256, mixed valid) and an fp32 GQA
                shape
@@ -66,12 +73,23 @@ Phases, one line (or a few) of output each:
                1100, 2100 and 64 prompt tokens, 16 new tokens each: every
                decode step launches 156 mvm and 8 decode_attention
                kernels, every prefill 18 rglru_scan, and no plain version
-               runs; the logits of every generated token held against a
-               teacher-forced forward on the card; two requests served
-               again with a fault planted in each decode kernel's call
-               (mvm loses a k-tile, decode_attention the newest slot),
-               which that check must see; the first three layers served
-               on the card and by a device="cpu" engine
+               runs; the decode step is a CUDA graph per batch size (the
+               batched tick, the batch-1 remainder step), captured after
+               its first eager step and replayed for every later one, and
+               each replay counts the launches it holds; the logits of
+               every generated token held against a teacher-forced forward
+               on the card; two requests served again with a fault planted
+               in each decode kernel's call (mvm loses a k-tile,
+               decode_attention the newest slot), which that check must
+               see; the first three layers served on the card and by a
+               device="cpu" engine; then a warm run: the first replay at
+               each batch size held bit for bit against the step run
+               eagerly, each step's host wall and device span (CUDA
+               events), whose ratio gives the host-overhead share; then one
+               more replay at each batch size under torch.profiler, whose
+               kernels, counted on the device by name, must equal the
+               launches the replay counted, and whose device time over
+               the median span gives the device's busy share
  11 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
@@ -159,6 +177,10 @@ TOL_E2E = 1e-3
 # implementations, over 3 residual layers: 0.1.
 TOL_LM = 0.25
 TOL_LM_DEPTH3 = 0.1
+# serve_lm, a graph replay of the decode step against the same step run
+# eagerly on the same inputs: the same kernels in the same order, so bit
+# for bit (_replay_vs_eager)
+TOL_REPLAY = 0.0
 
 
 class SmokeFailure(Exception):
@@ -191,15 +213,41 @@ def median_ms(fn, reps: int, trials: int = 5) -> float:
     return statistics.median(out)
 
 
+def graph_ms(fn, trials: int = 5) -> float:
+    """Median over ``trials`` of one replay of ``fn`` captured in a CUDA
+    graph, timed with CUDA events around the replay (after a warm-up
+    call): the device's time for the work, without the host's time to
+    enqueue it, as the decode step runs it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(out)
+
+
 def max_err(outs, refs) -> float:
     return max(float((o.float() - r.float()).abs().max())
                for o, r in zip(outs, refs))
 
 
-def profile_breakdown(fn, label: str) -> None:
-    """Run ``fn`` once more under torch.profiler and print the device's
-    busy share of the wall time and its time by kernel (the run's
-    breakdown for PERF.md; ``--profile`` only)."""
+def device_events(fn):
+    """Run ``fn`` under torch.profiler: (host wall in us, device time in us
+    by kernel name, device events by kernel name)."""
     import collections
 
     import torch
@@ -213,18 +261,29 @@ def profile_breakdown(fn, label: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.Counter()
+    count = collections.Counter()
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] += ev.time_range.elapsed_us()
+            count[ev.name] += 1
+    return wall_us, by_name, count
+
+
+def profile_breakdown(fn, label: str) -> None:
+    """Run ``fn`` once more under torch.profiler and print the device's
+    busy share of the wall time and its time by kernel (the run's
+    breakdown for PERF.md; ``--profile`` only)."""
+    wall_us, by_name, count = device_events(fn)
     busy = sum(by_name.values())
     if not busy:
         print(f"{label}: profile: the profiler saw no device time")
         return
-    top = "; ".join(f"{name[:48]} {us / 1e3:.2f} ms"
-                    for name, us in by_name.most_common(5))
+    top = "; ".join(f"{name[:48]} {us / 1e3:.2f} ms ({count[name]})"
+                    for name, us in by_name.most_common(8))
     print(f"{label}: profile: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), idle "
-          f"{100 - 100 * busy / wall_us:.1f}%; by kernel: {top}")
+          f"{100 - 100 * busy / wall_us:.1f}%; {sum(count.values())} device "
+          f"events; by kernel (events): {top}")
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -792,24 +851,49 @@ def _kernels_rglru(ctx, dev):
           f"gated linear recurrence")
 
 
-#: the decode step's projections of RecurrentGemma-2B (X, N) at B = 4:
-#: the MLP's w_gate / w_up, its w_down, the RG-LRU block's w_in / w_gate /
-#: w_out and the attention block's w_q / w_o, and its w_kv
+#: the decode step's projections of RecurrentGemma-2B (X, N): the MLP's
+#: w_gate / w_up, its w_down, the RG-LRU block's w_in / w_gate / w_out and
+#: the attention block's w_q / w_o, and its w_kv
 MVM_SHAPES = ((2560, 7680), (7680, 2560), (2560, 2560), (2560, 512))
+#: ragged shapes that reach the cluster split's edges: X = 5 < S (CTAs
+#: with empty X-slices), X = 2561 (a ragged last slice), N = 129 (the
+#: scalar-load instance and a ragged stripe), N = 520 (a ragged stripe)
+MVM_EDGES = ((5, 129), (2561, 520), (2561, 129), (5, 520))
+
+
+def _mvm_step_mix(n_layers, kinds):
+    """The (X, N) of the decode step's projections, in its order: per
+    rglru layer w_gate, w_in, w_out (2560 x 2560), per attn layer w_q
+    (2560 x 2560), w_kv (2560 x 512), w_o (2560 x 2560), then every
+    layer's MLP w_gate, w_up (2560 x 7680) and w_down (7680 x 2560)."""
+    d, ff, kv = 2560, 7680, 512
+    mix = []
+    for kind in kinds[:n_layers]:
+        mix += [(d, d), (d, kv), (d, d)] if kind == "attn" else [(d, d)] * 3
+        mix += [(d, ff), (d, ff), (ff, d)]
+    return mix
 
 
 def _kernels_mvm(ctx, dev):
-    """mvm against its plain version at the decode step's projections and
-    a ragged fp32 shape with bias, then timed at each projection."""
+    """mvm against its plain version at the decode step's projections (B =
+    1..4) and at ragged shapes that reach the cluster split's edges (fp32
+    and bf16, with and without bias); two runs bit-equal and a row of a B
+    = 4 call bit-equal to the same row at B = 1; then timed warm at each
+    projection (B = 4 and 1) and cold over the decode step's 156
+    projections on distinct weights."""
     import torch
 
+    from repro_torch.configs import recurrentgemma_2b
     from repro_torch.kernels.mvm_tile import ops
 
     bf16, f32 = torch.bfloat16, torch.float32
     g = torch.Generator().manual_seed(100)
     err_max = 0.0
-    cases = [(4, X, N, bf16, False) for X, N in MVM_SHAPES]
-    cases += [(3, 513, 129, f32, True), (1, 2560, 7680, bf16, True)]
+    cases = [(B, X, N, bf16, False) for X, N in MVM_SHAPES
+             for B in (1, 2, 3, 4)]
+    cases += [(3, X, N, dt, with_b) for X, N in MVM_EDGES
+              for dt in (f32, bf16) for with_b in (False, True)]
+    cases += [(1, 2560, 7680, bf16, True)]
     inputs = {}
     for B, X, N, dt, with_b in cases:
         x = torch.randn((B, X), generator=g).to(dev, dt)
@@ -817,36 +901,115 @@ def _kernels_mvm(ctx, dev):
         b = torch.randn((N,), generator=g).to(dev) if with_b else None
         ref = ops.mvm_plain(x, W, b)
         out = ops.mvm(x, W, b)
+        again = ops.mvm(x, W, b)
+        row0 = ops.mvm(x[:1].contiguous(), W, b)
         torch.cuda.synchronize()
         err = max_err((out,), (ref,))
         tol = (TOL_FP32 if dt == f32
                else ULP_BF16 * float(ref.float().abs().max()))
-        print(f"kernels: mvm B={B} X={X} N={N} {dt} bias={with_b}: "
-              f"max_abs_err {err:.3e} (tol {tol:g})")
+        same = bool(torch.equal(out, again))
+        batch = bool(torch.equal(out[:1], row0))
+        print(f"kernels: mvm B={B} X={X} N={N} {dt} bias={with_b} "
+              f"(S={ops.splits(X, N)}): max_abs_err {err:.3e} (tol "
+              f"{tol:g}); two runs bit-equal {same}; row 0 == its B=1 call "
+              f"{batch}")
         check(err <= tol and out.dtype == dt,
               f"mvm disagrees with its plain version: {err:.3e} > {tol:g}")
+        check(same and batch, f"mvm B={B} X={X} N={N}: not bit-equal run "
+                              "to run, or a row differs from its B=1 call")
         err_max = max(err_max, err)
-        if B == 4:
-            inputs[(X, N)] = (x, W)
+        if not with_b and (X, N) in MVM_SHAPES and B in (1, 4):
+            inputs[(B, X, N)] = (x, W)
 
     for X, N in MVM_SHAPES:
-        x, W = inputs[(X, N)]
-        B = x.shape[0]
-        k_ms = median_ms(lambda: ops.mvm(x, W), reps=50)
-        p_ms = median_ms(lambda: ops.mvm_plain(x, W), reps=50)
-        l_ms = median_ms(lambda: torch.matmul(x, W), reps=50)
-        nbytes = 2 * (X * N + B * X + B * N)
-        b_ms, b_by = bound(nbytes, 2 * B * X * N, PEAK_BF16_FLOPS)
-        print(f"kernels: mvm at B={B} X={X} N={N} bf16: kernel {k_ms:.4f} "
-              f"ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, "
-              f"torch.matmul (cuBLAS) {l_ms:.4f} ms, bound {b_ms:.6f} ms "
-              f"({b_by})")
-        ctx.setdefault("mvm_shapes", {})[f"{X}x{N}"] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms)
-        if (X, N) == MVM_SHAPES[0]:
-            ctx["mvm"] = dict(max_abs_err=err_max, ms=k_ms, plain_ms=p_ms,
-                              library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                              shape=f"B={B} X={X} N={N} bf16")
+        S = ops.splits(X, N)
+        ctas = -(-N // ops.STRIPE) * S
+        n_cl = [ops.max_clusters(B, X, N) for B in (1, 4)]
+        print(f"kernels: mvm X={X} N={N}: clusters of S={S} CTAs, {ctas} "
+              f"CTAs a launch per 4 rows; cudaOccupancyMaxActiveClusters "
+              f"{n_cl[0]} (B=1), {n_cl[1]} (B=4): one wave "
+              f"{n_cl[1] * S >= ctas}")
+        check(min(n_cl) > 0, f"mvm: a cluster of {S} CTAs does not fit")
+
+    # warm: 5 x 50 back-to-back launches on one W.  A 2560 x 7680 bf16 W
+    # (39.3 MB) fits in the 50 MB L2, so these launches reread W from L2
+    # and can beat the HBM bound; the step mix below cannot.
+    for B in (4, 1):
+        for X, N in MVM_SHAPES:
+            x, W = inputs[(B, X, N)]
+            k_ms = median_ms(lambda: ops.mvm(x, W), reps=50)
+            p_ms = median_ms(lambda: ops.mvm_plain(x, W), reps=50)
+            l_ms = median_ms(lambda: torch.matmul(x, W), reps=50)
+            nbytes = 2 * (X * N + B * X + B * N)
+            b_ms, b_by = bound(nbytes, 2 * B * X * N, PEAK_BF16_FLOPS)
+            print(f"kernels: mvm warm (W from L2) at B={B} X={X} N={N} "
+                  f"bf16: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
+                  f"GB/s), plain {p_ms:.4f} ms, torch.matmul (cuBLAS) "
+                  f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+            ctx.setdefault("mvm_shapes", {})[f"B{B} {X}x{N}"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+    # cold: the decode step's 156 projections in its order, each on its own
+    # weight (4.0 GB of bf16, so nothing is reread from L2), captured in a
+    # CUDA graph as the decode step runs them, and timed with CUDA events
+    # around the whole sequence's replay
+    cfg = recurrentgemma_2b.config()
+    mix = _mvm_step_mix(cfg.n_layers, cfg.layer_kinds())
+    gen = torch.Generator(device=dev).manual_seed(101)
+    Ws = [torch.randn((X, N), generator=gen, device=dev, dtype=bf16)
+          for X, N in mix]
+    for B in (1, 4):
+        xs = {X: torch.randn((B, X), generator=gen, device=dev, dtype=bf16)
+              for X in {X for X, _ in mix}}
+        k_ms = graph_ms(lambda: [ops.mvm(xs[W.shape[0]], W) for W in Ws])
+        l_ms = graph_ms(lambda: [torch.matmul(xs[W.shape[0]], W)
+                                 for W in Ws])
+        nbytes = sum(2 * (X * N + B * X + B * N) for X, N in mix)
+        flops = sum(2 * B * X * N for X, N in mix)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        print(f"kernels: mvm step mix ({len(mix)} projections on distinct "
+              f"weights, {nbytes / 1e9:.3f} GB) at B={B}: kernel {k_ms:.4f} "
+              f"ms ({nbytes / k_ms / 1e6:.1f} GB/s), torch.matmul (cuBLAS) "
+              f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); kernel / "
+              f"bound {k_ms / b_ms:.2f}, kernel / matmul {k_ms / l_ms:.2f}")
+        ctx.setdefault("mvm_step_mix", {})[f"B{B}"] = dict(
+            ms=k_ms, library_ms=l_ms, bound_ms=b_ms, gb=nbytes / 1e9)
+        # the mix by shape: each shape's distinct weights in one graph, per
+        # launch, kernel beside torch.matmul (and, for the summary's row,
+        # the plain version) under the same condition
+        for X, N in MVM_SHAPES:
+            sub = [W for W in Ws if tuple(W.shape) == (X, N)]
+            x = xs[X]
+            k_ms = graph_ms(lambda: [ops.mvm(x, W) for W in sub]) / len(sub)
+            l_ms = graph_ms(lambda: [torch.matmul(x, W)
+                                     for W in sub]) / len(sub)
+            cold = dict(ms=k_ms, library_ms=l_ms)
+            if B == 4 and (X, N) == MVM_SHAPES[0]:
+                cold["plain_ms"] = graph_ms(
+                    lambda: [ops.mvm_plain(x, W) for W in sub]) / len(sub)
+            print(f"kernels: mvm step mix by shape at B={B} X={X} N={N} "
+                  f"({len(sub)} distinct weights, one graph, S="
+                  f"{ops.splits(X, N)}), ms a launch: kernel {k_ms:.4f}, "
+                  f"torch.matmul (cuBLAS) {l_ms:.4f}"
+                  + (f", plain {cold['plain_ms']:.4f}"
+                     if "plain_ms" in cold else ""))
+            ctx.setdefault("mvm_cold", {})[f"B{B} {X}x{N}"] = cold
+    # the summary's row: the widest projection at B = 4 as the decode step
+    # runs it, cold in a graph, the kernel, its plain version and
+    # torch.matmul alike; the warm eager time (PR 14's row) beside it
+    X, N = MVM_SHAPES[0]
+    warm = ctx["mvm_shapes"][f"B4 {X}x{N}"]
+    cold = ctx["mvm_cold"][f"B4 {X}x{N}"]
+    ctx["mvm"] = dict(max_abs_err=err_max, ms=cold["ms"],
+                      plain_ms=cold["plain_ms"], library_ms=cold["library_ms"],
+                      bound_ms=warm["bound_ms"], bound_by=warm["bound_by"],
+                      warm_ms=warm["ms"],
+                      condition=f"B=4 X={X} N={N} bf16; ms, plain_ms and "
+                                "library_ms cold in a CUDA graph, warm_ms "
+                                "warm and eager")
+    del Ws
+    torch.cuda.empty_cache()
 
 
 def _attn_case(B, T, Hq, Hk, D, dt, valid, seed, dev):
@@ -1514,9 +1677,11 @@ def _keep_sampled_logits(eng):
 
 def _lm_serve(cfg, params, prompts, max_new, device, max_batch=4,
               max_seq=4096, hook=None):
-    """Serve ``prompts`` through a fresh ServingEngine; ``hook(kind, B,
-    fn)`` may wrap its decode and prefill calls.  Returns (engine,
-    completions by uid, the sampled logits (tokens, vocab) by uid)."""
+    """Serve ``prompts`` through a fresh ServingEngine; ``hook(kind, n,
+    fn, graph=None, tokens=None)`` may wrap its decode steps (n = B; the
+    step's DecodeGraph and tokens given) and prefills (n = tokens).
+    Returns (engine, completions by uid, the sampled logits (tokens,
+    vocab) by uid)."""
     import torch
 
     from repro_torch.serving import Request, ServingEngine
@@ -1526,8 +1691,8 @@ def _lm_serve(cfg, params, prompts, max_new, device, max_batch=4,
     kept = _keep_sampled_logits(eng)
     if hook is not None:
         dec, pre = eng._decode, eng._prefill
-        eng._decode = lambda p, c, t: hook("decode", t.shape[0],
-                                           lambda: dec(p, c, t))
+        eng._decode = lambda g, t: hook("decode", t.shape[0],
+                                        lambda: dec(g, t), g, t)
         eng._prefill = lambda p, t: hook("prefill", t.shape[1],
                                          lambda: pre(p, t))
     for uid, p in enumerate(prompts):
@@ -1604,7 +1769,7 @@ def phase_serve_lm(ctx):
     lm = (mvm, decode_attention, rglru_scan)
     calls = []  # (kind, rows or tokens, launches of mvm / dattn / scan)
 
-    def count_call(kind, n, fn):
+    def count_call(kind, n, fn, graph=None, tokens=None):
         before = [f.kernel_launches for f in lm]
         out = fn()
         calls.append((kind, n, tuple(f.kernel_launches - b
@@ -1646,6 +1811,19 @@ def phase_serve_lm(ctx):
         n - (1 << (n.bit_length() - 1)) for n in LM_PROMPTS),
         "serve_lm: prefill buckets or remainder steps differ from the "
         "engine's rule")
+    replays = (eng.tick_graph.replays, eng.single_graph.replays)
+    print(f"serve_lm: graph replays {replays[0]} of {len(ticks)} batched "
+          f"ticks and {replays[1]} of {len(rem)} batch-1 steps (the first "
+          f"step at each batch size eager, then captured); launches a "
+          f"replay adds: "
+          + "; ".join(f"{name} " + ", ".join(
+              f"{fn.__name__} {launches}"
+              for fn, (_, launches) in graph.captured.items())
+              for name, graph in (("tick", eng.tick_graph),
+                                  ("batch-1", eng.single_graph))))
+    check(replays == (len(ticks) - 1, len(rem) - 1),
+          "serve_lm: a decode step after the first at its batch size was "
+          "not a graph replay")
     tally(ctx, *lm)
 
     # every generated token's logits against a teacher-forced forward on
@@ -1682,34 +1860,71 @@ def phase_serve_lm(ctx):
     _depth3_vs_cpu(cfg, params)
 
     # a warm run, each decode step and prefill timed on the host clock
-    # around a synchronize
-    times = []
+    # around a synchronize, and on the device by CUDA events around the
+    # step (the token copy and the replay); the first replay at each batch
+    # size is held against the step run eagerly (_replay_vs_eager), outside
+    # its time
+    times, checked = [], {}
 
-    def timed(kind, n, fn):
+    def timed(kind, n, fn, graph=None, tokens=None):
+        replay = graph is not None and graph.graph is not None
+        before = None
+        if replay and graph not in checked:
+            before = (_clone_cache(graph.cache),
+                      tokens.to(dev, copy=True))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t = time.perf_counter()
+        start.record()
         out = fn()
+        end.record()
         torch.cuda.synchronize()
-        times.append((kind, n, (time.perf_counter() - t) * 1e3))
+        times.append((kind, n, (time.perf_counter() - t) * 1e3,
+                      start.elapsed_time(end), replay))
+        if before is not None:
+            checked[graph] = _replay_vs_eager(graph, *before, n)
         return out
 
     t0 = time.perf_counter()
-    _lm_serve(cfg, params, prompts, LM_NEW, "cuda", hook=timed)
+    warm, _, _ = _lm_serve(cfg, params, prompts, LM_NEW, "cuda", hook=timed)
     torch.cuda.synchronize()
     ctx["serve_lm_s"] = time.perf_counter() - t0
-    tick_ms = [t for k, n, t in times if k == "decode" and n == 4]
-    step_ms = [t for k, n, t in times if k == "decode" and n == 1]
-    pre_ms = {n: t for k, n, t in times if k == "prefill"}
-    ctx["serve_lm_tick_ms"] = stats.median(tick_ms)
-    ctx["serve_lm_step1_ms"] = stats.median(step_ms)
+    check(len(checked) == 2, "serve_lm: the warm run did not replay both "
+                             "decode graphs")
+    ctx["serve_lm_replay_err"] = max(checked.values())
+    pre_ms = {n: t for k, n, t, _, _ in times if k == "prefill"}
     ctx["serve_lm_prefill_ms"] = pre_ms
+    for B, label, key, graph in (
+            (4, "batched tick (B=4)", "tick", warm.tick_graph),
+            (1, "batch-1 decode step", "step1", warm.single_graph)):
+        busy_ms = _profiled_replay(graph, B, lm,
+                                   (6 * cfg.n_layers, n_attn, 0))
+        steps = [(w, d, r) for k, n, w, d, r in times
+                 if k == "decode" and n == B]
+        wall = [w for w, _, r in steps if r]
+        dev_ms = [d for _, d, r in steps if r]
+        host = 1 - sum(dev_ms) / sum(wall)
+        busy = busy_ms / stats.median(dev_ms)
+        ctx[f"serve_lm_{key}_ms"] = stats.median(wall)
+        ctx[f"serve_lm_{key}_device_ms"] = stats.median(dev_ms)
+        ctx[f"serve_lm_{key}_host_share"] = host
+        ctx[f"serve_lm_{key}_busy"] = busy
+        first = [w for w, _, r in steps if not r]
+        print(f"serve_lm: warm run, {label}: {len(wall)} replays, host wall "
+              f"median {stats.median(wall):.3f} ms (min {min(wall):.3f}, "
+              f"max {max(wall):.3f}), device span (CUDA events around the "
+              f"step) median {stats.median(dev_ms):.3f} ms; host-overhead "
+              f"share 1 - device span/wall = {100 * host:.1f}% (it cannot "
+              f"see the device's gaps inside the span); device busy "
+              f"{busy_ms:.3f} ms (one replay under the profiler) = "
+              f"{100 * busy:.1f}% of the median span; the first step, "
+              f"eager with the capture: "
+              f"{first[0]:.1f} ms")
     gen = len(prompts) * LM_NEW
     print(f"serve_lm: warm run {ctx['serve_lm_s']:.3f} s wall for "
           f"{len(prompts)} requests ({sum(LM_PROMPTS)} prompt + {gen} "
-          f"generated tokens); batched tick (B=4) median "
-          f"{ctx['serve_lm_tick_ms']:.2f} ms over {len(tick_ms)}; batch-1 "
-          f"decode step median {ctx['serve_lm_step1_ms']:.2f} ms over "
-          f"{len(step_ms)}; prefill ms by bucket "
+          f"generated tokens); prefill ms by bucket "
           + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(pre_ms.items())))
     if ctx["profile"]:
         eng = ServingEngine(cfg, params, max_batch=4, max_seq=4096,
@@ -1720,9 +1935,96 @@ def phase_serve_lm(ctx):
         torch.cuda.synchronize()
         profile_breakdown(lambda: [eng.step() for _ in range(8)],
                           "serve_lm 8 batched ticks")
+        with torch.inference_mode():
+            for n in (64, 2048):
+                tokens = torch.as_tensor(
+                    _lm_prompts(cfg.vocab_size, (n,), 11)[0],
+                    dtype=torch.long, device="cuda")[None]
+                profile_breakdown(lambda: eng._prefill(eng.params, tokens),
+                                  f"serve_lm prefill of {n} tokens")
         del eng
     del params
     torch.cuda.empty_cache()
+
+
+#: a kernel's name on the device, as the profiler reports it
+DEVICE_NAMES = {"mvm": "mvm_kernel", "decode_attention": "dattn::attn_kernel",
+                "rglru_scan": "rglru::scan_kernel"}
+
+
+def _profiled_replay(graph, B, lm, per_step):
+    """One more replay of ``graph`` (the engine has drained, so its state
+    is no longer read) under torch.profiler.  A replay's launch counts are
+    bookkeeping (``DecodeGraph.replay`` adds what the capture counted), so
+    here the device's own events are counted by kernel name and must equal
+    the counts the replay added, the capture's record and ``per_step``
+    (mvm, decode_attention, rglru_scan).  Returns the device's busy time
+    in ms, the sum of its events (the profiler stretches the replay's
+    span, CUDA events around it, so that is printed but not used)."""
+    import torch
+
+    from repro_torch.kernels.common import reset_counts
+
+    reset_counts(*lm)
+    tokens = graph.tokens.clone()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def replay():
+        with torch.inference_mode():
+            start.record()
+            graph(tokens)
+            end.record()
+
+    torch.cuda.synchronize()
+    _, by_name, count = device_events(replay)
+    span_us = start.elapsed_time(end) * 1e3
+    on_device = tuple(
+        sum(n for name, n in count.items()
+            if DEVICE_NAMES[fn.__name__] in name) for fn in lm)
+    booked = tuple(fn.kernel_launches for fn in lm)
+    captured = tuple(graph.captured.get(fn, (0, 0))[1] for fn in lm)
+    busy = sum(by_name.values()) / 1e3
+    print(f"serve_lm: one replay at B={B} under the profiler: device events "
+          f"{sum(count.values())}, by kernel (mvm, decode_attention, "
+          f"rglru_scan) on the device {on_device}, counted by the replay "
+          f"{booked}, recorded at capture {captured}; device busy "
+          f"{busy:.3f} ms in a span of {span_us / 1e3:.3f} ms under the "
+          f"profiler")
+    check(on_device == booked == captured == tuple(per_step),
+          f"serve_lm: a replay at B={B} ran {on_device} kernels on the "
+          f"device but counted {booked} (captured {captured}, expected "
+          f"{tuple(per_step)})")
+    return busy
+
+
+def _clone_cache(cache):
+    return {"layers": [{k: t.clone() for k, t in layer.items()}
+                       for layer in cache["layers"]],
+            "idx": cache["idx"].clone()}
+
+
+def _replay_vs_eager(graph, cache, tokens, B):
+    """The replay that just ran, against the same step run eagerly
+    (``DecodeGraph.eager``) on ``cache``, a clone of the static cache as it
+    was before the replay, with the same tokens.  Both run the same
+    kernels on the same inputs, and cuBLAS is asked for the same products
+    in and out of a capture, so the logits must be bit-equal
+    (TOL_REPLAY).  Returns the max |difference|; its launches count
+    nowhere (the warm run's counts are not read)."""
+    import torch
+
+    replayed = graph.logits.clone()
+    eager = graph.eager(cache=cache, tokens=tokens)
+    torch.cuda.synchronize()
+    err = float((replayed - eager).abs().max())
+    equal = bool(torch.equal(replayed, eager))
+    print(f"serve_lm: the first replayed decode step at B={B} against the "
+          f"step run eagerly on a clone of its cache: logits max_abs_err "
+          f"{err:.3e}, bit-equal {equal} (tol {TOL_REPLAY:g})")
+    check(err <= TOL_REPLAY, f"serve_lm: the graph replay at B={B} "
+                             f"disagrees with the eager step: {err:.3e}")
+    return err
 
 
 def _planted_faults(cfg, params, prompts):
@@ -1841,6 +2143,7 @@ def phase_summary(ctx):
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
+            **{k: m[k] for k in ("warm_ms", "condition") if k in m},
         })
     ctx["kernels"] = rows
     print("kernels:")

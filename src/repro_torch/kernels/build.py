@@ -132,10 +132,17 @@ def entry(name: str):
     needed.  Loaded once per process."""
     fn = _loaded.get(name)
     if fn is None:
-        build(name)
         symbol, argtypes = KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        fn = _loaded[name] = bind(name, symbol, argtypes)
+    return fn
+
+
+def bind(name: str, symbol: str, argtypes):
+    """C function ``symbol`` of kernel ``name``'s library (its launch entry
+    point, or a query beside it), bound with ``argtypes`` and an int
+    result, building the library first if needed."""
+    build(name)
+    fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return fn

@@ -54,19 +54,26 @@ class KernelBuildError(RuntimeError):
     guarded execution ladder re-raises it instead of degrading past it."""
 
 
+#: every kernel entry point that carries counters (``counted``), in the
+#: order their modules were imported
+COUNTED: list = []
+
+
 def counted(fn):
     """Give a kernel entry point its launch counters:
 
     ``fn.calls`` counts every invocation on any device — structural, so CPU
     tests can hold it equal to ``DispatchPlan.launches``;
     ``fn.kernel_launches`` counts only real CUDA launches (the entry point
-    adds one right after its kernel launched); and
+    adds one right after its kernel launched, a CUDA graph's replay those
+    its capture counted: ``count_launch``); and
     ``fn.variant_launches`` splits those launches by the weight branch the
     sequence kernels took (``seq_variant``), where the entry point has
     branches."""
     fn.calls = 0
     fn.kernel_launches = 0
     fn.variant_launches = {}
+    COUNTED.append(fn)
     return fn
 
 
@@ -86,8 +93,11 @@ def seq_variant(u_scales, u_rows) -> str:
 
 
 def count_launch(fn, variant: str = "") -> None:
-    """Add one real CUDA launch to ``fn``'s counters (the launch wrappers
-    call this right after their kernel launched, and nowhere else)."""
+    """Add one real CUDA launch to ``fn``'s counters.  The launch wrappers
+    call this right after their kernel launched; the one other place that
+    adds launches is ``serving.engine.DecodeGraph.replay``, which adds the
+    launches its capture counted (a replay runs them without calling the
+    wrappers)."""
     fn.kernel_launches += 1
     if variant:
         fn.variant_launches[variant] = fn.variant_launches.get(variant, 0) + 1

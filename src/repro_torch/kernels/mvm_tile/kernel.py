@@ -7,8 +7,8 @@ The Python wrapper that checks tensors and launches lives in
 """
 from __future__ import annotations
 
-from repro_torch.kernels.build import I, P, entry, register
+from repro_torch.kernels.build import I, P, bind, entry, register
 
-register("mvm_tile", "mvm_launch", [P] * 4 + [I] * 5 + [P])
+register("mvm_tile", "mvm_launch", [P] * 4 + [I] * 6 + [P])
 
-__all__ = ["entry"]
+__all__ = ["bind", "entry"]

@@ -22,8 +22,22 @@ def embed(params, tokens, dtype):
 
 def unembed(params, x):
     """x (B, S, d) -> fp32 logits (B, S, vocab): the model-dtype operands
-    multiplied in fp32, as the reference's einsum with an fp32 result does
-    (TF32 stays off on the card, ``rnn.resolve_device``).  Not a
-    projection in ``common.project``'s sense: it never goes through mvm."""
+    multiplied with fp32 accumulation and an fp32 result, as the
+    reference's einsum with an fp32 result does.  Not a projection in
+    ``common.project``'s sense: it never goes through mvm.
+
+    Two forms of one function.  On CUDA tensors, one product of the
+    operands as they are, summed in fp32 into an fp32 result
+    (``torch.mm(..., out_dtype=torch.float32)``, ``aten::mm.dtype``): a
+    product of two bf16 values is exact in fp32, so this is the
+    reference's einsum up to the order of summation, and no fp32 copy of
+    the (d, vocab) table is made (RecurrentGemma-2B's untied unembed is
+    2560 x 256000).  On the CPU, where ``aten::mm.dtype`` has no kernel,
+    both operands are upcast to fp32 and multiplied (TF32 stays off on the
+    card, ``rnn.resolve_device``)."""
     w = params["unembed"] if "unembed" in params else params["table"].T
-    return torch.matmul(x.float(), w.float())
+    if x.device.type != "cuda":
+        return torch.matmul(x.float(), w.float())
+    lead = x.shape[:-1]
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*lead, w.shape[1])

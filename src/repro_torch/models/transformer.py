@@ -19,8 +19,12 @@ Which products run the ``mvm`` kernel and which run ``torch.matmul``:
 ``models.layers.common.project``.  On CUDA tensors the decode step runs
 the ``mvm`` and ``decode_attention`` kernels and a prefill the
 ``rglru_scan`` kernel; on the CPU their plain versions.  Functions are
-functional, as in the reference: a decode step returns new cache tensors
-and leaves the ones it was given as they were.
+functional, as in the reference, with one exception that saves a copy of
+every ring per layer and step: a decode step writes the new token's k/v
+slot into the attention rings of the cache it is given, in place, and
+returns those same ring tensors (the RG-LRU state, the conv state and the
+cursor come back as new tensors).  A caller that needs the cache as it was
+clones it first.
 """
 from __future__ import annotations
 
@@ -180,10 +184,9 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
         ring = bool(cfg.window and cfg.window <= T)
         slot = (idx % T if ring else torch.clamp_max(idx, T - 1)).long()
         rows = torch.arange(B, device=x.device)
-        k_cache = cache["k"].clone()
-        v_cache = cache["v"].clone()
-        k_cache[rows, slot] = k[:, 0]
-        v_cache[rows, slot] = v[:, 0]
+        # the new slot is written into the given ring in place (module doc)
+        k_cache = cache["k"].index_put_((rows, slot), k[:, 0])
+        v_cache = cache["v"].index_put_((rows, slot), v[:, 0])
         new_cache = {"k": k_cache, "v": v_cache}
         valid = torch.clamp_max(idx + 1, T)  # number of live slots
         o = attn_lib.decode_attention(
@@ -329,7 +332,11 @@ def prefill(cfg: ModelConfig, params, batch, seq_len: int):
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch):
-    """One token for every sequence in the batch."""
+    """One token for every sequence in the batch.  Returns (logits,
+    new_cache).  The attention rings of ``cache`` are updated in place
+    (the new slot is written into them, and new_cache holds the same ring
+    tensors); new_cache's RG-LRU ``state``, ``conv`` state and ``idx`` are
+    new tensors, and the ones in ``cache`` keep their values."""
     logits, new_cache, _ = forward(cfg, params, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"),
                                    positions=batch.get("positions"),

@@ -22,10 +22,18 @@ projections through the ``mvm`` kernel, its attention through the
 ``decode_attention`` kernel, each prefill's RG-LRU scans through
 ``rglru_scan``); without a card it raises, naming ``device="cpu"``, which
 runs their plain versions.  Every step runs under
-``torch.inference_mode()``.  The reference jits its prefill and decode;
-PyTorch runs eagerly, so there is no compile per bucket here — the
-buckets are kept because they set which prompt tokens go through the
-decode step, and with it the numbers.
+``torch.inference_mode()``.
+
+The reference jits its decode step; the port's counterpart is a captured
+CUDA graph (``DecodeGraph``): one for the batched tick over the engine's
+own cache, one for the batch-1 remainder steps over a static single-row
+cache, each captured after its first (eager) step and replayed from then
+on.  The decode step writes the attention rings in place
+(``transformer.decode_step``) and ``decode_into`` copies the rest of the
+new cache into the static one, so a replay runs on fixed buffers.  On the
+CPU the same step runs eagerly.  Prefill stays eager: PyTorch has no
+compile per bucket, and the buckets are kept because they set which
+prompt tokens go through the decode step, and with it the numbers.
 """
 from __future__ import annotations
 
@@ -36,9 +44,98 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import COUNTED
 from repro_torch.models import transformer as tf
 from repro_torch.rnn.compiled import _to_device, resolve_device
 from repro_torch.runtime.errors import PlanRejected, RequestTimeout
+
+
+def decode_into(cfg: ModelConfig, params, cache, tokens):
+    """One decode step over static buffers: ``transformer.decode_step`` on
+    ``cache`` with ``tokens`` (B, 1), then every tensor of the new cache
+    that is not already ``cache``'s own (the RG-LRU ``state``, the ``conv``
+    state, ``idx``) copied into ``cache``'s.  Returns the fp32 logits
+    (B, 1, vocab).  ``cache`` holds the advanced state afterwards."""
+    logits, new = tf.decode_step(cfg, params, cache, {"tokens": tokens})
+    for old_l, new_l in zip(cache["layers"], new["layers"]):
+        for key, t in new_l.items():
+            if t is not old_l[key]:
+                old_l[key].copy_(t)
+    cache["idx"].copy_(new["idx"])
+    return logits
+
+
+class DecodeGraph:
+    """The decode step at one batch size, over a static cache and a static
+    (B, 1) token buffer: the port's counterpart of the reference's jitted
+    ``decode_step``.
+
+    Called with the step's tokens, it returns the step's logits.  On the
+    CPU every call runs ``decode_into`` eagerly.  On the card the first
+    call runs it eagerly on a side stream (which loads the kernels'
+    libraries and creates cuBLAS's handle and workspace), then captures
+    it into a ``torch.cuda.CUDAGraph``; every later call replays the graph
+    (``replay``).  A capture runs no kernel, so capturing on the live
+    buffers leaves the state as the eager step left it.  A failed capture
+    raises.
+
+    The kernel entry points count on the host, so a capture would count
+    launches that never ran and a replay none that did: the capture's
+    counts (``captured``) are taken back out, and each replay adds them
+    once.  ``logits`` is the graph's static output, overwritten by the
+    next replay."""
+
+    def __init__(self, cfg: ModelConfig, params, cache):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.tokens = torch.zeros((cache["idx"].shape[0], 1),
+                                  dtype=torch.long,
+                                  device=cache["idx"].device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits = None
+        self.captured: dict = {}  # entry point -> (calls, launches)
+        self.replays = 0
+
+    def eager(self, cache=None, tokens=None):
+        """The step run eagerly, on this graph's buffers by default."""
+        return decode_into(self.cfg, self.params,
+                           self.cache if cache is None else cache,
+                           self.tokens if tokens is None else tokens)
+
+    def __call__(self, tokens):
+        self.tokens.copy_(tokens)
+        if self.tokens.device.type != "cuda":
+            return self.eager()
+        if self.graph is None:
+            return self._warm_and_capture()
+        return self.replay()
+
+    def replay(self):
+        self.graph.replay()
+        for fn, (calls, launches) in self.captured.items():
+            fn.calls += calls
+            fn.kernel_launches += launches
+        self.replays += 1
+        return self.logits
+
+    def _warm_and_capture(self):
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream(main.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = self.eager()
+        main.wait_stream(side)
+        logits.record_stream(main)
+        before = {fn: (fn.calls, fn.kernel_launches) for fn in COUNTED}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.logits = self.eager()
+        for fn, (calls, launches) in before.items():
+            got = (fn.calls - calls, fn.kernel_launches - launches)
+            fn.calls, fn.kernel_launches = calls, launches
+            if any(got):
+                self.captured[fn] = got
+        self.graph = graph
+        return logits
 
 
 @dataclasses.dataclass
@@ -76,8 +173,11 @@ class ServingEngine:
             self.params = _to_device(params, self.device)
             self.cache = tf.init_cache(cfg, max_batch, max_seq,
                                        device=self.device)
-        self._decode = lambda p, c, t: tf.decode_step(cfg, p, c,
-                                                      {"tokens": t})
+            single = tf.init_cache(cfg, 1, max_seq, device=self.device)
+        # the batched tick and the batch-1 remainder step (module doc)
+        self.tick_graph = DecodeGraph(cfg, self.params, self.cache)
+        self.single_graph = DecodeGraph(cfg, self.params, single)
+        self._decode = lambda graph, tokens: graph(tokens)
         self._prefill = lambda p, t: tf.prefill(cfg, p, {"tokens": t},
                                                 seq_len=max_seq)
 
@@ -112,12 +212,18 @@ class ServingEngine:
         bucket = 1 << (L.bit_length() - 1)  # largest power of two <= L
         self.prefill_lengths.add(bucket)
         logits, cache = self._prefill(self.params, tokens[:, :bucket])
-        last = logits[:, -1]
+        if bucket == L:
+            return logits[:, -1], cache
+        # the remainder through the batch-1 step, on its static cache; the
+        # logits are the graph's static output, sampled before its next run
+        single = self.single_graph.cache
+        for small, big in zip(single["layers"], cache["layers"]):
+            for key, t in small.items():
+                t.copy_(big[key])
+        single["idx"].copy_(cache["idx"])
         for t in range(bucket, L):
-            step_logits, cache = self._decode(
-                self.params, cache, tokens[:, t:t + 1])
-            last = step_logits[:, -1]
-        return last, cache
+            last = self._decode(self.single_graph, tokens[:, t:t + 1])[:, -1]
+        return last, single
 
     def _admit(self):
         """Admission wave: claim every free slot for the queue's head, then
@@ -173,8 +279,8 @@ class ServingEngine:
         self._admit()
         if not any(s is not None for s in self.slots):
             return
-        tokens = torch.as_tensor(self.last_token, device=self.device)
-        logits, self.cache = self._decode(self.params, self.cache, tokens)
+        logits = self._decode(self.tick_graph,
+                              torch.from_numpy(self.last_token))
         nxt = self._sample(logits[:, 0])
         for slot, req in enumerate(self.slots):
             if req is None:

@@ -310,6 +310,55 @@ def test_cuda_mvm_matches_plain(cuda, B, X, N, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("X,N,dtype", [
+    (2560, 7680, torch.bfloat16), (7680, 2560, torch.bfloat16),
+    (2560, 2560, torch.bfloat16), (2560, 512, torch.bfloat16),
+    (5, 129, torch.float32), (2561, 520, torch.bfloat16),
+    (2561, 129, torch.float32), (5, 520, torch.bfloat16)])
+def test_cuda_mvm_cluster_split_is_batch_invariant(cuda, X, N, dtype):
+    """The cluster-split kernel at the decode step's projections and at
+    the split's edges (X < S, ragged slices and stripes), B = 1..4: within
+    its tolerance of the plain version (as above), two runs bit-equal, and
+    each row bit-equal to the same row computed alone, since the order of
+    summation depends on (X, N) only (``splits``)."""
+    x, W, b = _mvm_inputs(4, X, N, seed=13)
+    x, W = torch.from_numpy(x).to(cuda, dtype), torch.from_numpy(W).to(
+        cuda, dtype)
+    b = torch.from_numpy(b).to(cuda)
+    alone = [mvm_ops.mvm(x[r:r + 1], W, b) for r in range(4)]
+    for B in (1, 2, 3, 4):
+        out = mvm_ops.mvm(x[:B], W, b)
+        again = mvm_ops.mvm(x[:B], W, b)
+        ref = mvm_ops.mvm_plain(x[:B], W, b)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert all(torch.equal(out[r], alone[r][0]) for r in range(B))
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, **MVM_TOL)
+        else:
+            ulp = 2 ** -7 * float(ref.float().abs().max())
+            torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                       atol=ulp)
+
+
+def test_mvm_splits_depend_on_the_shape_only():
+    """The cluster size of the kernel's X-split is a function of (X, N):
+    one of the sizes the kernel takes (each divides the stripe), the
+    largest whose grid fits in one wave, and at the decode step's
+    projections 2 (2560 x 7680: 240 CTAs), 8 (N = 2560: 320 CTAs) and 16
+    (2560 x 512: 128 CTAs); X = 5 < S leaves CTAs with empty slices."""
+    got = {}
+    for X, N in ((2560, 7680), (7680, 2560), (2560, 2560), (2560, 512),
+                 (5, 129), (2561, 520)):
+        S = got[(X, N)] = mvm_ops.splits(X, N)
+        stripes = -(-N // mvm_ops.STRIPE)
+        assert S in mvm_ops.SPLITS and mvm_ops.STRIPE % S == 0
+        assert stripes * S <= mvm_ops.ONE_WAVE or S == 1
+        assert S == 16 or stripes * 2 * S > mvm_ops.ONE_WAVE
+    assert list(got.values()) == [2, 8, 8, 16, 16, 16]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,Hq,Hk,D,dtype", [
     (4, 2048, 10, 1, 256, torch.bfloat16), (2, 256, 8, 2, 64, torch.float32),
     (3, 64, 4, 4, 32, torch.float32), (2, 128, 6, 3, 20, torch.bfloat16)])

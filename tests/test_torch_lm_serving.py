@@ -51,6 +51,7 @@ from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import attention, mlp, norm, rglru, rope
 from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving.engine import DecodeGraph
 
 TOL = 1e-5
 SCAN_TOL = 1e-6
@@ -463,6 +464,170 @@ def test_serve_cli_on_the_cpu():
     assert report["requests"] == 3 and report["device"] == "cpu"
     assert report["generated_tokens"] == 9
     assert report["arch"] == "recurrentgemma-2b-reduced"
+
+
+def _copy(cache):
+    return {"layers": [{k: t.clone() for k, t in layer.items()}
+                       for layer in cache["layers"]],
+            "idx": cache["idx"].clone()}
+
+
+def test_decode_graph_over_a_wrapped_ring_matches_decode_step(model):
+    """The engine's step over static buffers (DecodeGraph, eager on the
+    CPU) gives logits, tokens and cache bit-equal to tf.decode_step on a
+    deep copy of the cache, step after step over a ring that wraps (a
+    14-token prefill into the 16-slot ring, then 6 steps).  decode_step
+    writes the new slot into the ring it is given and returns that ring;
+    every other slot stays as it was, and the ring equals the one the
+    reference's functional decode step returns (1e-5)."""
+    jcfg, cfg, jp, tp = model
+    P, STEPS = 14, 6
+    tokens = _tokens(2, P + STEPS, cfg.vocab_size, seed=11)
+    _, cache = tf.prefill(cfg, tp, {"tokens": _t(tokens[:, :P]).long()},
+                          seq_len=64)
+    _, jc = jax.jit(lambda p, t: jtf.prefill(jcfg, p, {"tokens": t},
+                                             seq_len=64))(
+        jp, jnp.asarray(tokens[:, :P]))
+    jdec = jax.jit(lambda p, c, t: jtf.decode_step(jcfg, p, c,
+                                                   {"tokens": t}))
+    graph = DecodeGraph(cfg, tp, _copy(cache))
+    attn = [i for i, k in enumerate(cfg.layer_kinds()) if k == "attn"]
+    T = cache["layers"][attn[0]]["k"].shape[1]
+    assert T == 16
+    for s in range(STEPS):
+        tok = _t(tokens[:, P + s:P + s + 1]).long()
+        given, before = _copy(cache), _copy(cache)
+        logits, new = tf.decode_step(cfg, tp, given, {"tokens": tok})
+        ours = graph(tok)
+        assert torch.equal(ours, logits)
+        assert ours.argmax(-1).tolist() == logits.argmax(-1).tolist()
+        for mine, ref in zip(graph.cache["layers"], new["layers"]):
+            assert all(torch.equal(mine[k], ref[k]) for k in ref)
+        assert torch.equal(graph.cache["idx"], new["idx"])
+        _, jc = jdec(jp, jc, jnp.asarray(tokens[:, P + s:P + s + 1]))
+        slot = (before["idx"] % T).tolist()
+        for i in attn:
+            for key in ("k", "v"):
+                ring, old = new["layers"][i][key], before["layers"][i][key]
+                assert ring is given["layers"][i][key]  # written in place
+                for row, sl in enumerate(slot):
+                    keep = torch.arange(T) != sl
+                    assert torch.equal(ring[row, keep], old[row, keep])
+                _close(ring, jc["layers"][i][key])
+        cache = new
+    assert [sl for sl in slot] == [(P + STEPS - 1) % T] * 2  # wrapped
+
+
+def test_engine_remainder_steps_through_the_single_row_cache(model):
+    """Prompts of 15 and 13 tokens (buckets 8: 7 and 5 remainder steps)
+    through max_batch 2: every remainder step runs the batch-1 step on its
+    static single-row cache (refilled from each prefill), every tick the
+    batched one; the tokens equal the reference engine's (jitted), which
+    tests/test_serving.py::test_engine_matches_reference holds equal to
+    its unbucketed _reference_greedy."""
+    jcfg, cfg, jp, tp = model
+    prompts = _prompts(cfg.vocab_size, (15, 13), seed=12)
+    jeng = JServingEngine(jcfg, jp, max_batch=2, max_seq=64)
+    for uid, p in enumerate(prompts):
+        jeng.submit(JRequest(uid=uid, tokens=p, max_new_tokens=5))
+    jref = {c.uid: c.tokens for c in jeng.run_to_completion()}
+    eng = ServingEngine(cfg, tp, max_batch=2, max_seq=64, device="cpu")
+    ran, decode = [], eng._decode
+    eng._decode = lambda g, t: ran.append(g) or decode(g, t)
+    done = _serve(eng, prompts, 5)
+    assert eng.prefill_lengths == {8}
+    assert ran == [eng.single_graph] * 12 + [eng.tick_graph] * 4
+    assert sorted(done) == [0, 1]
+    for uid, c in done.items():
+        assert c.tokens == jref[uid], (uid, c.tokens, jref[uid])
+
+
+def test_decode_graph_replay_adds_the_captured_launches(model):
+    """A capture counts launches that never ran, so DecodeGraph keeps
+    them aside (``captured``) and each replay adds them once: the launch
+    counts of a replayed step equal an eager step's.  (The capture itself
+    needs a card: test_cuda_graph_replay_matches_the_eager_step.)"""
+    _, cfg, _, tp = model
+    graph = DecodeGraph(cfg, tp, tf.init_cache(cfg, 2, 64))
+    graph.graph = type("Replayed", (), {"replay": lambda self: None})()
+    graph.logits = torch.zeros(())
+    graph.captured = {mvm: (18, 18), decode_attention: (1, 1)}
+    reset_counts(mvm, decode_attention, rglru_scan)
+    for _ in range(3):
+        assert graph.replay() is graph.logits
+    assert (mvm.calls, mvm.kernel_launches) == (54, 54)
+    assert (decode_attention.calls, decode_attention.kernel_launches) == (3, 3)
+    assert rglru_scan.calls == 0 and graph.replays == 3
+    reset_counts(mvm, decode_attention)
+    DecodeGraph(cfg, tp, tf.init_cache(cfg, 2, 64))(torch.zeros((2, 1)))
+    assert (mvm.calls, decode_attention.calls) == (18, 1)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the captured decode step and the unembed
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs and kernels have no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_matches_the_eager_step(cuda, model):
+    """The engine's first tick at a batch size runs eagerly and captures
+    the step; the next tick replays the graph.  The replay's logits equal
+    the step run eagerly on a clone of the static cache with the same
+    tokens, bit for bit (the same kernels on the same inputs), and a
+    replay counts a step's launches: 6 mvm a layer, one decode_attention
+    per attention layer."""
+    _, cfg, _, _ = model
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    eng = ServingEngine(cfg, params, max_batch=2, max_seq=64)
+    for uid, p in enumerate(_prompts(cfg.vocab_size, (5, 9), seed=0)):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=8))
+    eng.step()  # admission, then the first tick: eager, then captured
+    eng.step()  # a replay
+    graph = eng.tick_graph
+    assert graph.graph is not None and graph.replays == 1
+    assert eng.single_graph.replays == 1  # two 1-token remainders
+    with torch.inference_mode():
+        cache = _copy(graph.cache)
+        tokens = torch.as_tensor(eng.last_token, device=cuda)
+        reset_counts(mvm, decode_attention)
+        replayed = graph(tokens).clone()
+        n = (mvm.calls, mvm.kernel_launches, decode_attention.kernel_launches)
+        eager = graph.eager(cache=cache, tokens=tokens)
+        torch.cuda.synchronize()
+    assert n == (6 * cfg.n_layers, 6 * cfg.n_layers,
+                 cfg.layer_kinds().count("attn"))
+    assert torch.equal(replayed, eager)
+    assert all(torch.equal(a[k], b[k]) for a, b in
+               zip(graph.cache["layers"], cache["layers"]) for k in a)
+
+
+@pytest.mark.cuda
+def test_cuda_unembed_without_the_fp32_table_copy(cuda):
+    """On the card the unembed multiplies the bf16 operands as they are,
+    into an fp32 result (aten::mm.dtype), untied and tied; it equals the
+    CPU form, both operands upcast to fp32 and multiplied, up to the order
+    of the fp32 sum of exact products: 1e-4 of the largest |logit|."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 256)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((256, 1000)).astype(
+        np.float32) * 0.06).to(cuda, torch.bfloat16)
+    from repro_torch.models.layers.embedding import unembed
+    ref = torch.matmul(x.float(), w.float())
+    for params in ({"unembed": w}, {"table": w.T.contiguous()}):
+        ours = unembed(params, x)
+        assert ours.dtype == torch.float32 and ours.shape == (2, 3, 1000)
+        torch.testing.assert_close(ours, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
 
 
 # ---------------------------------------------------------------------------
