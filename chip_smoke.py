@@ -26,10 +26,16 @@ Phases, one line (or a few) of output each:
                projection (B = 4 and 1), and cold over the decode step's
                156 projections on distinct weights (4.0 GB, one CUDA
                graph; also per shape) beside torch.matmul and the 1.20 ms
-               bound; decode_attention at its
-               attention layers' decode (bf16, B = 4, T = 2048, 10 query
-               heads on 1 kv head of 256, mixed valid) and an fp32 GQA
-               shape
+               bound; decode_attention (one cluster of 16 CTAs per row
+               and kv head, taking the ring's 32-slot tiles in turn) at
+               its attention layers' decode (bf16, B = 4, T = 2048, 10
+               query heads on 1 kv head of 256, mixed valid, a full ring,
+               and the edge valid counts of its tiles at B = 4 and B = 1),
+               an fp32 GQA shape and the scalar-load D = 20, bit-equal run
+               to run, across B and between a graph replay and the eager
+               call, then timed cold in CUDA graphs on distinct rings from
+               HBM (kernel, plain version and SDPA alike; B = 4 and 1;
+               full, mixed and ~70-slot rings) and warm and eager
   4 serve      RecurrentServingEngine serves the paper's BYSDNE LSTM (L=5,
                H=X=340, bf16 weights from a seeded torch.Generator): 6
                requests in two admission waves, then decode ticks; every
@@ -81,8 +87,15 @@ Phases, one line (or a few) of output each:
                on the card; two requests served again with a fault planted
                in each decode kernel's call (mvm loses a k-tile,
                decode_attention the newest slot), which that check must
-               see; the first three layers served on the card and by a
-               device="cpu" engine; then a warm run: the first replay at
+               see; decode_attention on a clone of the engine's own cache
+               at its first batched tick on a wrapped ring (8 layers, rows
+               of mixed valid) against its plain version; each attention
+               layer of the decode step against the teacher-forced forward
+               on the same input (F3: the block's output within TOL_LAYER
+               at every decoded position of every request), which must
+               also catch both planted faults; the first three layers
+               served on the card and by a device="cpu" engine; then a
+               warm run: the first replay at
                each batch size held bit for bit against the step run
                eagerly, each step's host wall and device span (CUDA
                events), whose ratio gives the host-overhead share; then one
@@ -177,6 +190,17 @@ TOL_E2E = 1e-3
 # implementations, over 3 residual layers: 0.1.
 TOL_LM = 0.25
 TOL_LM_DEPTH3 = 0.1
+# serve_lm, each attention layer of the decode step against the
+# teacher-forced forward on the same input (_attn_layers_vs_forward): the
+# attention block's bf16 output at a decoded position, within 2^-6 of
+# that position's largest |output|, four bf16 ulps: q, k and v (mvm
+# against cuBLAS) may each round to the neighbouring bf16 value, the
+# forward rounds p to bf16 where the kernel keeps it in fp32 (2^-9), and
+# the core and w_o's output round once more; each of those four is at
+# most one ulp (2^-8) of the values it feeds, which a projection carries
+# to its output at the same relative size.  A dropped slot among ~70 live
+# ones moves the core by ~1/sqrt(70), ~12%, of its size.
+TOL_LAYER = 2.0 ** -6
 # serve_lm, a graph replay of the decode step against the same step run
 # eagerly on the same inputs: the same kernels in the same order, so bit
 # for bit (_replay_vs_eager)
@@ -280,10 +304,15 @@ def profile_breakdown(fn, label: str) -> None:
         return
     top = "; ".join(f"{name[:48]} {us / 1e3:.2f} ms ({count[name]})"
                     for name, us in by_name.most_common(8))
+    ours = "; ".join(
+        f"{kernel} {sum(us for n, us in by_name.items() if dev in n) / 1e3:.3f}"
+        f" ms ({sum(c for n, c in count.items() if dev in n)})"
+        for kernel, dev in DEVICE_NAMES.items())
     print(f"{label}: profile: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), idle "
           f"{100 - 100 * busy / wall_us:.1f}%; {sum(count.values())} device "
-          f"events; by kernel (events): {top}")
+          f"events; by kernel (events): {top}; the port's LM kernels: "
+          f"{ours}")
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -1023,81 +1052,184 @@ def _attn_case(B, T, Hq, Hk, D, dt, valid, seed, dev):
     return q, k, v, torch.tensor(valid, dtype=torch.int32, device=dev)
 
 
+def _attn_share(out, ref) -> float:
+    """The worst |kernel - plain| over its limit (<= 1 passes): fp32
+    within TOL_FP32; bf16 per (row, query head), one bf16 ulp of that
+    head's largest output (ULP_BF16)."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    if ref.dtype == torch.float32:
+        return float(diff.max()) / TOL_FP32
+    limit = ULP_BF16 * ref.float().abs().amax(-1)
+    return float((diff.amax(-1) / limit).max())
+
+
+#: the RecurrentGemma-2B attention layers' decode shape (B, T, Hq, Hk, D)
+ATTN_SHAPE = (4, 2048, 10, 1, 256)
+#: decode_attention's timed rings: a full ring, the kernels phase's mixed
+#: valid, and rings like serve_lm's (~70 live slots for most steps), at
+#: B = 4 and B = 1
+ATTN_RINGS = {4: {"full": [2048] * 4, "mixed": [1, 700, 1537, 2048],
+                  "serve": [65, 70, 72, 75]},
+              1: {"full": [2048], "mixed": [1537], "serve": [70]}}
+#: distinct ring pairs in one timed graph: at least the decode step's 8
+#: attention layers, and together more than the 50 MB L2 (x 1.25), so
+#: every launch reads its rings from HBM
+L2_BYTES = 50e6
+
+
 def _kernels_decode_attention(ctx, dev):
     """decode_attention against its plain version at the attention layers'
-    decode (mixed valid and a full ring), an fp32 GQA shape and a head dim
-    that takes the scalar loads, then timed on a full and a mixed ring."""
+    decode (mixed valid, a full ring, the edge valid counts of the kernel's
+    tiles at B = 4 and B = 1), an fp32 GQA shape and a head dim that
+    takes the scalar loads; bit-equal run to run, across B and between a
+    graph replay and the eager call; its clusters' occupancy; then timed
+    cold in CUDA graphs (ATTN_RINGS; the kernel, its plain version and
+    F.scaled_dot_product_attention alike, each launch on its own rings)
+    and warm and eager on a full ring, as PRs 14 and 16 timed it."""
+    import math
+
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops
 
     bf16, f32 = torch.bfloat16, torch.float32
-    B, T, Hq, Hk, D = 4, 2048, 10, 1, 256
-    mixed = [1, 700, 1537, 2048]
+    B, T, Hq, Hk, D = ATTN_SHAPE
+    G = Hq // Hk
+    mixed = ATTN_RINGS[4]["mixed"]
+    # the edge valid counts of the kernel's tiles: 0 (every slot masked),
+    # 1, 2, the first tile boundary, the end of the cluster's first round
+    # of tiles (R slots), each +- 1, T - 1, T and past T
+    tile, R = ops.TILE, ops.splits(T) * ops.TILE
+    edges = [0, 1, 2, tile - 1, tile, tile + 1, R - 1, R, R + 1, T - 1, T,
+             T + 5]
     err_max = 0.0
-    for args, label in (
-            (_attn_case(B, T, Hq, Hk, D, bf16, mixed, 110, dev),
-             f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid={mixed}"),
-            (_attn_case(B, T, Hq, Hk, D, bf16, [T] * B, 111, dev),
-             f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid=T"),
-            (_attn_case(2, 256, 8, 2, 64, f32, [3, 256], 112, dev),
-             "B=2 T=256 Hq=8 Hk=2 D=64 fp32 valid=[3, 256]"),
-            # D = 20: the scalar-load instance (not a multiple of 8 bf16)
-            (_attn_case(2, 128, 6, 3, 20, bf16, [50, 128], 114, dev),
-             "B=2 T=128 Hq=6 Hk=3 D=20 bf16 valid=[50, 128]")):
+    cases = [
+        (_attn_case(B, T, Hq, Hk, D, bf16, mixed, 110, dev),
+         f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid={mixed}"),
+        (_attn_case(B, T, Hq, Hk, D, bf16, [T] * B, 111, dev),
+         f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid=T"),
+        (_attn_case(2, 256, 8, 2, 64, f32, [3, 256], 112, dev),
+         "B=2 T=256 Hq=8 Hk=2 D=64 fp32 valid=[3, 256]"),
+        # D = 20: the scalar-load instance (not a multiple of 8 bf16)
+        (_attn_case(2, 128, 6, 3, 20, bf16, [50, 128], 114, dev),
+         "B=2 T=128 Hq=6 Hk=3 D=20 bf16 valid=[50, 128]")]
+    # three calls of four rows and one call per row
+    q, k, v, vl = _attn_case(len(edges), T, Hq, Hk, D, bf16, edges, 115, dev)
+    for lo in range(0, len(edges), B):
+        rows = slice(lo, lo + B)
+        cases.append(((q[rows], k[rows], v[rows], vl[rows]),
+                      f"B={B} T={T} bf16 valid={edges[rows]}"))
+    for r in range(len(edges)):
+        cases.append(((q[r:r + 1], k[r:r + 1], v[r:r + 1], vl[r:r + 1]),
+                      f"B=1 T={T} bf16 valid={edges[r]}"))
+    for args, label in cases:
         bt = ops.default_block_t(args[1].shape[1])
         ref = ops.decode_attention_plain(*args, block_t=bt)
         out = ops.decode_attention(*args)
+        again = ops.decode_attention(*args)
         torch.cuda.synchronize()
-        err = max_err((out,), (ref,))
-        # |out - ref| over each head's limit; <= 1 passes
-        if ref.dtype == f32:
-            share, tol = err / TOL_FP32, f"{TOL_FP32:g}"
-        else:
-            limit = ULP_BF16 * ref.float().abs().amax(-1)
-            share = float(((out.float() - ref.float()).abs().amax(-1)
-                           / limit).max())
-            tol = (f"per head, {float(limit.min()):.3e} to "
-                   f"{float(limit.max()):.3e}")
-        print(f"kernels: decode_attention {label}: max_abs_err {err:.3e} "
-              f"(tol {tol}; worst head at {share:.3f} of its limit)")
+        share = _attn_share(out, ref)
+        same = bool(torch.equal(out, again))
+        print(f"kernels: decode_attention {label} (S="
+              f"{ops.splits(args[1].shape[1])}): max_abs_err "
+              f"{max_err((out,), (ref,)):.3e} (worst head at {share:.3f} of "
+              f"its limit); two runs bit-equal {same}")
         check(share <= 1.0, f"decode_attention disagrees with its plain "
-                            f"version: {share:.3f} of the limit ({tol})")
-        err_max = max(err_max, err)
+                            f"version ({label}): {share:.3f} of the limit")
+        check(same, f"decode_attention {label}: two runs differ")
+        err_max = max(err_max, max_err((out,), (ref,)))
+    # a row is bit-equal at B = 4 and B = 1, and a graph replay is the eager
+    # call
+    rows4 = ops.decode_attention(q[:B], k[:B], v[:B], vl[:B])
+    alone = [ops.decode_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                  vl[r:r + 1]) for r in range(B)]
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        replayed = ops.decode_attention(q[:B], k[:B], v[:B], vl[:B])
+    graph.replay()
+    torch.cuda.synchronize()
+    batch = all(torch.equal(rows4[r], alone[r][0]) for r in range(B))
+    replay = bool(torch.equal(replayed, rows4))
+    del graph
+    print(f"kernels: decode_attention rows of a B={B} call == their B=1 "
+          f"calls {batch}; a CUDA graph's replay == the eager call {replay}")
+    check(batch and replay, "decode_attention: a row differs between B=4 "
+                            "and B=1, or a replay from the eager call")
+    n_cl = [ops.max_clusters(b, T, Hk, G, D) for b in (1, B)]
+    print(f"kernels: decode_attention T={T}: clusters of S={ops.splits(T)} "
+          f"CTAs ({ops.splits(T) * Hk} CTAs a row); "
+          f"cudaOccupancyMaxActiveClusters {n_cl[0]} (B=1), {n_cl[1]} "
+          f"(B={B}): one wave {n_cl[1] >= B * Hk}")
+    check(min(n_cl) > 0, "decode_attention: a cluster does not fit")
 
-    for valid in ([T] * B, mixed):
-        q, k, v, vl = _attn_case(B, T, Hq, Hk, D, bf16, valid, 113, dev)
-        k_ms = median_ms(lambda: ops.decode_attention(q, k, v, vl), reps=50)
-        p_ms = median_ms(lambda: ops.decode_attention_plain(
-            q, k, v, vl, block_t=512), reps=10)
-        # the yardstick in SDPA's layout (B, H, T, D), a boolean mask of the
-        # live slots, GQA by enable_gqa: the layout change stays untimed
-        qs, ks, vs = (q[:, :, None], k.transpose(1, 2).contiguous(),
-                      v.transpose(1, 2).contiguous())
-        mask = (torch.arange(T, device=dev)[None, :] < vl[:, None])[
-            :, None, None, :]
-        l_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True), reps=50)
-        # this run's data: the live slots' keys and values are read once,
-        # and each needs 4 Hq D operations (q.k and p.v)
-        live = sum(min(n, T) for n in valid)
-        nbytes = 2 * (2 * live * Hk * D + 2 * B * Hq * D) + 4 * B
-        b_ms, b_by = bound(nbytes, 4 * live * Hq * D, PEAK_BF16_FLOPS)
-        full = valid == [T] * B
-        print(f"kernels: decode_attention at B={B} T={T} Hq={Hq} Hk={Hk} "
-              f"D={D} bf16 valid={'T' if full else valid}: kernel "
-              f"{k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s), plain "
-              f"{p_ms:.4f} ms, F.scaled_dot_product_attention (mask, GQA) "
-              f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if full:
-            ctx["decode_attention"] = dict(
-                max_abs_err=err_max, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                bound_ms=b_ms, bound_by=b_by,
-                shape=f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16, full ring")
-        else:
-            ctx["decode_attention_mixed"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms)
+    # cold: each ring case as a CUDA graph of n launches on n distinct ring
+    # pairs (n >= 8, the decode step's attention layers, and more than L2
+    # holds), per launch; the kernel, the plain version and SDPA alike
+    gen = torch.Generator(device=dev).manual_seed(116)
+    for b, rings in ATTN_RINGS.items():
+        ring_bytes = 2 * b * T * Hk * D * 2
+        n = max(8, math.ceil(1.25 * L2_BYTES / ring_bytes))
+        sets = [[torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+                 for shape in ((b, Hq, D), (b, T, Hk, D), (b, T, Hk, D))]
+                for _ in range(n)]
+        # SDPA's layout (B, H, T, D), made outside the timed graph
+        sdpa = [(qq[:, :, None], kk.transpose(1, 2).contiguous(),
+                 vv.transpose(1, 2).contiguous()) for qq, kk, vv in sets]
+        for name, valid in rings.items():
+            vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+            mask = (torch.arange(T, device=dev)[None, :] < vl[:, None])[
+                :, None, None, :]
+            k_ms = graph_ms(lambda: [ops.decode_attention(qq, kk, vv, vl)
+                                     for qq, kk, vv in sets]) / n
+            p_ms = graph_ms(lambda: [ops.decode_attention_plain(
+                qq, kk, vv, vl, block_t=ops.default_block_t(T))
+                for qq, kk, vv in sets], trials=3) / n
+            l_ms = graph_ms(lambda: [F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+                for qs, ks, vs in sdpa]) / n
+            # this run's data: the live slots' keys and values are read
+            # once, and each needs 4 Hq D operations (q.k and p.v)
+            live = sum(min(x, T) if x >= 1 else T for x in valid)
+            nbytes = 2 * (2 * live * Hk * D + 2 * b * Hq * D) + 4 * b
+            b_ms, b_by = bound(nbytes, 4 * live * Hq * D, PEAK_BF16_FLOPS)
+            print(f"kernels: decode_attention cold in a graph at B={b} "
+                  f"T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid={valid} ({n} "
+                  f"distinct ring pairs, {n * ring_bytes / 1e6:.1f} MB), ms "
+                  f"a launch: kernel {k_ms:.4f} ({nbytes / k_ms / 1e6:.1f} "
+                  f"GB/s), plain {p_ms:.4f}, F.scaled_dot_product_attention "
+                  f"(mask, GQA) {l_ms:.4f}, bound {b_ms:.6f} ({b_by}); "
+                  f"kernel / SDPA {k_ms / l_ms:.2f}, kernel / bound "
+                  f"{k_ms / b_ms:.2f}; the decode step's 8 launches "
+                  f"{8 * k_ms:.4f} ms")
+            ctx.setdefault("decode_attention_cold", {})[f"B{b} {name}"] = \
+                dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                     bound_by=b_by, valid=valid, rings=n)
+        del sets, sdpa
+    # warm and eager on one full ring (PR 14 and 16's condition: host
+    # launch costs inside, rings from L2)
+    q, k, v, vl = _attn_case(B, T, Hq, Hk, D, bf16, [T] * B, 113, dev)
+    w_ms = median_ms(lambda: ops.decode_attention(q, k, v, vl), reps=50)
+    qs, ks, vs = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                  v.transpose(1, 2).contiguous())
+    mask = (torch.arange(T, device=dev)[None, :] < vl[:, None])[
+        :, None, None, :]
+    wl_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), reps=50)
+    print(f"kernels: decode_attention warm and eager at B={B} T={T} bf16 "
+          f"valid=T (one ring, from L2): kernel {w_ms:.4f} ms, "
+          f"F.scaled_dot_product_attention {wl_ms:.4f} ms")
+    cold = ctx["decode_attention_cold"][f"B{B} full"]
+    ctx["decode_attention"] = dict(
+        max_abs_err=err_max, ms=cold["ms"],
+        plain_ms=cold["plain_ms"], library_ms=cold["library_ms"],
+        bound_ms=cold["bound_ms"], bound_by=cold["bound_by"], warm_ms=w_ms,
+        condition=f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16, full ring; ms, "
+                  "plain_ms and library_ms cold in a CUDA graph (distinct "
+                  "rings, from HBM), warm_ms warm and eager")
 
 
 REQUESTS = (30, 30, 17, 45, 8, 30)
@@ -1768,8 +1900,13 @@ def phase_serve_lm(ctx):
     everything = entries()
     lm = (mvm, decode_attention, rglru_scan)
     calls = []  # (kind, rows or tokens, launches of mvm / dattn / scan)
+    wrapped = []  # the first batched tick with a wrapped ring, before it
 
     def count_call(kind, n, fn, graph=None, tokens=None):
+        if (kind == "decode" and n == 4 and not wrapped
+                and int(graph.cache["idx"].max()) >= cfg.window):
+            wrapped.append((graph, _clone_cache(graph.cache),
+                            tokens.clone()))
         before = [f.kernel_launches for f in lm]
         out = fn()
         calls.append((kind, n, tuple(f.kernel_launches - b
@@ -1825,6 +1962,11 @@ def phase_serve_lm(ctx):
           "serve_lm: a decode step after the first at its batch size was "
           "not a graph replay")
     tally(ctx, *lm)
+    check(len(wrapped) == 1, "serve_lm: no batched tick ran on a wrapped "
+                             "ring")
+    ctx["serve_lm_engine_rings_share"] = _attn_on_engine_rings(
+        cfg, *wrapped[0])
+    del wrapped[:]
 
     # every generated token's logits against a teacher-forced forward on
     # the card (torch.matmul, the prefill attention paths, rglru_scan)
@@ -1855,6 +1997,20 @@ def phase_serve_lm(ctx):
     ctx["serve_lm_err"] = err
     print(f"serve_lm: tokens held at {held} positions with a top-2 margin "
           f"above {TOL_LM:g}; {flips} near-tie positions differ")
+    # each attention layer of the decode step against the forward (F3)
+    layer_share = 0.0
+    for uid, c in sorted(done.items()):
+        shares = _attn_layers_vs_forward(cfg, params, prompts[uid], c)
+        layer_share = max(layer_share, max(shares))
+        print(f"serve_lm: request {uid}: each attention layer's output at "
+              f"the decoded positions vs the teacher-forced forward on the "
+              f"same input, worst position over its limit (TOL_LAYER "
+              f"{TOL_LAYER:g} of its largest |output|) by layer: "
+              + ", ".join(f"{x:.3f}" for x in shares))
+        check(max(shares) <= 1.0, f"serve_lm: request {uid}: an attention "
+              f"layer of the decode step disagrees with the forward: "
+              f"{max(shares):.3f} of TOL_LAYER")
+    ctx["serve_lm_layer_share"] = layer_share
 
     _planted_faults(cfg, params, prompts)
     _depth3_vs_cpu(cfg, params)
@@ -1898,8 +2054,10 @@ def phase_serve_lm(ctx):
     for B, label, key, graph in (
             (4, "batched tick (B=4)", "tick", warm.tick_graph),
             (1, "batch-1 decode step", "step1", warm.single_graph)):
-        busy_ms = _profiled_replay(graph, B, lm,
-                                   (6 * cfg.n_layers, n_attn, 0))
+        busy_ms, kernel_ms = _profiled_replay(graph, B, lm,
+                                              (6 * cfg.n_layers, n_attn, 0))
+        ctx[f"serve_lm_{key}_kernel_ms"] = dict(
+            zip((fn.__name__ for fn in lm), kernel_ms))
         steps = [(w, d, r) for k, n, w, d, r in times
                  if k == "decode" and n == B]
         wall = [w for w, _, r in steps if r]
@@ -1948,7 +2106,7 @@ def phase_serve_lm(ctx):
 
 
 #: a kernel's name on the device, as the profiler reports it
-DEVICE_NAMES = {"mvm": "mvm_kernel", "decode_attention": "dattn::attn_kernel",
+DEVICE_NAMES = {"mvm": "mvm_kernel", "decode_attention": "attn_kernel",
                 "rglru_scan": "rglru::scan_kernel"}
 
 
@@ -1960,7 +2118,8 @@ def _profiled_replay(graph, B, lm, per_step):
     the counts the replay added, the capture's record and ``per_step``
     (mvm, decode_attention, rglru_scan).  Returns the device's busy time
     in ms, the sum of its events (the profiler stretches the replay's
-    span, CUDA events around it, so that is printed but not used)."""
+    span, CUDA events around it, so that is printed but not used), and
+    each of those kernels' device ms in the replay."""
     import torch
 
     from repro_torch.kernels.common import reset_counts
@@ -1985,17 +2144,21 @@ def _profiled_replay(graph, B, lm, per_step):
     booked = tuple(fn.kernel_launches for fn in lm)
     captured = tuple(graph.captured.get(fn, (0, 0))[1] for fn in lm)
     busy = sum(by_name.values()) / 1e3
+    kernel_ms = tuple(
+        sum(us for name, us in by_name.items()
+            if DEVICE_NAMES[fn.__name__] in name) / 1e3 for fn in lm)
     print(f"serve_lm: one replay at B={B} under the profiler: device events "
           f"{sum(count.values())}, by kernel (mvm, decode_attention, "
           f"rglru_scan) on the device {on_device}, counted by the replay "
-          f"{booked}, recorded at capture {captured}; device busy "
-          f"{busy:.3f} ms in a span of {span_us / 1e3:.3f} ms under the "
-          f"profiler")
+          f"{booked}, recorded at capture {captured}; their device ms "
+          + ", ".join(f"{x:.4f}" for x in kernel_ms)
+          + f"; device busy {busy:.3f} ms in a span of "
+          f"{span_us / 1e3:.3f} ms under the profiler")
     check(on_device == booked == captured == tuple(per_step),
           f"serve_lm: a replay at B={B} ran {on_device} kernels on the "
           f"device but counted {booked} (captured {captured}, expected "
           f"{tuple(per_step)})")
-    return busy
+    return busy, kernel_ms
 
 
 def _clone_cache(cache):
@@ -2036,8 +2199,10 @@ def _planted_faults(cfg, params, prompts):
     projection (a lost k-tile), and decode_attention drops the newest
     live slot (valid - 1, the token's own key).  Each must give logits
     beyond TOL_LM, or a greedy token that differs from the forward's
-    argmax where its top-2 margin exceeds TOL_LM.  Launches here are
-    outside the counted run."""
+    argmax where its top-2 margin exceeds TOL_LM, and an attention layer
+    beyond TOL_LAYER in the per-layer check (_attn_layers_vs_forward, the
+    fault still planted), whose margin is printed beside the logits'.
+    Launches here are outside the counted run."""
     import types
 
     import torch
@@ -2060,6 +2225,9 @@ def _planted_faults(cfg, params, prompts):
         setattr(module, attr, planted)
         try:
             _, done, logits = _lm_serve(cfg, params, chosen, 8, "cuda")
+            layers = max(max(_attn_layers_vs_forward(cfg, params, chosen[u],
+                                                     c))
+                         for u, c in done.items())
         finally:
             setattr(module, attr, orig)
         err, wrong = 0.0, 0
@@ -2070,10 +2238,132 @@ def _planted_faults(cfg, params, prompts):
             agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
             wrong += int((sure & ~agree).sum())
         print(f"serve_lm: planted fault, {name}: logits vs the forward "
-              f"max_abs_err {err:.3e} (tol {TOL_LM:g}); {wrong} tokens "
-              f"differ where the top-2 margin exceeds {TOL_LM:g}")
+              f"max_abs_err {err:.3e} (tol {TOL_LM:g}, margin "
+              f"{err / TOL_LM:.2f}x); {wrong} tokens differ where the top-2 "
+              f"margin exceeds {TOL_LM:g}; the per-layer check's worst "
+              f"attention layer at {layers:.2f}x its limit (TOL_LAYER "
+              f"{TOL_LAYER:g})")
         check(err > TOL_LM or wrong > 0, f"serve_lm: the logit check "
               f"does not see the planted fault ({name})")
+        check(layers > 1.0, f"serve_lm: the per-layer check does not see "
+              f"the planted fault ({name})")
+
+
+def _attn_on_engine_rings(cfg, graph, cache, tokens):
+    """The kernel on the rings serving really produces: one batched tick
+    run eagerly on ``cache``, a clone of the engine's cache taken before
+    the first tick with a wrapped ring, records each attention layer's
+    (q, rings, valid) as ``models.layers.attention.decode_attention``
+    receives them; the kernel on each is held against
+    decode_attention_plain under the per-(row, head) bf16 limit.  Returns
+    the worst share of the limit."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.models.layers import attention
+
+    seen = []
+    orig = attention.decode_attention
+
+    def record(q, k, v, valid, *, window=0):
+        seen.append(tuple(t.clone() for t in (q, k, v, valid)))
+        return orig(q, k, v, valid, window=window)
+
+    attention.decode_attention = record
+    try:
+        with torch.inference_mode():
+            graph.eager(cache=cache, tokens=tokens.to(cache["idx"].device))
+    finally:
+        attention.decode_attention = orig
+    check(len(seen) == cfg.layer_kinds().count("attn"),
+          f"serve_lm: the tick ran {len(seen)} attention layers")
+    worst = 0.0
+    with torch.inference_mode():
+        for q, k, v, valid in seen:
+            out = ops.decode_attention(q, k, v, valid)
+            ref = ops.decode_attention_plain(
+                q[:, 0], k, v, valid,
+                block_t=ops.default_block_t(k.shape[1]))
+            torch.cuda.synchronize()
+            worst = max(worst, _attn_share(out[:, 0], ref))
+    counts, T = seen[0][3].tolist(), seen[0][1].shape[1]
+    print(f"serve_lm: decode_attention on the engine's own rings (a clone "
+          f"of its cache before the first batched tick with a wrapped "
+          f"ring, idx {cache['idx'].tolist()}, valid {counts}), "
+          f"{len(seen)} attention layers: worst head at {worst:.3f} of its "
+          f"limit (ULP_BF16 of the head's largest output)")
+    check(len(set(counts)) > 1 and max(counts) == T,
+          "serve_lm: the engine's rings are not a wrapped ring among rows "
+          "of mixed valid")
+    check(worst <= 1.0, f"serve_lm: decode_attention disagrees with its "
+                        f"plain version on the engine's rings: {worst:.3f}")
+    return worst
+
+
+def _attn_layers_vs_forward(cfg, params, prompt, completion):
+    """Each attention layer of the decode step against the teacher-forced
+    forward, on the same input (F3).  The forward is run layer by layer
+    with the model's own functions (``transformer._layer_apply``, the
+    prefill attention paths; its length padded as in _teacher_forced);
+    at each attention layer the block's output and keys and values over
+    the whole sequence come from ``transformer._attn_block`` in prefill
+    mode.  The decode step's block (``_attn_block`` in decode mode: mvm
+    projections, the new slot written into the ring, the decode_attention
+    kernel) then takes the forward's normed input at every position the
+    engine decoded (the remainder prompt tokens and the generated ones),
+    one row each, over a 2048-slot ring that holds the forward's keys and
+    values of the positions before it at slot pos % 2048, as the engine's
+    ring does.  Returns, per attention layer, the worst position's
+    max |decode - forward| over TOL_LAYER x its largest |output|."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers.common import param_dtype
+    from repro_torch.models.layers.embedding import embed
+    from repro_torch.models.layers.norm import rms_norm
+    from repro_torch.models.layers.rope import rope_angles
+
+    seq = list(prompt) + completion.tokens[:-1]
+    S, L = len(seq), len(prompt)
+    rows = list(range(1 << (L.bit_length() - 1), S))  # decoded positions
+    if tf.NAIVE_ATTN_MAX_SEQ < S < cfg.window:
+        seq = seq + [0] * (cfg.window - S)
+    Sp = len(seq)
+    T = tf.cache_len(cfg, 4096)  # serve_lm's rings (max_seq 4096)
+    dev = torch.device("cuda")
+    pos = torch.tensor(rows, device=dev)
+    idx = pos.to(torch.int32)
+    shares = []
+    with torch.inference_mode():
+        x = embed(params["head"], torch.tensor(seq, device=dev)[None],
+                  param_dtype(cfg))
+        rope = rope_angles(torch.arange(Sp, dtype=torch.int32,
+                                        device=dev)[None],
+                           cfg.head_dim, cfg.rope_theta)
+        rope_dec = rope_angles(idx[:, None], cfg.head_dim, cfg.rope_theta)
+        for i, kind in enumerate(cfg.layer_kinds()):
+            p = params["layers"][i]
+            if kind == "attn":
+                h = rms_norm(x, p["norm1"], cfg.norm_eps)
+                o_fwd, kv = tf._attn_block(
+                    cfg, p["attn"], h, rope,
+                    {"k": h.new_empty((1, Sp, cfg.kv_dim))}, None, "prefill")
+                ring = {key: h.new_zeros((len(rows), T, cfg.kv_dim))
+                        for key in ("k", "v")}
+                for r, t in enumerate(rows):
+                    before = torch.arange(max(0, t - T + 1), t, device=dev)
+                    for key in ("k", "v"):
+                        ring[key][r, before % T] = kv[key][0, before]
+                o_dec, _ = tf._attn_block(cfg, p["attn"], h[0, pos][:, None],
+                                          rope_dec, ring, idx, "decode")
+                ref = o_fwd[0, pos].float()
+                err = (o_dec[:, 0].float() - ref).abs().amax(-1)
+                limit = TOL_LAYER * ref.abs().amax(-1)
+                shares.append(float((err / limit).max()))
+                del ring, kv
+            x, _ = tf._layer_apply(cfg, kind, p, x, rope, None, None,
+                                   "train")
+    return shares
 
 
 def _leaves(tree):

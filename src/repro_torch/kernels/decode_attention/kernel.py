@@ -7,9 +7,9 @@ The Python wrapper that checks tensors and launches lives in
 """
 from __future__ import annotations
 
-from repro_torch.kernels.build import I, P, entry, register
+from repro_torch.kernels.build import I, P, bind, entry, register
 
 register("decode_attention", "decode_attention_launch",
          [P] * 5 + [I] * 8 + [P])
 
-__all__ = ["entry"]
+__all__ = ["bind", "entry"]

@@ -12,6 +12,7 @@ the ``calls`` and ``kernel_launches`` counters
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -23,8 +24,30 @@ from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (NEG_INF,
                                                       decode_attention_ref)
 
-#: the largest head dim the kernel takes (one thread per column, csrc)
+#: the largest head dim the kernel takes: its shared memory (a ring of 32-slot
+#: tiles, 16 query rows and the merge's buffers) is laid out for D <= 256
+#: (csrc/decode_attention.cu)
 MAX_HEAD_DIM = 256
+#: the cluster sizes the kernel takes (the CTAs that share a row's ring)
+#: and its tile of slots
+SPLITS = (1, 2, 4, 8, 16)
+TILE = 32
+
+
+def splits(T: int) -> int:
+    """S, the CTAs of one cluster, from the ring's length alone — never
+    from B, valid or a timing, so each output is summed in the same order
+    at every B and in every run.  CTA r of a (row, kv head) takes the
+    ring's tiles of TILE slots r, r + S, r + 2 S, ... for all of its query
+    heads; S is the largest in SPLITS that leaves every CTA two tiles of a
+    full ring (T >= 2 S TILE).  The heads and the head dim do not enter:
+    every kv head (and group of up to 16 query heads) takes its own S
+    CTAs."""
+    S = SPLITS[0]
+    for s in SPLITS[1:]:
+        if T >= 2 * s * TILE:
+            S = s
+    return S
 
 
 def default_block_t(T: int) -> int:
@@ -69,10 +92,11 @@ def decode_attention_plain(q, k_cache, v_cache, valid, *, block_t: int):
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
-def decode_attention_cuda(q, k_cache, v_cache, valid, *, block_t: int):
+def decode_attention_cuda(q, k_cache, v_cache, valid):
     """Launch ``csrc/decode_attention.cu`` on the current stream; shapes as
     ``decode_attention_plain``; q and the caches fp32 or bf16 (k and v of
-    one dtype), valid int32."""
+    one dtype), valid int32.  One launch over clusters of ``splits(T)``
+    CTAs, which take the ring's TILE-slot tiles in turn."""
     B, Hq, D = q.shape
     T, Hk = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
@@ -96,7 +120,7 @@ def decode_attention_cuda(q, k_cache, v_cache, valid, *, block_t: int):
     with torch.cuda.device(dev):
         rc = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                     valid.data_ptr(), out.data_ptr(), B, T, Hk, G, D,
-                    block_t, q_type, kv_type,
+                    splits(T), q_type, kv_type,
                     torch.cuda.current_stream(dev).cuda_stream)
     launched("decode_attention", rc)
     count_launch(decode_attention)
@@ -109,9 +133,12 @@ def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0):
     (B, T, Hk, D); valid (B,) int32, the live slots of each row (slots
     t < valid attend).  Returns q's shape and dtype.
 
-    ``block_t`` is the KV tile of the online softmax (default: the
-    largest of 512, 256, ... dividing T); T % block_t == 0 is required,
-    as in the reference."""
+    ``block_t`` is the reference's KV tile (default: the largest of 512,
+    256, ... dividing T); T % block_t == 0 is required, as in the
+    reference.  The plain version walks the cache in these tiles; the CUDA
+    kernel splits T by its own rule (``splits``) and ignores ``block_t``
+    once it is checked, as the sequence kernels ignore theirs: the tiling
+    changes only the order in which fp32 sums are taken."""
     decode_attention.calls += 1
     squeeze = q.dim() == 4
     if squeeze:
@@ -130,14 +157,28 @@ def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0):
     if on_cuda("decode_attention", q.device):
         o = decode_attention_cuda(operand(q), operand(k_cache),
                                   operand(v_cache),
-                                  operand(valid.to(torch.int32)),
-                                  block_t=block_t)
+                                  operand(valid.to(torch.int32)))
     else:
         o = decode_attention_plain(q, k_cache, v_cache, valid,
                                    block_t=block_t)
     return o[:, None] if squeeze else o
 
 
+def max_clusters(B: int, T: int, Hk: int, G: int, D: int,
+                 dtype=torch.bfloat16) -> int:
+    """How many of a launch's clusters (of ``splits(T)`` CTAs) can be
+    resident on the current card at once: cudaOccupancyMaxActiveClusters
+    for the kernel instance that q and caches of ``dtype`` take."""
+    query = kernel.bind("decode_attention", "decode_attention_max_clusters",
+                        [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    flag = int(dtype == torch.bfloat16)
+    out = ctypes.c_int(0)
+    launched("decode_attention (cluster occupancy)",
+             query(B, T, Hk, G, D, splits(T), flag, flag,
+                   ctypes.addressof(out)))
+    return out.value
+
+
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_cuda", "decode_attention_ref",
-           "default_block_t"]
+           "default_block_t", "splits", "max_clusters"]

@@ -248,7 +248,7 @@ def test_decode_attention_tile_divisibility_and_counters():
     assert (dattn.decode_attention.calls,
             dattn.decode_attention.kernel_launches) == (1, 0)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        dattn.decode_attention_cuda(q, kc, vc, valid.int(), block_t=32)
+        dattn.decode_attention_cuda(q, kc, vc, valid.int())
     assert "decode_attention" in build.all_kernels()
 
 
@@ -268,6 +268,47 @@ def test_decode_attention_dead_tiles_change_no_number():
     zero = np.zeros((2,), np.int32)
     ours, ref, _ = _both(q, kc, vc, zero, block_t=32)
     np.testing.assert_allclose(_np(ours), np.asarray(ref), **ATTN_TOL)
+
+
+def test_decode_attention_splits_depend_on_the_shape_only():
+    """The kernel's split of a ring across the CTAs of one cluster is a
+    function of T: one of the cluster sizes the kernel takes, the largest
+    that leaves each CTA two tiles of a full ring; 16 CTAs at the
+    RecurrentGemma-2B ring (T = 2048).  It takes no batch, valid or head
+    count, so a row is summed in the same order at every B."""
+    got = {T: dattn.splits(T) for T in (2048, 4096, 1000, 256, 200, 128,
+                                         96, 64, 7, 1)}
+    for T, S in got.items():
+        assert S in dattn.SPLITS
+        assert T >= 2 * S * dattn.TILE or S == 1
+        bigger = [s for s in dattn.SPLITS if s > S]
+        assert all(T < 2 * s * dattn.TILE for s in bigger)
+    assert list(got.values()) == [16, 16, 8, 4, 2, 2, 1, 1, 1, 1]
+
+
+def _edge_valid(T):
+    """valid at 0 (every slot masked), 1, 2, the first tile boundary of the
+    kernel and one either side, the end of its first round of tiles (S
+    tiles) and one either side, T - 1, T and past T: twelve rows."""
+    R = dattn.splits(T) * dattn.TILE
+    tile = dattn.TILE
+    return np.array([0, 1, 2, tile - 1, tile, tile + 1, R - 1, R, R + 1,
+                     T - 1, T, T + 5], np.int32)
+
+
+@pytest.mark.parametrize("block_t", [0, 64])
+def test_decode_attention_edge_valid_counts(block_t):
+    """The plain version against the Pallas kernel (interpret) and its
+    oracle at the valid counts that reach the kernel's tile and skip
+    logic, one row each (T = 256: 4 CTAs of tiles of 32 slots)."""
+    valid = _edge_valid(256)
+    q, kc, vc, _ = _attn_inputs(len(valid), 256, 8, 2, 32, seed=15)
+    ours, ref, oracle = _both(q, kc, vc, valid, block_t=block_t)
+    np.testing.assert_allclose(_np(ours), np.asarray(ref), **ATTN_TOL)
+    np.testing.assert_allclose(_np(ours), np.asarray(oracle), **ATTN_TOL)
+    # valid = 0 is the average of v over every slot (p = 1 everywhere)
+    avg = np.repeat(vc[0].mean(0), 4, axis=0)
+    np.testing.assert_allclose(_np(ours[0]), avg, atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -381,3 +422,68 @@ def test_cuda_decode_attention_matches_plain(cuda, B, T, Hq, Hk, D, dtype):
         err = (out.float() - ref.float()).abs().amax(-1)
         limit = 2 ** -7 * ref.float().abs().amax(-1)
         assert bool((err <= limit).all()), (err / limit).max()
+
+
+def _bf16_within_ulp(out, ref):
+    """bf16: each (row, query head) within one bf16 ulp of that head's
+    largest output."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    limit = 2 ** -7 * ref.float().abs().amax(-1)
+    assert bool((err <= limit).all()), (err / limit).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Hq,Hk,D,dtype", [
+    (4, 2048, 10, 1, 256, torch.bfloat16), (4, 256, 8, 2, 64, torch.float32),
+    (4, 128, 6, 3, 20, torch.bfloat16)])
+def test_cuda_decode_attention_edge_valid_counts(cuda, B, T, Hq, Hk, D,
+                                                 dtype):
+    """The kernel against its plain version at the edge valid counts
+    (``_edge_valid``: 0, 1, 2, tile and round boundaries +- 1, T - 1, T,
+    T + 5), as three calls of B = 4 rows and as one call per row (B = 1);
+    one launch a call; each row bit-equal between its B = 4 and its B = 1
+    call, and two runs bit-equal."""
+    valid = torch.from_numpy(_edge_valid(T)).to(cuda)
+    q, kc, vc, _ = _attn_inputs(len(valid), T, Hq, Hk, D, seed=16)
+    q, kc, vc = (torch.from_numpy(a).to(cuda, dtype) for a in (q, kc, vc))
+    bt = dattn.default_block_t(T)
+    for lo in range(0, len(valid), B):
+        rows = slice(lo, lo + B)
+        args = (q[rows], kc[rows], vc[rows], valid[rows])
+        reset_counts(dattn.decode_attention)
+        out = dattn.decode_attention(*args)
+        assert dattn.decode_attention.kernel_launches == 1
+        again = dattn.decode_attention(*args)
+        ref = dattn.decode_attention_plain(*args, block_t=bt)
+        alone = [dattn.decode_attention(*(a[r:r + 1] for a in args))
+                 for r in range(B)]
+        torch.cuda.synchronize()
+        assert dattn.decode_attention.kernel_launches == 2 + B
+        assert torch.equal(out, again)
+        assert all(torch.equal(out[r], alone[r][0]) for r in range(B))
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, **ATTN_TOL)
+        else:
+            _bf16_within_ulp(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_graph_replay_is_the_eager_call(cuda):
+    """A CUDA graph's replay of the kernel (as the decode step runs it)
+    gives the eager call's output bit for bit, and counts one launch at
+    capture."""
+    B, T, Hq, Hk, D = 4, 2048, 10, 1, 256
+    q, kc, vc, _ = _attn_inputs(B, T, Hq, Hk, D, seed=17)
+    q, kc, vc = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                 for a in (q, kc, vc))
+    valid = torch.tensor([70, 129, 1, 2048], dtype=torch.int32, device=cuda)
+    eager = dattn.decode_attention(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    reset_counts(dattn.decode_attention)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dattn.decode_attention(q, kc, vc, valid)
+    assert dattn.decode_attention.kernel_launches == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
