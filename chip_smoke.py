@@ -14,7 +14,18 @@ Phases, one line (or a few) of output each:
                card, at the main path's shapes; median times (CUDA events)
                of the kernel, the plain version and one PyTorch library
                call (cuDNN nn.LSTM / nn.GRU / nn.LSTMCell, torch.matmul,
-               F.scaled_dot_product_attention) as a yardstick; lstm_seq and
+               F.scaled_dot_product_attention) as a yardstick;
+               lstm_decode and gru_decode (one cluster of up to 16 CTAs
+               per batch row) at L=5 H=340, L=10 H=1024 and L=3 H=50 (plain
+               loads), B = 1, 4, 5, 8, bf16 and fp32 W, fp32 U under bf16
+               W and bf16 state: every call one launch, bit-equal run to
+               run, across B and between a graph replay and the eager
+               call, the kernel's cluster size equal to decode_splits',
+               its occupancy; then timed as the serving tick runs them (a
+               CUDA graph of chained ticks: BYSDNE's weights from L2,
+               H = 1024's alternating between two stacks from HBM; B = 4
+               and 1) beside the plain version and cuDNN (fp32 and bf16
+               weights) in the same graphs; lstm_seq and
                gru_seq also with int8 U, with row-compacted U and with
                both, at a BYSDNE int8 wavefront slot; rglru_scan at the
                rglru phase's shape and at a ragged W = 513; mvm (one
@@ -304,15 +315,17 @@ def profile_breakdown(fn, label: str) -> None:
         return
     top = "; ".join(f"{name[:48]} {us / 1e3:.2f} ms ({count[name]})"
                     for name, us in by_name.most_common(8))
-    ours = "; ".join(
-        f"{kernel} {sum(us for n, us in by_name.items() if dev in n) / 1e3:.3f}"
-        f" ms ({sum(c for n, c in count.items() if dev in n)})"
-        for kernel, dev in DEVICE_NAMES.items())
+    ours = []
+    for kernel, dev in DEVICE_NAMES.items():
+        ms = sum(us for n, us in by_name.items() if dev in n) / 1e3
+        k = sum(c for n, c in count.items() if dev in n)
+        ours.append(f"{kernel} {ms:.3f} ms ({k}"
+                    + (f", {ms / k:.4f} ms each)" if k else ")"))
     print(f"{label}: profile: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), idle "
           f"{100 - 100 * busy / wall_us:.1f}%; {sum(count.values())} device "
-          f"events; by kernel (events): {top}; the port's LM kernels: "
-          f"{ours}")
+          f"events; by kernel (events): {top}; the port's cluster and scan "
+          f"kernels: {'; '.join(ours)}")
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -401,21 +414,28 @@ def _seq_case(G, B, T, H, u_dtype, act_dtype, seed, dev, gates=4):
     return [t.to(dev) for t in (U, xw, h0, c0)]
 
 
-def _decode_case(L, B, H, w_dtype, seed, dev, gates=4):
-    """(xw0, Ws, bs, Us, h0, c0) of a decode kernel; the GRU's takes the
-    first five (gates=3)."""
+def _decode_case(L, B, H, w_dtype, seed, dev, gates=4, u_dtype=None,
+                 h_dtype=None):
+    """(xw0, Ws, bs, Us, h0, c0) of a decode kernel, drawn on the card from
+    a seeded generator; the GRU's takes the first five (gates=3).  U in
+    W's type unless ``u_dtype``; xw0 and h0 fp32 unless ``h_dtype``."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
     s = H ** -0.5
-    Ws = (torch.randn((L, H, gates, H), generator=g) * s).to(w_dtype)
+    hd = h_dtype or torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    Ws = (randn(L, H, gates, H) * s).to(w_dtype)
     Ws[0] = float("nan")  # the kernel never reads layer 0's W
-    bs = (torch.randn((L, gates, H), generator=g) * 0.1).to(w_dtype)
-    Us = (torch.randn((L, H, gates, H), generator=g) * s).to(w_dtype)
-    xw0 = torch.randn((B, gates, H), generator=g)
-    h0 = torch.randn((L, B, H), generator=g) * 0.5
-    c0 = torch.randn((L, B, H), generator=g) * 0.5
-    return [t.to(dev) for t in (xw0, Ws, bs, Us, h0, c0)]
+    bs = (randn(L, gates, H) * 0.1).to(w_dtype)
+    Us = (randn(L, H, gates, H) * s).to(u_dtype or w_dtype)
+    xw0 = randn(B, gates, H).to(hd)
+    h0 = (randn(L, B, H) * 0.5).to(hd)
+    c0 = randn(L, B, H) * 0.5
+    return [xw0, Ws, bs, Us, h0, c0]
 
 
 def phase_kernels(ctx):
@@ -427,7 +447,7 @@ def phase_kernels(ctx):
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
     H = 340
-    seq_err, dec_err = 0.0, 0.0
+    seq_err = 0.0
     # the main path's lstm_seq shapes: EESEN's fwd+bwd slots (G=2, B=4,
     # bt=8, fp32), BYSDNE's admission-wave slots (bf16 U, fp32 xw/h, G up
     # to 5, ragged B, remainder chunks of 5), and bf16 activations
@@ -462,19 +482,6 @@ def phase_kernels(ctx):
     check(err <= TOL_FP32, "chunked lstm_seq walk disagrees")
     seq_err = max(seq_err, err)
 
-    for B in (1, 4):
-        for wd in (bf16, f32):
-            args = _decode_case(5, B, H, wd, seed=B, dev=dev)
-            ref = ops.lstm_decode_plain(*args)
-            out = ops.lstm_decode(*args)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            print(f"kernels: lstm_decode L=5 B={B} H={H} W={wd} act=fp32: "
-                  f"max_abs_err {err:.3e} (tol {TOL_FP32:g})")
-            check(err <= TOL_FP32, f"lstm_decode disagrees with its plain "
-                                   f"version: {err:.3e}")
-            dec_err = max(dec_err, err)
-
     # ---- times at the main path's most frequent shapes -------------------
     torch.backends.cudnn.allow_tf32 = False  # cuDNN LSTM in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -499,28 +506,7 @@ def phase_kernels(ctx):
           f"bidirectional, input GEMM included) {l_ms:.4f} ms, bound "
           f"{b_ms:.6f} ms ({b_by})")
 
-    L, B = 5, 4  # a BYSDNE decode tick: bf16 weights, fp32 state
-    args = _decode_case(L, B, H, bf16, seed=12, dev=dev)
-    k_ms = median_ms(lambda: ops.lstm_decode(*args), reps=50)
-    p_ms = median_ms(lambda: ops.lstm_decode_plain(*args), reps=50)
-    lstm = torch.nn.LSTM(H, H, num_layers=L, batch_first=True).to(dev)
-    x = torch.randn((B, 1, H), device=dev)
-    st = (torch.randn((L, B, H), device=dev), torch.randn((L, B, H),
-                                                          device=dev))
-    with torch.no_grad():
-        l_ms = median_ms(lambda: lstm(x, st), reps=50)
-    # W[0] and b[0] are never needed: layer 0's input half arrives hoisted
-    nbytes = (2 * ((2 * L - 1) * H * 4 * H + (L - 1) * 4 * H)
-              + 4 * (B * 4 * H + 4 * L * B * H))
-    flops = B * ((2 * L - 1) * 8 * H * H + L * 14 * H)
-    b_ms, b_by = bound(nbytes, flops)
-    ctx["lstm_decode"] = dict(max_abs_err=dec_err, ms=k_ms, plain_ms=p_ms,
-                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                         shape=f"L={L} B={B} H={H} bf16 weights")
-    print(f"kernels: lstm_decode at L={L} B={B} H={H} bf16 weights: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.LSTM (cuDNN, fp32, "
-          f"T=1, layer-0 input GEMM included) {l_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by})")
+    _kernels_decode(ctx, dev, "lstm")
     _kernels_gru(ctx, dev)
     _kernels_cell(ctx, dev)
     _kernels_seq_variants(ctx, dev)
@@ -530,14 +516,15 @@ def phase_kernels(ctx):
 
 
 def _kernels_gru(ctx, dev):
-    """gru_seq and gru_decode against their plain versions, then timed."""
+    """gru_seq against its plain version, then timed; then gru_decode
+    (``_kernels_decode``)."""
     import torch
 
     from repro_torch.kernels.common import ragged_b_mask
     from repro_torch.kernels.gru_cell import ops
 
     f32, bf16 = torch.float32, torch.bfloat16
-    seq_err, dec_err = 0.0, 0.0
+    seq_err = 0.0
     # the GRU serve's gru_seq shapes at H=340 (bf16 U, fp32 xw/h, G up to
     # 5, ragged B, remainder chunks), fp32 U, bf16 activations, and H=50:
     # 3H = 150 is not a multiple of four, so the scalar instantiation runs
@@ -578,21 +565,7 @@ def _kernels_gru(ctx, dev):
     check(err <= TOL_FP32, "chunked gru_seq walk disagrees")
     seq_err = max(seq_err, err)
 
-    for L, B, H, wd in ((5, 1, 340, bf16), (5, 1, 340, f32),
-                        (5, 4, 340, bf16), (5, 4, 340, f32),
-                        (3, 3, 50, bf16)):
-        args = _decode_case(L, B, H, wd, seed=40 + B, dev=dev, gates=3)[:5]
-        ref = ops.gru_decode_plain(*args)
-        out = ops.gru_decode(*args)
-        torch.cuda.synchronize()
-        err = max_err((out,), (ref,))
-        print(f"kernels: gru_decode L={L} B={B} H={H} W={wd} act=fp32: "
-              f"max_abs_err {err:.3e} (tol {TOL_FP32:g})")
-        check(err <= TOL_FP32, f"gru_decode disagrees with its plain "
-                               f"version: {err:.3e}")
-        dec_err = max(dec_err, err)
-
-    # ---- times: a GRU serve slot (two recurrences, bf16 U) and tick ------
+    # ---- times: a GRU serve slot (two recurrences, bf16 U) -------------
     H = 340
     G, B, T = 2, 4, 8
     U3, xw, h0, _ = _seq_case(G, B, T, H, bf16, f32, seed=31, dev=dev,
@@ -618,27 +591,250 @@ def _kernels_gru(ctx, dev):
           f"bidirectional, input GEMM included) {l_ms:.4f} ms, bound "
           f"{b_ms:.6f} ms ({b_by})")
 
-    L, B = 5, 4  # a GRU BYSDNE decode tick: bf16 weights, fp32 state
-    args = _decode_case(L, B, H, bf16, seed=32, dev=dev, gates=3)[:5]
-    k_ms = median_ms(lambda: ops.gru_decode(*args), reps=50)
-    p_ms = median_ms(lambda: ops.gru_decode_plain(*args), reps=50)
-    gru = torch.nn.GRU(H, H, num_layers=L, batch_first=True).to(dev)
-    x = torch.randn((B, 1, H), device=dev)
-    st = torch.randn((L, B, H), device=dev)
+    _kernels_decode(ctx, dev, "gru")
+
+
+#: the decode kernels' widths (L, H): BYSDNE's, RLDRADSPR's (L = 10, H =
+#: 1024) and H = 50, whose slices take plain loads (H % 4 != 0); the
+#: batches each is held against its plain version at; the operand forms
+#: (W, U, h and xw0 dtypes; None: U in W's type), the last two at B = 4
+DECODE_WIDTHS = ((5, 340), (10, 1024), (3, 50))
+DECODE_BATCHES = (1, 4, 5, 8)
+DECODE_FORMS = (("bf16 W", "bfloat16", None, "float32"),
+                ("fp32 W", "float32", None, "float32"),
+                ("bf16 W, fp32 U", "bfloat16", "float32", "float32"),
+                ("bf16 W, bf16 h", "bfloat16", None, "bfloat16"))
+#: chained ticks in one timed CUDA graph: on one stack at BYSDNE's width
+#: (its 8.5 MB stay in L2, as between serving ticks), and alternating
+#: between two stacks at H = 1024 (160 MB each, so every tick reads its
+#: weights from HBM)
+DECODE_TICKS = {340: (20, 1), 1024: (4, 2)}
+
+
+def _decode_family(family):
+    """(entry point, plain version, gates) of the ``family`` decode
+    kernel."""
+    if family == "lstm":
+        from repro_torch.kernels.lstm_cell import ops
+        return ops.lstm_decode, ops.lstm_decode_plain, 4
+    from repro_torch.kernels.gru_cell import ops
+    return ops.gru_decode, ops.gru_decode_plain, 3
+
+
+def _decode_outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _decode_row(args, r):
+    """A decode call's operands cut to batch row r (B = 1)."""
+    xw0, Ws, bs, Us, *state = args
+    return [xw0[r:r + 1], Ws, bs, Us] + [t[:, r:r + 1] for t in state]
+
+
+def _decode_bound(gates, L, B, H):
+    """The least time of one tick with bf16 weights and fp32 state: W_1..
+    W_(L-1), U_0..U_(L-1) and b_1..b_(L-1) read once, xw0, h0 (and c0)
+    read and h_n (and c_n) written once; 2 gates H^2 FMAs per row and
+    matrix."""
+    state = 4 if gates == 4 else 2
+    nbytes = (2 * ((2 * L - 1) * H * gates * H + (L - 1) * gates * H)
+              + 4 * (B * gates * H + state * L * B * H))
+    flops = B * ((2 * L - 1) * 2 * gates * H * H + L * 14 * H)
+    return bound(nbytes, flops)
+
+
+def _chained(fn, xw0, stacks, state, n):
+    """n decode ticks, tick t on stacks[t % len(stacks)], the state of
+    each tick feeding the next."""
+    for t in range(n):
+        Ws, bs, Us = stacks[t % len(stacks)]
+        state = _decode_outs(fn(xw0, Ws, bs, Us, *state))
+    return state
+
+
+def _cudnn_ms(mods, x, state, n):
+    """cuDNN's multi-layer nn.LSTM / nn.GRU at T = 1, the state chained
+    over n calls (module t % len(mods)): (ms a call, method) — a CUDA
+    graph of the n calls, or, where cuDNN's RNN cannot be captured, CUDA
+    events around the n calls run back to back; (None, reason) where the
+    module refuses the inputs."""
+    import torch
+
+    def run():
+        st = state
+        for t in range(n):
+            _, st = mods[t % len(mods)](x, st)
+
     with torch.no_grad():
-        l_ms = median_ms(lambda: gru(x, st), reps=50)
-    # W[0] and b[0] are never needed: layer 0's input half arrives hoisted
-    nbytes = (2 * ((2 * L - 1) * H * 3 * H + (L - 1) * 3 * H)
-              + 4 * (B * 3 * H + 2 * L * B * H))
-    flops = B * ((2 * L - 1) * 6 * H * H + L * 14 * H)
-    b_ms, b_by = bound(nbytes, flops)
-    ctx["gru_decode"] = dict(max_abs_err=dec_err, ms=k_ms, plain_ms=p_ms,
-                             library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                             shape=f"L={L} B={B} H={H} bf16 weights")
-    print(f"kernels: gru_decode at L={L} B={B} H={H} bf16 weights: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.GRU (cuDNN, fp32, T=1, "
-          f"layer-0 input GEMM included) {l_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by})")
+        try:
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            return None, f"refused: {str(err).splitlines()[0][:80]}"
+        try:
+            return graph_ms(run) / n, "graph"
+        except RuntimeError as err:
+            torch.cuda.synchronize()
+            why = str(err).splitlines()[0][:80]
+            return median_ms(run, reps=1) / n, f"events (no capture: {why})"
+
+
+def _kernels_decode(ctx, dev, family):
+    """``family``'s decode kernel against its plain version at
+    DECODE_WIDTHS x DECODE_BATCHES in DECODE_FORMS; every call one launch,
+    bit-equal run to run, each row of a batch bit-equal to its B = 1 call,
+    a graph replay bit-equal to the eager call; its clusters' occupancy;
+    then timed (``_decode_times``)."""
+    import torch
+
+    from repro_torch.kernels.common import (decode_clusters, decode_splits,
+                                            reset_counts)
+
+    fn, plain, gates = _decode_family(family)
+    name = fn.__name__
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    err_max, seed = 0.0, 200 if family == "lstm" else 300
+    for L, H in DECODE_WIDTHS:
+        for B in DECODE_BATCHES:
+            for form, wd, ud, hd in DECODE_FORMS:
+                if form in ("bf16 W, fp32 U", "bf16 W, bf16 h") and B != 4:
+                    continue
+                seed += 1
+                args = _decode_case(L, B, H, dts[wd], seed, dev, gates,
+                                    u_dtype=dts.get(ud), h_dtype=dts[hd])
+                args = args if family == "lstm" else args[:5]
+                ref = _decode_outs(plain(*args))
+                reset_counts(fn)
+                out = _decode_outs(fn(*args))
+                again = _decode_outs(fn(*args))
+                rows = [_decode_outs(fn(*_decode_row(args, r)))
+                        for r in range(B)] if B > 1 else []
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                tol = TOL_FP32 if hd == "float32" else TOL_BF16
+                same = all(torch.equal(a, b) for a, b in zip(out, again))
+                batch = all(torch.equal(o[:, r], x[:, 0])
+                            for r, row in enumerate(rows)
+                            for o, x in zip(out, row))
+                n = fn.kernel_launches
+                print(f"kernels: {name} L={L} B={B} H={H} {form}, "
+                      f"{'bf16' if hd == 'bfloat16' else 'fp32'} state (S="
+                      f"{decode_splits(H, gates)}): max_abs_err {err:.3e} "
+                      f"(tol {tol:g}); two runs bit-equal {same}; rows == "
+                      f"their B=1 calls {batch if B > 1 else 'n/a'}; "
+                      f"launches {n}")
+                check(err <= tol, f"{name} disagrees with its plain version "
+                                  f"({form}, B={B}, H={H}): {err:.3e}")
+                check(same and batch, f"{name} L={L} B={B} H={H} {form}: not "
+                                      "bit-equal run to run or across B")
+                check(n == 2 + len(rows), f"{name}: {n} launches for "
+                                          f"{2 + len(rows)} calls")
+                if hd == "float32":
+                    err_max = max(err_max, err)
+        # a CUDA graph's replay is the eager call
+        args = _decode_case(L, 4, H, torch.bfloat16, seed, dev, gates)
+        args = args if family == "lstm" else args[:5]
+        eager = _decode_outs(fn(*args))
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            replayed = _decode_outs(fn(*args))
+        graph.replay()
+        torch.cuda.synchronize()
+        replay = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+        del graph
+        print(f"kernels: {name} L={L} B=4 H={H} bf16 W: a CUDA graph's "
+              f"replay == the eager call {replay}")
+        check(replay, f"{name} H={H}: a graph replay differs from the "
+                      "eager call")
+        for B in (1, 4):
+            S, n_cl = decode_clusters(family, B, H)
+            print(f"kernels: {name} H={H} B={B}: clusters of S={S} CTAs "
+                  f"(decode_splits {decode_splits(H, gates)}), one a row; "
+                  f"cudaOccupancyMaxActiveClusters {n_cl}")
+            check(S == decode_splits(H, gates) and n_cl > 0,
+                  f"{name} H={H}: the kernel's cluster size {S} is not "
+                  f"decode_splits', or its cluster does not fit ({n_cl})")
+    ctx[name] = dict(max_abs_err=err_max)
+    _decode_times(ctx, dev, family)
+
+
+def _decode_times(ctx, dev, family):
+    """``family``'s decode kernel timed as the serving tick runs it: a CUDA
+    graph of chained ticks (DECODE_TICKS) at BYSDNE's width (L = 5, H =
+    340) and RLDRADSPR's (L = 10, H = 1024), bf16 weights and fp32 state,
+    B = 4 and 1; the plain version and cuDNN's nn.LSTM / nn.GRU (fp32
+    weights, and bf16 where cuDNN takes them; layer 0's input GEMM
+    included) alike; then warm and eager at BYSDNE's B = 4, as the earlier
+    eager timings did.  The bound is the HBM bound of a cold tick at both
+    widths, while BYSDNE's chained ticks read their weights from L2."""
+    import torch
+
+    fn, plain, gates = _decode_family(family)
+    name = fn.__name__
+    f32, bf16 = torch.float32, torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False  # cuDNN's RNN in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rnn = torch.nn.LSTM if family == "lstm" else torch.nn.GRU
+    times = ctx.setdefault(f"{name}_times", {})
+    for L, H in DECODE_WIDTHS[:2]:
+        n, n_stacks = DECODE_TICKS[H]
+        cases = [_decode_case(L, 4, H, bf16, 400 + i, dev, gates)
+                 for i in range(n_stacks)]
+        stacks = [tuple(c[1:4]) for c in cases]
+        mods = {dt: [rnn(H, H, num_layers=L, batch_first=True).to(dev, dt)
+                     for _ in range(n_stacks)] for dt in (f32, bf16)}
+        for B in (4, 1):
+            xw0, h0, c0 = (cases[0][0][:B].contiguous(),
+                           cases[0][4][:, :B].contiguous(),
+                           cases[0][5][:, :B].contiguous())
+            state = (h0, c0) if family == "lstm" else (h0,)
+
+            def ticks(f):
+                return lambda: _chained(f, xw0, stacks, state, n)
+
+            k_ms = graph_ms(ticks(fn)) / n
+            p_ms = graph_ms(ticks(plain), trials=3) / n
+            lib = {}
+            for dt in (f32, bf16):
+                x = torch.randn((B, 1, H), device=dev, dtype=dt)
+                st = tuple(t.to(dt) for t in state)
+                lib[dt] = _cudnn_ms(mods[dt], x,
+                                    st if family == "lstm" else st[0], n)
+            bd_ms, bd_by = _decode_bound(gates, L, B, H)
+            times[f"B{B} L{L} H{H}"] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib[f32][0],
+                library_method=lib[f32][1], library_bf16_ms=lib[bf16][0],
+                library_bf16_method=lib[bf16][1], bound_ms=bd_ms,
+                bound_by=bd_by)
+            cu = ", ".join(
+                f"{t} " + (f"{ms:.4f} ({how})" if ms is not None else how)
+                for t, (ms, how) in (("fp32 W", lib[f32]),
+                                     ("bf16 W", lib[bf16])))
+            print(f"kernels: {name} tick at L={L} B={B} H={H} bf16 W, fp32 "
+                  f"state, one CUDA graph of {n} chained ticks on "
+                  f"{n_stacks} stack(s), ms a tick: kernel {k_ms:.4f}, plain "
+                  f"{p_ms:.4f}; {rnn.__name__} (cuDNN, layer-0 input GEMM included) "
+                  f"{cu}; bound {bd_ms:.6f} ({bd_by}); kernel / bound "
+                  f"{k_ms / bd_ms:.2f}")
+        del cases, stacks, mods
+        torch.cuda.empty_cache()
+    # warm and eager at BYSDNE's B = 4 (the earlier eager condition)
+    L, H = DECODE_WIDTHS[0]
+    args = _decode_case(L, 4, H, bf16, 420, dev, gates)
+    args = args if family == "lstm" else args[:5]
+    w_ms = median_ms(lambda: fn(*args), reps=50)
+    print(f"kernels: {name} warm and eager at L={L} B=4 H={H} bf16 W: "
+          f"kernel {w_ms:.4f} ms")
+    row = times[f"B4 L{L} H{H}"]
+    ctx[name].update(
+        ms=row["ms"], plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], warm_ms=w_ms,
+        condition=f"L={L} B=4 H={H} bf16 W, fp32 state; ms, plain_ms and "
+                  f"library_ms (cuDNN fp32, {row['library_method']}) a tick "
+                  f"of {DECODE_TICKS[H][0]} chained ticks in one CUDA graph "
+                  "with the weights warm in L2, warm_ms warm and eager; "
+                  "bound_ms the HBM bound of a cold tick")
 
 
 def _kernels_cell(ctx, dev):
@@ -1767,6 +1963,11 @@ def phase_precision(ctx):
           f"launches)")
     if ctx["profile"]:
         profile_breakdown(lambda: cs.forward(xs), "precision")
+        # a decode tick resumed from the prefill state: the dense decode
+        # kernel on the fake-quantized U (fp32 U under bf16 W)
+        ys, st = cs.prefill(xs)
+        profile_breakdown(lambda: cs.decode(ys[:, -1:], st),
+                          "precision decode tick")
 
 
 #: serve_lm's prompt lengths: prefill buckets 4, 32, 256, 1024 (naive
@@ -2107,7 +2308,8 @@ def phase_serve_lm(ctx):
 
 #: a kernel's name on the device, as the profiler reports it
 DEVICE_NAMES = {"mvm": "mvm_kernel", "decode_attention": "attn_kernel",
-                "rglru_scan": "rglru::scan_kernel"}
+                "rglru_scan": "rglru::scan_kernel",
+                "lstm_decode": "LstmCell", "gru_decode": "GruCell"}
 
 
 def _profiled_replay(graph, B, lm, per_step):

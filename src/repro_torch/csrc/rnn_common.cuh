@@ -12,7 +12,7 @@ namespace rnn {
 
 typedef __nv_bfloat16 bf16;
 
-// Threads per block of the sequence and decode kernels.  Phase 1 of a step
+// Threads per block of the sequence kernels.  Phase 1 of a step
 // gives each thread one vector of adjacent gate columns, so up to 4H <= 2048
 // (LSTM) or 3H <= 2048 (GRU) every vector has its own thread; phase 2 walks
 // the rows x H cells.

@@ -39,8 +39,10 @@ levels so injected faults report as they do in ``repro.dispatch``.  Each
 degradation is recorded in the caller's ``ExecutionReport``;
 ``on_fault="raise"`` fails fast with a structured ``LaunchError``.  A
 kernel that does not BUILD is not a launch fault: ``KernelBuildError``
-passes through every rung.  ``check_finite`` raises
-``NonFiniteStateError`` naming exactly the poisoned items.
+passes through every rung, and so does ``KernelLaunchRefused``, a launch
+configuration the card refuses (the decode kernels' thread-block
+clusters).  ``check_finite`` raises ``NonFiniteStateError`` naming
+exactly the poisoned items.
 
 Recurrent-weight precision and block sparsity (a slot's ``precision``,
 its items' ``tile_map``): ``_slot_weights`` hoists each cell's U once per
@@ -66,7 +68,8 @@ import torch
 from repro_torch.core.perfmodel import MXU_ROWS
 from repro_torch.dispatch.planner import DispatchPlan, ItemPlan
 from repro_torch.dispatch.workitem import GATES
-from repro_torch.kernels.common import KernelBuildError, cdiv
+from repro_torch.kernels.common import (KernelBuildError,
+                                        KernelLaunchRefused, cdiv)
 from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
@@ -434,9 +437,10 @@ def _guarded_launch(slot_index: int, uids, ladder, *, on_fault: str,
     exception a rung raises (including an injected one) is wrapped in a
     structured ``LaunchError``; under ``on_fault="fallback"`` the next
     rung is tried, a recovery at rung > 0 is recorded in ``report``, and
-    a fault at the last rung is raised.  A ``KernelBuildError`` is re-raised from any rung: a
-    kernel that does not compile is a broken checkout, not a fault the
-    plain rung may hide."""
+    a fault at the last rung is raised.  A ``KernelBuildError`` or a
+    ``KernelLaunchRefused`` is re-raised from any rung: a kernel that does
+    not compile, or whose launch configuration the card refuses, is a
+    broken checkout or card, not a fault another rung may hide."""
     cause = None
     last = len(ladder) - 1
     for level, attempt in enumerate(ladder):
@@ -451,7 +455,7 @@ def _guarded_launch(slot_index: int, uids, ladder, *, on_fault: str,
                 with tracer.span("fallback_rung", slot=slot_index,
                                  rung=FALLBACK_LEVELS[level]):
                     result = attempt()
-        except KernelBuildError:
+        except (KernelBuildError, KernelLaunchRefused):
             raise
         except Exception as err:  # noqa: BLE001 — the ladder IS the boundary
             fault = err if isinstance(err, LaunchError) else LaunchError(
@@ -733,9 +737,13 @@ def _chained_ladder(family: str, xw0, Ws, bs, Us, h0, c0):
     or None for a gru stack).
 
     What per-layer can recover on the card: it runs the other kernel
-    (the sequence kernel), so it absorbs a fault of the decode kernel's
-    own code; both kernels take the same shared memory per block, so a
-    fault of size recurs there and is raised."""
+    (the sequence kernel), so it absorbs a fault raised around the decode
+    kernel's launch (an injected one).  Every error the decode kernel's C
+    entry point returns is a launch configuration the card refused (its
+    cluster, its shared memory, H past 2048); the wrapper raises it as
+    ``KernelLaunchRefused``, which the ladder re-raises, so a tick never
+    runs the chain's input GEMMs in plain PyTorch because a cluster could
+    not form."""
     lstm = family == "lstm"
     L = h0.shape[0]
 

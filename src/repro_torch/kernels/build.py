@@ -38,7 +38,7 @@ I = ctypes.c_int
 #: kernel -> (C entry point, its argtypes): every pointer and the stream
 #: are c_void_p, every size or flag c_int (see the .cu files' signatures)
 KERNELS: Dict[str, Tuple[str, List]] = {}
-_HEADERS = ("rnn_common.cuh",)
+_HEADERS = ("rnn_common.cuh", "decode_cluster.cuh")
 #: the modules whose import registers their family's kernels
 FAMILIES = ("repro_torch.kernels.lstm_cell.kernel",
             "repro_torch.kernels.gru_cell.kernel",

@@ -54,6 +54,15 @@ class KernelBuildError(RuntimeError):
     guarded execution ladder re-raises it instead of degrading past it."""
 
 
+class KernelLaunchRefused(RuntimeError):
+    """The card refused a kernel's launch configuration: a thread-block
+    cluster it cannot form or schedule, shared memory past its limit, a
+    shape past the kernel's.  Like ``KernelBuildError`` it is a property
+    of the checkout and the card, not a fault of one launch: the guarded
+    execution ladder re-raises it instead of serving the slot through
+    another rung."""
+
+
 #: every kernel entry point that carries counters (``counted``), in the
 #: order their modules were imported
 COUNTED: list = []
@@ -170,11 +179,10 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launched(name: str, rc: int) -> None:
-    """Raise when a C entry point reports a refused launch."""
+def launched(name: str, rc: int, error=RuntimeError) -> None:
+    """Raise ``error`` when a C entry point reports a refused launch."""
     if rc:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError {rc}")
+        raise error(f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
 def operand(t):
@@ -230,3 +238,61 @@ def decode_u(Us, Ws):
     if Us.dtype == torch.bfloat16 and Ws.dtype == torch.float32:
         return Us.float()
     return Us
+
+
+#: The decode kernels' cluster split (csrc/decode_cluster.cuh): the
+#: largest cluster, the most gate columns a CTA's slice should hold, the
+#: widest H (a CTA's slice of at most 128 units then keeps one cell per
+#: thread).
+DECODE_MAX_SPLITS = 16
+DECODE_SLICE_COLS = 64
+DECODE_MAX_H = 2048
+
+
+def decode_unit_align(H: int) -> int:
+    """The decode kernels' slices start on multiples of this many hidden
+    units: 8 when H % 8 == 0 (16-byte loads of 8 bf16), 4 when H % 4 ==
+    0, else 1 (plain loads)."""
+    return 8 if H % 8 == 0 else 4 if H % 4 == 0 else 1
+
+
+def decode_splits(H: int, gates: int) -> int:
+    """S, the CTAs of a decode kernel's cluster, from (H, gates) alone —
+    never from B or a timing, so each output is summed in the same order
+    at every B: the fewest, a power of two up to DECODE_MAX_SPLITS (and
+    at most H / decode_unit_align(H)), whose widest slice holds at most
+    DECODE_SLICE_COLS gate columns.  16 at H = 340 and 1024 for both
+    families."""
+    if not 1 <= H <= DECODE_MAX_H:
+        raise ValueError(f"decode kernels take 1 <= H <= {DECODE_MAX_H}, "
+                         f"got H={H}")
+    A = decode_unit_align(H)
+    groups = H // A
+    cap = min(DECODE_MAX_SPLITS, groups)
+    S = 1
+    while 2 * S <= cap and gates * cdiv(groups, S) * A > DECODE_SLICE_COLS:
+        S *= 2
+    return S
+
+
+def decode_clusters(family: str, B: int, H: int, w_dtype=torch.bfloat16,
+                    u_dtype=None):
+    """(S, clusters) of the ``family`` ("lstm" or "gru") decode kernel: the
+    cluster size it takes at H (its C side's rule, which
+    ``decode_splits`` mirrors) and how many of a launch's clusters at
+    (B, H, the weights' types; U in W's type by default) can be resident
+    on the current card at once (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from repro_torch.kernels.build import bind
+
+    name = f"{family}_decode"
+    query = bind(name, f"{name}_clusters",
+                 [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    w_flag = int(w_dtype == torch.bfloat16)
+    u_flag = int((u_dtype or w_dtype) == torch.bfloat16)
+    S, n = ctypes.c_int(0), ctypes.c_int(0)
+    launched(f"{name} (cluster occupancy)",
+             query(B, H, w_flag, u_flag, ctypes.addressof(S),
+                   ctypes.addressof(n)), KernelLaunchRefused)
+    return S.value, n.value

@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (check_operands, check_shape,
-                                        count_launch, counted, decode_u,
-                                        dtype_flag, gather_index, launched,
-                                        on_cuda, operand, ptr, ragged_b_mask,
-                                        recurrent_product, seq_variant,
-                                        weight_operands)
+from repro_torch.kernels.common import (KernelLaunchRefused,
+                                        check_operands, check_shape,
+                                        count_launch, counted, decode_splits,
+                                        decode_u, dtype_flag, gather_index,
+                                        launched, on_cuda, operand, ptr,
+                                        ragged_b_mask, recurrent_product,
+                                        seq_variant, weight_operands)
 from repro_torch.kernels.gru_cell import kernel
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 
@@ -153,7 +154,7 @@ def gru_decode_cuda(xw0, Ws, bs, Us, h0):
         rc = launch(xw0.data_ptr(), Ws.data_ptr(), bs.data_ptr(),
                     Us.data_ptr(), h0.data_ptr(), h_n.data_ptr(), L, B, H,
                     *flags, torch.cuda.current_stream(dev).cuda_stream)
-    launched("gru_decode", rc)
+    launched("gru_decode", rc, KernelLaunchRefused)
     count_launch(gru_decode)
     return h_n
 
@@ -238,4 +239,5 @@ def gru_decode(xw0, Ws, bs, Us, h0):
 
 
 __all__ = ["gru_seq", "gru_decode", "gru_seq_plain", "gru_decode_plain",
-           "gru_seq_cuda", "gru_decode_cuda", "gru_seq_ref", "gru_step_ref"]
+           "gru_seq_cuda", "gru_decode_cuda", "decode_splits", "gru_seq_ref",
+           "gru_step_ref"]

@@ -22,12 +22,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.autotune import table
-from repro_torch.kernels.common import (check_operands, check_shape,
-                                        count_launch, counted, decode_u,
-                                        dtype_flag, gather_index, launched,
-                                        on_cuda, operand, ptr, ragged_b_mask,
-                                        recurrent_product, seq_variant,
-                                        weight_operands)
+from repro_torch.kernels.common import (KernelLaunchRefused,
+                                        check_operands, check_shape,
+                                        count_launch, counted, decode_splits,
+                                        decode_u, dtype_flag, gather_index,
+                                        launched, on_cuda, operand, ptr,
+                                        ragged_b_mask, recurrent_product,
+                                        seq_variant, weight_operands)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
 
@@ -183,7 +184,7 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
                     Us.data_ptr(), h0.data_ptr(), c0.data_ptr(),
                     h_n.data_ptr(), c_n.data_ptr(), L, B, H, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
-    launched("lstm_decode", rc)
+    launched("lstm_decode", rc, KernelLaunchRefused)
     count_launch(lstm_decode)
     return h_n, c_n
 
@@ -361,5 +362,5 @@ def lstm_decode(xw0, Ws, bs, Us, h0, c0):
 
 __all__ = ["lstm_seq", "lstm_decode", "lstm_cell", "lstm_seq_plain",
            "lstm_decode_plain", "lstm_cell_plain", "lstm_seq_cuda",
-           "lstm_decode_cuda", "lstm_cell_cuda", "as_cell_kernel",
-           "as_seq_kernel", "lstm_cell_ref", "lstm_seq_ref"]
+           "lstm_decode_cuda", "lstm_cell_cuda", "decode_splits",
+           "as_cell_kernel", "as_seq_kernel", "lstm_cell_ref", "lstm_seq_ref"]

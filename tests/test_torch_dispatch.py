@@ -23,7 +23,8 @@ import repro_torch.dispatch as dispatch
 from repro_torch import rnn
 from repro_torch.analysis.plancheck import check_plan
 from repro_torch.convert import from_jax
-from repro_torch.kernels.common import KernelBuildError, reset_counts
+from repro_torch.kernels.common import (KernelBuildError,
+                                        KernelLaunchRefused, reset_counts)
 from repro_torch.kernels.lstm_cell import ops
 
 TOL = 1e-5
@@ -270,6 +271,31 @@ def test_guarded_ladder_recovers_and_build_errors_pass_through(
     monkeypatch.setattr(executor, "lstm_seq", broken)
     with pytest.raises(KernelBuildError):
         cs.forward(xs)
+
+
+@pytest.mark.parametrize("on_card", [False, True], ids=["cpu", "card"])
+def test_refused_decode_launch_passes_through_the_ladder(monkeypatch,
+                                                         on_card):
+    """A decode kernel whose launch configuration the card refuses (its
+    thread-block cluster) raises KernelLaunchRefused through the ladder
+    under on_fault="fallback": no rung serves the tick and no degraded
+    launch is recorded."""
+    import repro_torch.dispatch.executor as executor
+
+    def refused(*a, **k):
+        raise KernelLaunchRefused("lstm_decode: CUDA kernel launch failed "
+                                  "with cudaError 912")
+
+    monkeypatch.setattr(executor, "_on_card", lambda t: on_card)
+    monkeypatch.setattr(executor, "lstm_decode", refused)
+    _, params = _stacks(False, seed=5)
+    xs = torch.randn(2, 1, 24, generator=torch.Generator().manual_seed(1))
+    cs = rnn.compile(params, rnn.ExecutionPolicy(on_fault="fallback"),
+                     device="cpu")
+    state = {"h": torch.zeros(2, 2, 24), "c": torch.zeros(2, 2, 24)}
+    with pytest.raises(KernelLaunchRefused, match="912"):
+        cs.decode(xs, state)
+    assert cs.stats.degraded_launches == 0
 
 
 @pytest.mark.parametrize("on_card,through,expect", [

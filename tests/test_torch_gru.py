@@ -38,10 +38,12 @@ from repro_torch.configs.sharp_lstm import lstm_config as tlstm_config
 from repro_torch.convert import from_jax
 from repro_torch.core import gru as gru_mod
 from repro_torch.kernels import build
+from repro_torch.kernels import common
 from repro_torch.kernels.common import reset_counts
 from repro_torch.kernels.gru_cell import ops
 from repro_torch.kernels.lstm_cell import ops as lstm_ops
 from repro_torch.serving import recurrent as serving
+from tests.test_torch_kernels import decode_slices
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
@@ -168,6 +170,39 @@ def test_gru_decode_matches_reference(B, H, w_dtype, act_dtype):
     tol = FP32_TOL if act_dtype == "float32" else BF16_TOL
     assert out.shape == tuple(ref.shape) and out.dtype == TDT[act_dtype]
     np.testing.assert_allclose(_np(out), _np(ref), atol=tol)
+
+
+@pytest.mark.parametrize("H,B", [(72, 1), (72, 5), (50, 3)])
+@pytest.mark.parametrize("w_dtype,act_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+def test_gru_decode_matches_reference_at_cluster_widths(H, B, w_dtype,
+                                                        act_dtype):
+    """The plain version against the JAX kernel at widths the card splits
+    over several CTAs (H = 72: 8 slices) and at one whose slices take
+    plain loads (H = 50)."""
+    assert ops.decode_splits(H, 3) > 1
+    args = _decode_inputs(3, B, H, w_dtype, act_dtype, seed=H + B)
+    ref = jops.gru_decode(*(j for j, _ in args), interpret=True)
+    out = ops.gru_decode(*(t for _, t in args))
+    tol = FP32_TOL if act_dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(out), _np(ref), atol=tol)
+
+
+def test_gru_decode_splits_are_the_shared_rule():
+    """gru_decode's cluster split is the shared rule at three gates: a
+    function of (H, 3) only, 16 CTAs at H = 340 and 1024, slices that
+    cover every unit once on the unit alignment."""
+    assert ops.decode_splits is common.decode_splits
+    for H in (50, 72, 340, 1024):
+        S = ops.decode_splits(H, 3)
+        slices = decode_slices(H, 3)
+        A = common.decode_unit_align(H)
+        assert len(slices) == S
+        assert [u for lo, hi in slices for u in range(lo, hi)] == list(
+            range(H))
+        assert all(lo % A == 0 for lo, _ in slices)
+    assert ops.decode_splits(340, 3) == ops.decode_splits(1024, 3) == 16
 
 
 def test_chunked_walk_equals_single_launch_fp32():
@@ -568,11 +603,67 @@ def test_cuda_gru_seq_matches_plain(cuda, H, u_dtype, act_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [340, 50])
+@pytest.mark.parametrize("H", [340, 1024, 50])
+@pytest.mark.parametrize("B", [1, 4, 5])
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
-def test_cuda_gru_decode_matches_plain(cuda, H, w_dtype):
-    args = [t.to(cuda) for _, t in _decode_inputs(5, 4, H, w_dtype,
+def test_cuda_gru_decode_matches_plain(cuda, H, B, w_dtype):
+    args = [t.to(cuda) for _, t in _decode_inputs(5, B, H, w_dtype,
                                                   "float32", seed=4)]
     torch.testing.assert_close(ops.gru_decode(*args),
                                ops.gru_decode_plain(*args), rtol=0,
                                atol=1e-4)
+
+
+def _cuda_decode_args(cuda, H, B=4, u_dtype=None, act_dtype="float32"):
+    args = [t.to(cuda) for _, t in _decode_inputs(3, B, H, "bfloat16",
+                                                  act_dtype, seed=H)]
+    if u_dtype:
+        args[3] = args[3].to(TDT[u_dtype])
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [340, 1024, 50])
+def test_cuda_gru_decode_rows_are_batch_and_run_invariant(cuda, H):
+    """A row of a B = 4 call equals its B = 1 call bit for bit, and two
+    runs agree (each output's order of summation is set by (H, 3))."""
+    args = _cuda_decode_args(cuda, H)
+    out = ops.gru_decode(*args)
+    for r in range(4):
+        row = ops.gru_decode(args[0][r:r + 1], *args[1:4],
+                             args[4][:, r:r + 1].contiguous())
+        assert torch.equal(out[:, r], row[:, 0])
+    assert torch.equal(out, ops.gru_decode(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype,act_dtype", [
+    ("float32", "float32"), (None, "bfloat16")])
+def test_cuda_gru_decode_operand_forms(cuda, u_dtype, act_dtype):
+    """fp32 U under bf16 W and bf16 state, against the plain version."""
+    args = _cuda_decode_args(cuda, 340, B=5, u_dtype=u_dtype,
+                             act_dtype=act_dtype)
+    tol = 1e-4 if act_dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(ops.gru_decode(*args).float(),
+                               ops.gru_decode_plain(*args).float(), rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_decode_graph_replay_equals_eager_and_one_launch(cuda):
+    """A call is one cluster launch, a CUDA graph's replay of it is the
+    eager call bit for bit, and the kernel's own split is decode_splits'."""
+    args = _cuda_decode_args(cuda, 340)
+    reset_counts(ops.gru_decode)
+    eager = ops.gru_decode(*args)
+    torch.cuda.synchronize()
+    assert ops.gru_decode.kernel_launches == ops.gru_decode.calls == 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.gru_decode(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    for H in (340, 1024, 50):
+        S, clusters = common.decode_clusters("gru", 4, H)
+        assert S == ops.decode_splits(H, 3) and clusters > 0

@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels.lstm_cell import ops as jops
 from repro_torch.kernels import build as kernel
+from repro_torch.kernels import common
 from repro_torch.kernels.common import KernelBuildError, reset_counts
 from repro_torch.kernels.lstm_cell import ops
 
@@ -207,6 +208,70 @@ def test_chained_decode_equals_per_layer_loop(w_dtype):
     torch.testing.assert_close(torch.stack(cs), c_n, rtol=0, atol=0)
 
 
+def decode_slices(H: int, gates: int):
+    """The hidden units [lo, hi) each CTA of a decode kernel's cluster
+    owns, by rank: the decode_unit_align(H) unit groups split as evenly
+    as integer division does it (``slice`` in csrc/decode_cluster.cuh)."""
+    A = common.decode_unit_align(H)
+    n, S = H // A, ops.decode_splits(H, gates)
+    return tuple((r * n // S * A, (r + 1) * n // S * A) for r in range(S))
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_decode_splits_depend_on_the_shape_only(gates):
+    """The decode kernels' cluster split is a function of (H, gates): a
+    cluster size the kernel takes, the fewest whose slices hold at most
+    DECODE_SLICE_COLS gate columns (16 at the paper's H = 340 and 1024);
+    the slices cover every hidden unit exactly once, in rank order, each
+    starting and ending on a multiple of the unit alignment the kernel's
+    vector loads need (8 units when H % 8 == 0, 4 when H % 4 == 0).  It
+    takes no batch size."""
+    import inspect
+
+    assert list(inspect.signature(ops.decode_splits).parameters) == [
+        "H", "gates"]
+    for H in (1, 5, 10, 24, 50, 72, 100, 256, 340, 1000, 1024, 1536, 2048):
+        S = ops.decode_splits(H, gates)
+        A = common.decode_unit_align(H)
+        assert S & (S - 1) == 0 and S <= common.DECODE_MAX_SPLITS
+        assert S <= H // A
+        slices = decode_slices(H, gates)
+        assert len(slices) == S and slices[0][0] == 0 and slices[-1][1] == H
+        for (lo, hi), (nxt, _) in zip(slices, slices[1:] + ((H, H),)):
+            assert lo < hi == nxt and lo % A == 0 and hi % A == 0
+        widest = max(hi - lo for lo, hi in slices)
+        cap = min(common.DECODE_MAX_SPLITS, H // A)
+        assert gates * widest <= common.DECODE_SLICE_COLS or S == cap
+        groups = H // A
+        assert S == 1 or (gates * -(-groups // (S // 2)) * A
+                          > common.DECODE_SLICE_COLS)
+        assert widest <= 128  # one cell a thread at 4 rows
+    assert ops.decode_splits(340, gates) == ops.decode_splits(1024, gates) \
+        == 16
+    assert common.decode_unit_align(340) == 4
+    for H in (0, common.DECODE_MAX_H + 1):
+        with pytest.raises(ValueError, match="2048"):
+            ops.decode_splits(H, gates)
+
+
+@pytest.mark.parametrize("H,B", [(72, 1), (72, 5), (50, 3)])
+@pytest.mark.parametrize("w_dtype,act_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+def test_lstm_decode_matches_reference_at_cluster_widths(H, B, w_dtype,
+                                                         act_dtype):
+    """The plain version against the JAX kernel at widths the card splits
+    over several CTAs (H = 72: 8 slices of 8 or 16 units) and at one whose
+    slices take plain loads (H = 50)."""
+    assert ops.decode_splits(H, 4) > 1
+    args = _decode_inputs(3, B, H, w_dtype, act_dtype, seed=H + B)
+    ref = jops.lstm_decode(*(j for j, _ in args), interpret=True)
+    out = ops.lstm_decode(*(t for _, t in args))
+    tol = FP32_TOL if act_dtype == "float32" else BF16_TOL
+    for r, o, name in zip(ref, out, ("h_n", "c_n")):
+        np.testing.assert_allclose(_np(o), _np(r), atol=tol, err_msg=name)
+
+
 def test_counters_count_calls_not_launches_on_cpu():
     reset_counts(ops.lstm_seq, ops.lstm_decode)
     U4, xw, h0, c0 = _torch(_seq_inputs(
@@ -277,14 +342,86 @@ def test_cuda_lstm_seq_matches_plain(cuda, u_dtype, act_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [340, 1024, 50])
+@pytest.mark.parametrize("B", [1, 4, 5])
 @pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
-def test_cuda_lstm_decode_matches_plain(cuda, w_dtype):
-    args = [t.to(cuda) for _, t in _decode_inputs(5, 4, 340, w_dtype,
+def test_cuda_lstm_decode_matches_plain(cuda, H, B, w_dtype):
+    args = [t.to(cuda) for _, t in _decode_inputs(5, B, H, w_dtype,
                                                   "float32", seed=4)]
     ref = ops.lstm_decode_plain(*args)
     out = ops.lstm_decode(*args)
     for r, o in zip(ref, out):
         torch.testing.assert_close(o, r, rtol=0, atol=1e-4)
+
+
+def _cuda_decode_args(cuda, H, B=4, u_dtype=None, act_dtype="float32"):
+    args = [t.to(cuda) for _, t in _decode_inputs(3, B, H, "bfloat16",
+                                                  act_dtype, seed=H)]
+    if u_dtype:
+        args[3] = args[3].to(TDT[u_dtype])
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [340, 1024, 50])
+def test_cuda_lstm_decode_rows_are_batch_and_run_invariant(cuda, H):
+    """Each output is summed in an order set by (H, gates) alone: a row of
+    a B = 4 call equals its B = 1 call bit for bit, and two runs agree."""
+    args = _cuda_decode_args(cuda, H)
+    out = ops.lstm_decode(*args)
+    again = ops.lstm_decode(*args)
+    for r in range(4):
+        row = [args[0][r:r + 1], *args[1:4]] + [t[:, r:r + 1].contiguous()
+                                               for t in args[4:]]
+        for o, x in zip(out, ops.lstm_decode(*row)):
+            assert torch.equal(o[:, r], x[:, 0])
+    for o, x in zip(out, again):
+        assert torch.equal(o, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype,act_dtype", [
+    ("float32", "float32"), (None, "bfloat16")])
+def test_cuda_lstm_decode_operand_forms(cuda, u_dtype, act_dtype):
+    """fp32 U under bf16 W (the fake-quantized recurrent weights) and bf16
+    state, against the plain version."""
+    args = _cuda_decode_args(cuda, 340, B=5, u_dtype=u_dtype,
+                             act_dtype=act_dtype)
+    tol = 1e-4 if act_dtype == "float32" else BF16_TOL
+    for r, o in zip(ops.lstm_decode_plain(*args), ops.lstm_decode(*args)):
+        torch.testing.assert_close(o.float(), r.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_decode_graph_replay_equals_eager_and_one_launch(cuda):
+    """A call is one cluster launch, and a CUDA graph's replay of it is
+    the eager call bit for bit; the kernel's own split is decode_splits'."""
+    args = _cuda_decode_args(cuda, 340)
+    reset_counts(ops.lstm_decode)
+    eager = ops.lstm_decode(*args)
+    torch.cuda.synchronize()
+    assert ops.lstm_decode.kernel_launches == ops.lstm_decode.calls == 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.lstm_decode(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(replayed, eager):
+        assert torch.equal(a, b)
+    for H in (340, 1024, 50):
+        S, clusters = common.decode_clusters("lstm", 4, H)
+        assert S == ops.decode_splits(H, 4) and clusters > 0
+
+
+def test_launched_raises_the_error_it_is_given():
+    """A C entry point's nonzero return raises: a RuntimeError by default,
+    the decode kernels' refused configuration as KernelLaunchRefused,
+    which the guarded execution ladder re-raises."""
+    common.launched("k", 0, common.KernelLaunchRefused)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        common.launched("k", 1)
+    with pytest.raises(common.KernelLaunchRefused, match="cudaError 912"):
+        common.launched("k", 912, common.KernelLaunchRefused)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
