@@ -27,8 +27,13 @@ Phases, one line (or a few) of output each:
                and 1) beside the plain version and cuDNN (fp32 and bf16
                weights) in the same graphs; lstm_seq and
                gru_seq also with int8 U, with row-compacted U and with
-               both, at a BYSDNE int8 wavefront slot; rglru_scan at the
-               rglru phase's shape and at a ragged W = 513; mvm (one
+               both, at a BYSDNE int8 wavefront slot; rglru_scan (a CTA
+               per strip of 8-32 channels walking T in tiles) at the rglru
+               phase's shape, at ragged W = 33, 100, 513 and at T = 1 and
+               each strip width's tile edges, bit-equal run to run, across
+               B and between one call and T split over two calls, then
+               timed at B = 4 (eager) and at B = 1, T = 256, 1024, 2048
+               (CUDA graphs of repeated launches); mvm (one
                thread-block cluster per 64-column stripe, X split across
                its CTAs) at the RecurrentGemma-2B decode projections (bf16,
                B = 1..4) and at ragged shapes that reach the split's edges
@@ -113,7 +118,10 @@ Phases, one line (or a few) of output each:
                more replay at each batch size under torch.profiler, whose
                kernels, counted on the device by name, must equal the
                launches the replay counted, and whose device time over
-               the median span gives the device's busy share
+               the median span gives the device's busy share; with
+               --profile, also 8 batched ticks and the 64- and 2048-token
+               prefills under torch.profiler, each prefill's rglru_scan
+               device ms and launches (18, one a rglru layer)
  11 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
@@ -304,21 +312,21 @@ def device_events(fn):
     return wall_us, by_name, count
 
 
-def profile_breakdown(fn, label: str) -> None:
+def profile_breakdown(fn, label: str):
     """Run ``fn`` once more under torch.profiler and print the device's
     busy share of the wall time and its time by kernel (the run's
-    breakdown for PERF.md; ``--profile`` only)."""
+    breakdown for PERF.md; ``--profile`` only).  Returns the device time
+    and events by kernel name."""
     wall_us, by_name, count = device_events(fn)
     busy = sum(by_name.values())
     if not busy:
         print(f"{label}: profile: the profiler saw no device time")
-        return
+        return by_name, count
     top = "; ".join(f"{name[:48]} {us / 1e3:.2f} ms ({count[name]})"
                     for name, us in by_name.most_common(8))
     ours = []
-    for kernel, dev in DEVICE_NAMES.items():
-        ms = sum(us for n, us in by_name.items() if dev in n) / 1e3
-        k = sum(c for n, c in count.items() if dev in n)
+    for kernel in DEVICE_NAMES:
+        ms, k = device_share(by_name, count, kernel)
         ours.append(f"{kernel} {ms:.3f} ms ({k}"
                     + (f", {ms / k:.4f} ms each)" if k else ")"))
     print(f"{label}: profile: wall {wall_us / 1e3:.2f} ms, device busy "
@@ -326,6 +334,14 @@ def profile_breakdown(fn, label: str) -> None:
           f"{100 - 100 * busy / wall_us:.1f}%; {sum(count.values())} device "
           f"events; by kernel (events): {top}; the port's cluster and scan "
           f"kernels: {'; '.join(ours)}")
+    return by_name, count
+
+
+def device_share(by_name, count, kernel):
+    """(device ms, events) of the port's ``kernel`` in a profile."""
+    dev = DEVICE_NAMES[kernel]
+    return (sum(us for n, us in by_name.items() if dev in n) / 1e3,
+            sum(c for n, c in count.items() if dev in n))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -1037,43 +1053,131 @@ def _rglru_case(B, T, W, seed, dev):
     return [t.to(dev) for t in (log_a, gx, h0)]
 
 
+#: rglru_scan's bytes an element: log_a and gx read, hs written (fp32)
+RGLRU_BYTES = 12
+#: rglru_scan's fp32 operations an element (an fma counted as two): two of
+#: XLA's exps of 26 each (clamp 2, range reduction 5, polynomial 14, the
+#: final add, 2^n 2, product 1), 2 la, 1 - a2, max, sqrt, s g and the
+#: step's fma
+RGLRU_OPS = 59
+#: B = 1 (serve_lm's prefills) timed at these T, in a CUDA graph of
+#: RGLRU_GRAPH_LAUNCHES launches
+RGLRU_B1_T = (256, 1024, 2048)
+RGLRU_GRAPH_LAUNCHES = 20
+
+
+def _rglru_bound(B, T, W):
+    return bound(RGLRU_BYTES * B * T * W + 8 * B * W,
+                 RGLRU_OPS * B * T * W)
+
+
+def _rglru_same(a, b) -> bool:
+    """Every tensor of ``a`` bit-equal to its twin in ``b``."""
+    import torch
+
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
 def _kernels_rglru(ctx, dev):
-    """rglru_scan against its plain version at the rglru phase's shape and
-    at ragged widths, then timed at the rglru phase's shape."""
+    """rglru_scan against its plain version at the rglru phase's shape, at
+    ragged widths and at the edges of each strip width's tiles; bit for
+    bit run to run, across B (a row of a B = 4 call against the B = 1 call
+    on that row, which takes other strips) and between one call and the
+    same T split over two calls (the second from the first's h_T); then
+    timed at the rglru phase's shape (eager, as the phase runs it) and at
+    B = 1 at serve_lm's prefill buckets (CUDA graphs of repeated
+    launches)."""
     import torch
 
     from repro_torch.kernels.rglru import ops
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scan = ops.rglru_scan
     err_max = 0.0
-    for i, (B, T, W) in enumerate(((4, 2048, 2560), (1, 64, 513),
-                                   (3, 13, 100), (2, 1, 33))):
-        args = _rglru_case(B, T, W, seed=80 + i, dev=dev)
+
+    def held(args, label):
+        nonlocal err_max
         ref = ops.rglru_scan_plain(*args)
-        out = ops.rglru_scan(*args)
+        out = scan(*args)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         exact = bool(torch.equal(out[0][:, -1], out[1]))
-        print(f"kernels: rglru_scan B={B} T={T} W={W}: max_abs_err "
-              f"{err:.3e} (tol {TOL_FP32:g}); hs[:, -1] == h_T {exact}")
-        check(err <= TOL_FP32 and exact,
-              f"rglru_scan disagrees with its plain version: {err:.3e}")
+        again = _rglru_same(scan(*args), out)
+        B, T, W = args[0].shape
+        C, steps = ops.scan_tile(B, W, sms)
+        print(f"kernels: rglru_scan {label}B={B} T={T} W={W} (strips of "
+              f"{C}, tiles of {steps} steps): max_abs_err {err:.3e} (tol "
+              f"{TOL_FP32:g}); hs[:, -1] == h_T {exact}; bit-equal run to "
+              f"run {again}")
+        check(err <= TOL_FP32 and exact and again,
+              f"rglru_scan disagrees with its plain version or itself at "
+              f"B={B} T={T} W={W}: {err:.3e}")
         err_max = max(err_max, err)
+
+    cases = {}
+    for i, (B, T, W) in enumerate(((4, 2048, 2560), (1, 64, 513),
+                                   (3, 13, 100), (2, 1, 33))):
+        cases[(B, T, W)] = args = _rglru_case(B, T, W, seed=80 + i, dev=dev)
+        held(args, "")
+    # the tiles' edges: T = 1 and a tile's steps -1, 0, +1 for each strip
+    # width (B picks it at W = 2560), and the ragged widths
+    edges = []
+    for B in (4, 2, 1):
+        _, steps = ops.scan_tile(B, 2560, sms)
+        edges += [(B, T, 2560) for T in (1, steps - 1, steps, steps + 1)]
+    _, steps = ops.scan_tile(1, 513, sms)
+    edges += [(B, T, W) for B in (1, 4) for W in (33, 513)
+              for T in (1, steps - 1, steps + 1)]
+    for i, (B, T, W) in enumerate(edges):
+        held(_rglru_case(B, T, W, seed=100 + i, dev=dev), "edge ")
+
+    # across B: each row of the B = 4 call against the B = 1 call on it
+    la, gx, h0 = cases[(4, 2048, 2560)]
+    full = scan(la, gx, h0)
+    rows = all(_rglru_same(scan(la[b:b + 1], gx[b:b + 1], h0[b:b + 1]),
+                           (full[0][b:b + 1], full[1][b:b + 1]))
+               for b in range(4))
+    # one call against the same T split over two calls
+    split = []
+    for (B, T, W), cut in (((4, 2048, 2560), 1000), ((1, 64, 513), 37)):
+        la, gx, h0 = cases[(B, T, W)]
+        whole = scan(la, gx, h0)
+        hs1, h1 = scan(la[:, :cut].contiguous(), gx[:, :cut].contiguous(), h0)
+        hs2, h2 = scan(la[:, cut:].contiguous(), gx[:, cut:].contiguous(), h1)
+        split.append(_rglru_same((torch.cat([hs1, hs2], 1), h2), whole))
+    torch.cuda.synchronize()
+    print(f"kernels: rglru_scan bit for bit: rows of B=4 T=2048 W=2560 == "
+          f"the B=1 calls {rows}; one call == two calls split at T=1000 "
+          f"(B=4 T=2048 W=2560) {split[0]}, at T=37 (B=1 T=64 W=513) "
+          f"{split[1]}")
+    check(rows and all(split), "rglru_scan is not bit-equal across B or "
+                               "across a split of T")
 
     B, T, W = 4, 2048, 2560
     args = _rglru_case(B, T, W, seed=90, dev=dev)
-    k_ms = median_ms(lambda: ops.rglru_scan(*args), reps=20)
+    k_ms = median_ms(lambda: scan(*args), reps=20)
     p_ms = median_ms(lambda: ops.rglru_scan_plain(*args), reps=1, trials=3)
-    # read log_a, gx and h0, write hs and h_T; per element two exps, a
-    # sqrt and six adds, multiplies or maxima
-    nbytes = 4 * (3 * B * T * W + 2 * B * W)
-    b_ms, b_by = bound(nbytes, 9 * B * T * W)
+    b_ms, b_by = _rglru_bound(B, T, W)
+    nbytes = RGLRU_BYTES * B * T * W
+    print(f"kernels: rglru_scan at B={B} T={T} W={W} (eager): kernel "
+          f"{k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s, "
+          f"{k_ms / b_ms:.2f}x the bound), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); no single PyTorch call computes a gated "
+          f"linear recurrence")
     ctx["rglru_scan"] = dict(max_abs_err=err_max, ms=k_ms, plain_ms=p_ms,
                              library_ms=None, bound_ms=b_ms, bound_by=b_by,
                              shape=f"B={B} T={T} W={W} fp32")
-    print(f"kernels: rglru_scan at B={B} T={T} W={W}: kernel {k_ms:.4f} ms "
-          f"({nbytes / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by}); no single PyTorch call computes a "
-          f"gated linear recurrence")
+    n = RGLRU_GRAPH_LAUNCHES
+    for T in RGLRU_B1_T:
+        args = _rglru_case(1, T, W, seed=91, dev=dev)
+        ms = graph_ms(lambda: [scan(*args) for _ in range(n)]) / n
+        b_ms, b_by = _rglru_bound(1, T, W)
+        print(f"kernels: rglru_scan at B=1 T={T} W={W} (one CUDA graph of "
+              f"{n} launches): kernel {ms:.4f} ms a launch "
+              f"({RGLRU_BYTES * T * W / ms / 1e6:.1f} GB/s, "
+              f"{ms / b_ms:.2f}x the bound), bound {b_ms:.6f} ms ({b_by})")
+        if T == 2048:
+            ctx["rglru_scan"].update(b1_ms=ms, b1_bound_ms=b_ms)
 
 
 #: the decode step's projections of RecurrentGemma-2B (X, N): the MLP's
@@ -2299,8 +2403,14 @@ def phase_serve_lm(ctx):
                 tokens = torch.as_tensor(
                     _lm_prompts(cfg.vocab_size, (n,), 11)[0],
                     dtype=torch.long, device="cuda")[None]
-                profile_breakdown(lambda: eng._prefill(eng.params, tokens),
-                                  f"serve_lm prefill of {n} tokens")
+                prof = profile_breakdown(
+                    lambda: eng._prefill(eng.params, tokens),
+                    f"serve_lm prefill of {n} tokens")
+                ms, k = device_share(*prof, "rglru_scan")
+                print(f"serve_lm prefill of {n} tokens: rglru_scan {ms:.3f} "
+                      f"ms of device time in {k} launches")
+                check(k == n_rglru, f"serve_lm: the profiled prefill of {n} "
+                      f"tokens ran {k} rglru_scan kernels, not {n_rglru}")
         del eng
     del params
     torch.cuda.empty_cache()
@@ -2308,7 +2418,7 @@ def phase_serve_lm(ctx):
 
 #: a kernel's name on the device, as the profiler reports it
 DEVICE_NAMES = {"mvm": "mvm_kernel", "decode_attention": "attn_kernel",
-                "rglru_scan": "rglru::scan_kernel",
+                "rglru_scan": "rglru_scan_kernel",
                 "lstm_decode": "LstmCell", "gru_decode": "GruCell"}
 
 
@@ -2635,7 +2745,8 @@ def phase_summary(ctx):
             "max_abs_err": m.get("max_abs_err"), "ms": m.get("ms"),
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
-            **{k: m[k] for k in ("warm_ms", "condition") if k in m},
+            **{k: m[k] for k in ("warm_ms", "condition", "b1_ms",
+                                 "b1_bound_ms") if k in m},
         })
     ctx["kernels"] = rows
     print("kernels:")

@@ -22,6 +22,22 @@ from repro_torch.kernels.rglru.ref import rglru_scan_ref
 #: products and sums rounded on their own in fp32, as the kernel does.
 rglru_scan_plain = rglru_scan_ref
 
+#: csrc/rglru_scan.cu's tile: steps x channels of log_a (and of gx) that
+#: stream through its shared-memory ring together
+SCAN_TILE_ELEMS = 1024
+
+
+def scan_tile(B: int, W: int, sms: int = 132):
+    """(C, steps): the channels of one CTA's strip and the steps of one
+    tile that the kernel takes at (B, W) on a card with ``sms`` SMs —
+    its C side's rule (``by_strip``), mirrored here so that tests and
+    chip_smoke.py can aim at the tiles' edges: the widest of 32, 16, 8
+    that still gives at least two CTAs an SM.  No number depends on it."""
+    for C in (32, 16):
+        if B * -(-W // C) >= 2 * sms:
+            return C, SCAN_TILE_ELEMS // C
+    return 8, SCAN_TILE_ELEMS // 8
+
 
 def rglru_scan_cuda(log_a, gx, h0):
     """Launch ``csrc/rglru_scan.cu`` (T >= 1) on the current stream;
@@ -54,8 +70,9 @@ def rglru_scan(log_a, gx, h0, *, block_w: int = 0):
 
     log_a, gx (B, T, W) fp32; h0 (B, W) fp32 -> (hs (B, T, W), h_T (B, W)),
     fp32.  ``block_w`` is the TPU kernel's channel tile; it changes no
-    number, and this kernel, which gives every channel its own thread, has
-    no use for it: it is accepted and ignored."""
+    number, and this kernel, whose CTAs take strips of 8 to 32 channels
+    (``scan_tile``) and walk all of T in tiles, has no use for it: it is
+    accepted and ignored."""
     rglru_scan.calls += 1
     if block_w < 0:
         raise ValueError(f"rglru_scan: block_w={block_w} must be >= 0")
@@ -67,4 +84,4 @@ def rglru_scan(log_a, gx, h0, *, block_w: int = 0):
 
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_cuda",
-           "rglru_scan_ref"]
+           "rglru_scan_ref", "scan_tile", "SCAN_TILE_ELEMS"]

@@ -102,6 +102,47 @@ def test_last_output_is_the_final_state_exactly(B, T, W):
     assert torch.equal(hs[:, -1], h_T)
 
 
+@pytest.mark.parametrize("B,T,W,cut", [(2, 70, 40, 37), (1, 130, 33, 65),
+                                       (3, 9, 100, 1)])
+def test_scan_split_over_two_calls_is_one_call_bit_for_bit(B, T, W, cut):
+    """A scan of T split into two calls, the second started from the
+    first's h_T, equals one call bit for bit (a cut that is no multiple of
+    the kernel's tiles of 32, 64 or 128 steps): the property the CUDA
+    kernel keeps, shown on the plain version it is held against."""
+    la, gx, h0 = map(torch.from_numpy, _scan_inputs(B, T, W, seed=cut + T))
+    hs, h_T = ops.rglru_scan(la, gx, h0)
+    hs1, h1 = ops.rglru_scan(la[:, :cut], gx[:, :cut], h0)
+    hs2, h2 = ops.rglru_scan(la[:, cut:], gx[:, cut:], h1)
+    assert torch.equal(torch.cat([hs1, hs2], 1), hs)
+    assert torch.equal(h2, h_T)
+
+
+@pytest.mark.parametrize("B,T,W", [(4, 33, 40), (3, 20, 513)])
+def test_scan_rows_do_not_depend_on_the_batch(B, T, W):
+    """Each row of a batched scan equals the scan of that row alone, bit
+    for bit: the property the CUDA kernel keeps (its strips change with B),
+    shown on the plain version."""
+    la, gx, h0 = map(torch.from_numpy, _scan_inputs(B, T, W, seed=B * W))
+    hs, h_T = ops.rglru_scan(la, gx, h0)
+    for b in range(B):
+        one = ops.rglru_scan(la[b:b + 1], gx[b:b + 1], h0[b:b + 1])
+        assert torch.equal(one[0], hs[b:b + 1])
+        assert torch.equal(one[1], h_T[b:b + 1])
+
+
+def test_scan_tile_mirrors_the_kernels_strip_rule():
+    """scan_tile: the widest strip of 32, 16, 8 channels that still gives
+    two CTAs an SM, and a tile of SCAN_TILE_ELEMS elements."""
+    assert ops.scan_tile(4, 2560) == (32, 32)   # the rglru phase
+    assert ops.scan_tile(2, 2560) == (16, 64)
+    assert ops.scan_tile(1, 2560) == (8, 128)   # serve_lm's prefills
+    assert ops.scan_tile(4, 513) == (8, 128)
+    assert ops.scan_tile(1, 2560, sms=40) == (32, 32)
+    for B, W in ((1, 33), (4, 2560), (2, 2560)):
+        C, steps = ops.scan_tile(B, W)
+        assert C * steps == ops.SCAN_TILE_ELEMS
+
+
 def test_decay_contract():
     """With log_a = 0 (a = 1) the input contribution vanishes: h stays h0
     (exactly: 1 − exp(0) is 0, and so is its square root)."""
@@ -347,9 +388,16 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,W", [(4, 300, 2560), (1, 64, 513),
-                                   (3, 13, 100)])
+                                   (3, 13, 100), (4, 33, 2560),
+                                   (2, 63, 2560), (1, 129, 2560),
+                                   (4, 127, 513), (2, 1, 33)])
 def test_cuda_rglru_scan_matches_plain(cuda, B, T, W):
-    """The kernel computes the plain version's operations (1e-6)."""
+    """The kernel computes the plain version's operations (1e-6), one
+    launch a call, and keeps the plain version's properties bit for bit:
+    run to run, each row equal to that row's own (B = 1) call, and T split
+    over two calls (the second from the first's h_T) equal to one call.
+    The shapes reach the edges of the tiles of each strip width (32 steps
+    at B = 4, W = 2560; 64 at B = 2; 128 at B = 1 and at W = 513)."""
     args = [torch.from_numpy(a).to(cuda)
             for a in _scan_inputs(B, T, W, seed=13)]
     reset_counts(ops.rglru_scan)
@@ -360,3 +408,16 @@ def test_cuda_rglru_scan_matches_plain(cuda, B, T, W):
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, rtol=0, atol=TOL)
     assert torch.equal(out[0][:, -1], out[1])
+    for a, b in zip(ops.rglru_scan(*args), out):
+        assert torch.equal(a, b)
+    la, gx, h0 = args
+    for b in range(B):
+        one = ops.rglru_scan(la[b:b + 1], gx[b:b + 1], h0[b:b + 1])
+        assert torch.equal(one[0], out[0][b:b + 1])
+        assert torch.equal(one[1], out[1][b:b + 1])
+    if T > 1:
+        cut = T // 2 + 1
+        hs1, h1 = ops.rglru_scan(la[:, :cut], gx[:, :cut], h0)
+        hs2, h2 = ops.rglru_scan(la[:, cut:], gx[:, cut:], h1)
+        assert torch.equal(torch.cat([hs1, hs2], 1), out[0])
+        assert torch.equal(h2, out[1])
