@@ -26,8 +26,18 @@ Phases, one line (or a few) of output each:
                H = 1024's alternating between two stacks from HBM; B = 4
                and 1) beside the plain version and cuDNN (fp32 and bf16
                weights) in the same graphs; lstm_seq and
-               gru_seq also with int8 U, with row-compacted U and with
-               both, at a BYSDNE int8 wavefront slot; rglru_scan (a CTA
+               gru_seq (one cluster of up to 16 CTAs per recurrence and
+               group of 4 rows, U in shared memory) also with int8 U, with
+               row-compacted U and with both, at a BYSDNE int8 wavefront
+               slot, and at H = 1024 (fp32, bf16, int8 U: U streamed) and
+               2048, each case printing its S, rows a cluster, U resident
+               or streamed and the clusters the card holds; bit for bit
+               run to run, rows of B=4 against B=1 calls, G=5 against G=1,
+               packed rows against solo calls, a graph replay against the
+               eager call and a walk chunked 8+8+8+5 against one launch;
+               timed eager and in CUDA graphs of 20 launches (the
+               serving slot and each weight branch), and at
+               DeepBench's (1024, 25) slot beside cuDNN; rglru_scan (a CTA
                per strip of 8-32 channels walking T in tiles) at the rglru
                phase's shape, at ragged W = 33, 100, 513 and at T = 1 and
                each strip width's tile edges, bit-equal run to run, across
@@ -59,7 +69,8 @@ Phases, one line (or a few) of output each:
                no degraded launch; outputs held against a device="cpu"
                engine
   5 forward    rnn.compile(EESEN).forward (bidirectional, L=5, H=340,
-               fp32) at B=4, T=300; launches == plan.launches; output held
+               fp32) at B=4, T=300 (200 lstm_seq launches); launches ==
+               plan.launches; output held
                against the CPU path; then, outside the counted run, the
                guarded ladder on the card: an injected fused fault
                recovers through per-step kernel launches, one past
@@ -125,6 +136,10 @@ Phases, one line (or a few) of output each:
  11 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
+
+With --profile, the serve, forward, serve_gru and precision phases also
+print their lstm_seq / gru_seq device ms and check the profiled
+launches against the counted run's.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  The script imports nothing of JAX and nothing of the
@@ -337,11 +352,20 @@ def profile_breakdown(fn, label: str):
     return by_name, count
 
 
+def _profiled_launches(label, kernel, by_name, count, launches):
+    """A profiled rerun's ``kernel`` events on the device against the
+    launches the counted run made (the same plan)."""
+    ms, n = device_share(by_name, count, kernel)
+    print(f"{label}: profile: {kernel} {ms:.3f} ms of device in {n} "
+          f"launches (the counted run launched {launches})")
+    check(n == launches, f"{label}: the profiler saw {n} {kernel} kernels "
+                         f"for {launches} launches")
+
+
 def device_share(by_name, count, kernel):
     """(device ms, events) of the port's ``kernel`` in a profile."""
-    dev = DEVICE_NAMES[kernel]
-    return (sum(us for n, us in by_name.items() if dev in n) / 1e3,
-            sum(c for n, c in count.items() if dev in n))
+    return (sum(us for n, us in by_name.items() if is_kernel(kernel, n))
+            / 1e3, sum(c for n, c in count.items() if is_kernel(kernel, n)))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -479,7 +503,8 @@ def phase_kernels(ctx):
         err = max_err(out, ref)
         tol = TOL_FP32 if ad == f32 else TOL_BF16
         print(f"kernels: lstm_seq G={G} B={B} T={T} H={H} U={ud} act={ad} "
-              f"b_valid={b_valid}: max_abs_err {err:.3e} (tol {tol:g})")
+              f"b_valid={b_valid}: max_abs_err {err:.3e} (tol {tol:g}); "
+              f"{_seq_shape('lstm', B, H, U4)}")
         check(err <= tol, f"lstm_seq disagrees with its plain version: "
                           f"{err:.3e} > {tol:g}")
         if ad == f32:
@@ -515,17 +540,22 @@ def phase_kernels(ctx):
     flops = G * B * T * (8 * H * H + 4 * H + 10 * H)
     b_ms, b_by = bound(nbytes, flops)
     ctx["lstm_seq"] = dict(max_abs_err=seq_err, ms=k_ms, plain_ms=p_ms,
-                      library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                      shape=f"G={G} B={B} T={T} H={H} fp32")
+                           library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                           shape=f"G={G} B={B} T={T} H={H} fp32")
     print(f"kernels: lstm_seq at G={G} B={B} T={T} H={H} fp32: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.LSTM (cuDNN, "
-          f"bidirectional, input GEMM included) {l_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by})")
+          f"{k_ms:.4f} ms ({1e3 * k_ms / T:.2f} us a step), plain "
+          f"{p_ms:.4f} ms, nn.LSTM (cuDNN, bidirectional, input "
+          f"GEMM included) {l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; a "
+          f"chain of {T} steps, so latency, not bytes, is the floor)")
 
     _kernels_decode(ctx, dev, "lstm")
     _kernels_gru(ctx, dev)
     _kernels_cell(ctx, dev)
     _kernels_seq_variants(ctx, dev)
+    for family in ("lstm", "gru"):
+        _seq_bits(dev, family)
+        _seq_wide(ctx, dev, family)
+        _seq_times(ctx, dev, family)
     _kernels_rglru(ctx, dev)
     _kernels_mvm(ctx, dev)
     _kernels_decode_attention(ctx, dev)
@@ -561,7 +591,8 @@ def _kernels_gru(ctx, dev):
         err = max_err(out, ref)
         tol = TOL_FP32 if ad == f32 else TOL_BF16
         print(f"kernels: gru_seq G={G} B={B} T={T} H={H} U={ud} act={ad} "
-              f"b_valid={b_valid}: max_abs_err {err:.3e} (tol {tol:g})")
+              f"b_valid={b_valid}: max_abs_err {err:.3e} (tol {tol:g}); "
+              f"{_seq_shape('gru', B, H, U3)}")
         check(err <= tol, f"gru_seq disagrees with its plain version: "
                           f"{err:.3e} > {tol:g}")
         if ad == f32:
@@ -603,9 +634,10 @@ def _kernels_gru(ctx, dev):
                           shape=f"G={G} B={B} T={T} H={H} bf16 U, fp32 "
                                 f"xw/h")
     print(f"kernels: gru_seq at G={G} B={B} T={T} H={H} bf16 U: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, nn.GRU (cuDNN, fp32, "
-          f"bidirectional, input GEMM included) {l_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by})")
+          f"{k_ms:.4f} ms ({1e3 * k_ms / T:.2f} us a step), plain "
+          f"{p_ms:.4f} ms, nn.GRU (cuDNN, fp32, bidirectional, "
+          f"input GEMM included) {l_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}; a chain of {T} steps, so latency is the floor)")
 
     _kernels_decode(ctx, dev, "gru")
 
@@ -958,6 +990,209 @@ def _seq_bound(family, G, B, T, H, U, scales, rows, act_bytes=4):
     return bound(nbytes, flops)
 
 
+def _seq_family(family):
+    """(gates, entry point, plain version) of the ``family`` sequence
+    kernel."""
+    if family == "lstm":
+        from repro_torch.kernels.lstm_cell import ops
+        return 4, ops.lstm_seq, ops.lstm_seq_plain
+    from repro_torch.kernels.gru_cell import ops
+    return 3, ops.gru_seq, ops.gru_seq_plain
+
+
+def _seq_shape(family, B, H, U) -> str:
+    """What the C side takes for a ``family`` sequence launch at (B, H,
+    U's rows and type): S, rows a cluster, U resident or streamed, shared
+    memory a CTA and clusters the card holds at once (at least one); S and
+    the shared memory held against kernels.common.seq_splits / seq_smem."""
+    from repro_torch.kernels.common import seq_shape, seq_smem, seq_splits
+
+    gates = 4 if family == "lstm" else 3
+    args = (H, gates, U.element_size(), U.shape[1])
+    sh = seq_shape(family, B, H, U.shape[1], U.dtype)
+    check((sh["S"], sh["smem"]) == (seq_splits(*args), seq_smem(*args))
+          and sh["clusters"] >= 1,
+          f"{family}_seq H={H} B={B}: the kernel's launch {sh} is not "
+          f"seq_splits' / seq_smem's, or the card holds none of its "
+          f"clusters")
+    where = ("resident" if not sh["ring"] else
+             f"streamed through a {sh['ring']} B ring")
+    return (f"S={sh['S']} R={sh['R']}, U {where}, {sh['smem']} B shared a "
+            f"CTA, {sh['clusters']} clusters at once")
+
+
+def _graph_ms_each(fn, n=20) -> float:
+    """ms a call of ``fn`` in one CUDA graph of ``n`` calls, so that
+    launch latency does not hide the kernel."""
+    return graph_ms(lambda: [fn() for _ in range(n)]) / n
+
+
+#: the bit-for-bit checks' cases: (H, U dtype, weight branch), each at
+#: G = 5, B = 4, T = 29 with fp32 activations
+SEQ_BIT_CASES = ((340, "float32", "dense"), (340, "bfloat16", "dense"),
+                 (340, "float32", "int8+compact"), (1024, "float32", "dense"),
+                 (1024, "bfloat16", "dense"), (50, "float32", "dense"))
+
+
+def _seq_bits(dev, family):
+    """The sequence kernel's fixed sum order, bit for bit at each
+    SEQ_BIT_CASES case: two runs; each row of a B=4 call against its B=1
+    call; each recurrence of a G=5 call against its G=1 call; a packed
+    call (b_valid) whose valid rows equal the full call's and whose masked
+    rows keep h0 (and c0); a CUDA graph's replay against the eager call;
+    and the walk chunked 8+8+8+5 through h_T (and c_T) against one launch
+    over T=29."""
+    import torch
+
+    gates, seq, _ = _seq_family(family)
+    name = f"{family}_seq"
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    G, B, T = 5, 4, 29
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for i, (H, ud, variant) in enumerate(SEQ_BIT_CASES):
+        U, xw, h0, c0 = _seq_case(G, B, T, H, dts[ud], torch.float32,
+                                  seed=500 + i, dev=dev, gates=gates)
+        sc = rows = None
+        if variant != "dense":
+            U, sc, rows = _weight_branch(U, variant, first_layer=0)
+        st = [h0, c0] if family == "lstm" else [h0]
+
+        def run(u, x, state, **kw):
+            return seq(u, x, *state, u_scales=kw.pop("sc", sc),
+                       u_rows=kw.pop("rows", rows), **kw)
+
+        full = run(U, xw, st)
+        ok = {"run to run": same(full, run(U, xw, st))}
+        ok["rows of B=4 == B=1 calls"] = all(
+            same([o[:, b:b + 1] for o in full],
+                 run(U, xw[:, b:b + 1], [t[:, b:b + 1] for t in st]))
+            for b in range(B))
+        ok["G=5 == G=1 calls"] = all(
+            same([o[g:g + 1] for o in full],
+                 run(U[g:g + 1], xw[g:g + 1], [t[g:g + 1] for t in st],
+                     sc=None if sc is None else sc[g:g + 1],
+                     rows=None if rows is None else rows[g:g + 1]))
+            for g in range(G))
+        b_valid = [4, 3, 2, 1, 4]
+        packed = run(U, xw, st, b_valid=b_valid)
+        ok["packed rows == solo"] = all(
+            torch.equal(p[g, :n], f[g, :n])
+            for p, f in zip(packed, full) for g, n in enumerate(b_valid))
+        ok["masked rows keep the state"] = all(
+            torch.equal(packed[0][g, b], h0[g, b][None].expand(T, H))
+            and all(torch.equal(p[g, b], s[g, b])
+                    for p, s in zip(packed[1:], st))
+            for g, n in enumerate(b_valid) for b in range(n, B))
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            replayed = run(U, xw, st)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok["graph replay == eager"] = same(replayed, full)
+        del graph
+        outs, state = [], st
+        for t0 in range(0, T, 8):
+            o, *state = run(U, xw[:, :, t0:t0 + 8], state, block_t=8)
+            outs.append(o)
+        ok["8+8+8+5 == one launch"] = same([torch.cat(outs, 2)] + state,
+                                           full)
+        torch.cuda.synchronize()
+        print(f"kernels: {name} bits at G={G} B={B} T={T} H={H} U={ud} "
+              f"{variant}: " + "; ".join(f"{k} {v}" for k, v in ok.items())
+              + f" ({_seq_shape(family, B, H, U)})")
+        check(all(ok.values()), f"{name} H={H} U={ud} {variant}: not bit "
+                                f"for bit: {ok}")
+
+
+#: the sequence kernels' widest cases, held against the plain version:
+#: (G, B, T, H, U dtype, weight branch) -- DeepBench's (1024, 25) slot of
+#: the paper's sweep in three U types, its widest H, and a launch of 10
+#: clusters at H = 340, more than the card holds at once (waves)
+SEQ_WIDE = ((1, 4, 25, 1024, "float32", "dense"),
+            (1, 4, 25, 1024, "bfloat16", "dense"),
+            (1, 4, 25, 1024, "float32", "int8"),
+            (1, 4, 8, 2048, "bfloat16", "dense"),
+            (5, 8, 8, 340, "float32", "dense"))
+
+
+def _seq_wide(ctx, dev, family):
+    """SEQ_WIDE against the plain version (fp32 activations, TOL_FP32);
+    the errors join their summary rows' max_abs_err."""
+    import torch
+
+    gates, seq, plain = _seq_family(family)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for i, (G, B, T, H, ud, variant) in enumerate(SEQ_WIDE):
+        U, xw, h0, c0 = _seq_case(G, B, T, H, dts[ud], torch.float32,
+                                  seed=520 + i, dev=dev, gates=gates)
+        sc = rows = None
+        if variant != "dense":
+            U, sc, rows = _weight_branch(U, variant, first_layer=0)
+        st = (h0, c0) if family == "lstm" else (h0,)
+        ref = plain(U, xw, *st, None, sc, rows)
+        out = seq(U, xw, *st, u_scales=sc, u_rows=rows)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        key = row_name(f"{family}_seq", variant)
+        print(f"kernels: {key} G={G} B={B} T={T} H={H} U={U.dtype}: "
+              f"max_abs_err {err:.3e} (tol {TOL_FP32:g}); "
+              f"{_seq_shape(family, B, H, U)}, {G * -(-B // 4)} clusters "
+              f"a launch")
+        check(err <= TOL_FP32, f"{key} H={H} disagrees with its plain "
+                               f"version: {err:.3e}")
+        ctx[key]["max_abs_err"] = max(ctx[key]["max_abs_err"], err)
+
+
+def _seq_times(ctx, dev, family):
+    """The sequence kernel timed at DeepBench's (1024, 25) slot (G=1, B=4,
+    T=25, fp32 and bf16 U: U streamed from L2 each step), beside the
+    plain version and cuDNN's nn.LSTM /
+    nn.GRU (fp32, one layer, input GEMM included); and at the serving slot
+    (G=2 B=4 T=8 H=340) in a CUDA graph of 20 launches, so that launch
+    latency does not hide the kernel."""
+    import torch
+
+    gates, seq, plain = _seq_family(family)
+    name = f"{family}_seq"
+    times = ctx.setdefault(f"{name}_times", {})
+    rnn = torch.nn.LSTM if family == "lstm" else torch.nn.GRU
+    for ud in (torch.float32, torch.bfloat16):
+        G, B, T, H = 1, 4, 25, 1024
+        U, xw, h0, c0 = _seq_case(G, B, T, H, ud, torch.float32, seed=540,
+                                  dev=dev, gates=gates)
+        st = (h0, c0) if family == "lstm" else (h0,)
+        k_ms = median_ms(lambda: seq(U, xw, *st), reps=5)
+        p_ms = median_ms(lambda: plain(U, xw, *st), reps=2, trials=3)
+        mod = rnn(H, H, batch_first=True).to(dev)
+        x = torch.randn((B, T, H), device=dev)
+        with torch.no_grad():
+            l_ms = median_ms(lambda: mod(x), reps=5)
+        b_ms, b_by = _seq_bound(family, G, B, T, H, U, None, None)
+        times[f"G{G} B{B} T{T} H{H} {ud}"] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+            bound_by=b_by)
+        print(f"kernels: {name} at G={G} B={B} T={T} H={H} U={ud}: kernel "
+              f"{k_ms:.4f} ms ({1e3 * k_ms / T:.2f} us a step), plain "
+              f"{p_ms:.4f}, {rnn.__name__} (cuDNN, fp32, "
+              f"input GEMM included) {l_ms:.4f}, bound {b_ms:.6f} ({b_by})")
+        del U, xw, mod
+    G, B, T, H = 2, 4, 8, 340
+    ud = torch.float32 if family == "lstm" else torch.bfloat16
+    U, xw, h0, c0 = _seq_case(G, B, T, H, ud, torch.float32, seed=541,
+                              dev=dev, gates=gates)
+    st = (h0, c0) if family == "lstm" else (h0,)
+    g_ms = _graph_ms_each(lambda: seq(U, xw, *st))
+    times[f"G{G} B{B} T{T} H{H} {ud}, graph of 20"] = dict(ms=g_ms)
+    ctx[name]["graph_ms"] = g_ms
+    print(f"kernels: {name} at G={G} B={B} T={T} H={H} U={ud} in a CUDA "
+          f"graph of 20 launches: kernel {g_ms:.4f} ms a launch "
+          f"({1e3 * g_ms / T:.2f} us a step)")
+
+
 def _kernels_seq_variants(ctx, dev):
     """lstm_seq and gru_seq with int8 U, with row-compacted U and with
     both, against their plain versions on the same operands, then timed at
@@ -996,7 +1231,8 @@ def _kernels_seq_variants(ctx, dev):
                 tol = TOL_FP32 if ad == f32 else TOL_BF16
                 print(f"kernels: {family}_seq[{variant}] G={G} B={B} T={T} "
                       f"H={H} Hr={U.shape[1]} act={ad} b_valid={b_valid}: "
-                      f"max_abs_err {err:.3e} (tol {tol:g})")
+                      f"max_abs_err {err:.3e} (tol {tol:g}); "
+                      f"{_seq_shape(family, B, H, U)}")
                 check(err <= tol, f"{family}_seq[{variant}] disagrees with "
                                   f"its plain version: {err:.3e} > {tol:g}")
                 if ad == f32:
@@ -1026,20 +1262,25 @@ def _kernels_seq_variants(ctx, dev):
                                       dev=dev, gates=gates)
             U, sc, rows = _weight_branch(U, variant, first_layer=1)
             st = (h0, c0) if family == "lstm" else (h0,)
-            k_ms = median_ms(lambda: seq(U, xw, *st, u_scales=sc,
-                                         u_rows=rows), reps=20)
+            def call():
+                return seq(U, xw, *st, u_scales=sc, u_rows=rows)
+
+            k_ms = median_ms(call, reps=20)
+            g_ms = _graph_ms_each(call)
             p_ms = median_ms(lambda: plain(U, xw, *st, None, sc, rows),
                              reps=20)
             b_ms, b_by = _seq_bound(family, G, B, T, H, U, sc, rows)
             key = row_name(f"{family}_seq", variant)
             ctx[key] = dict(max_abs_err=err_max, ms=k_ms, plain_ms=p_ms,
                             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                            graph_ms=g_ms,
                             shape=f"G={G} B={B} T={T} H={H} Hr={U.shape[1]} "
                                   f"{U.dtype} U, fp32 xw/h")
             print(f"kernels: {key} at G={G} B={B} T={T} H={H} "
-                  f"Hr={U.shape[1]} U={U.dtype}: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no "
-                  f"library call takes this weight form")
+                  f"Hr={U.shape[1]} U={U.dtype}: kernel {k_ms:.4f} ms "
+                  f"eager, {g_ms:.4f} ms a launch in a CUDA graph of 20 "
+                  f"({1e3 * g_ms / T:.2f} us a step), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
+                  f"no library call takes this weight form")
 
 
 def _rglru_case(B, T, W, seed, dev):
@@ -1613,8 +1854,9 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
           f"{len(REQUESTS)} requests ({frames_out} prompt + generated "
           f"frames, {eng2.packed_launches + eng2.decode_launches} launches)")
     if ctx["profile"]:
-        profile_breakdown(lambda: _serve("cuda", params, frames, family),
-                          label)
+        by_name, count = profile_breakdown(
+            lambda: _serve("cuda", params, frames, family), label)
+        _profiled_launches(label, seq_k.__name__, by_name, count, seq_n)
 
 
 def phase_serve(ctx):
@@ -1672,7 +1914,8 @@ def phase_forward(ctx):
     print(f"forward: warm rerun {ctx['forward_s'] * 1e3:.1f} ms wall "
           f"({p} launches)")
     if ctx["profile"]:
-        profile_breakdown(lambda: cs.forward(xs), "forward")
+        by_name, count = profile_breakdown(lambda: cs.forward(xs), "forward")
+        _profiled_launches("forward", "lstm_seq", by_name, count, p)
 
 
 def _check_ladder_on_card(cfg, xs, healthy):
@@ -2066,7 +2309,10 @@ def phase_precision(ctx):
           f"{ctx['precision_s'] * 1e3:.1f} ms wall ({cs.plan.launches} "
           f"launches)")
     if ctx["profile"]:
-        profile_breakdown(lambda: cs.forward(xs), "precision")
+        by_name, count = profile_breakdown(lambda: cs.forward(xs),
+                                           "precision")
+        _profiled_launches("precision", "lstm_seq", by_name, count,
+                           cs.plan.launches)
         # a decode tick resumed from the prefill state: the dense decode
         # kernel on the fake-quantized U (fp32 U under bf16 W)
         ys, st = cs.prefill(xs)
@@ -2416,10 +2662,19 @@ def phase_serve_lm(ctx):
     torch.cuda.empty_cache()
 
 
-#: a kernel's name on the device, as the profiler reports it
-DEVICE_NAMES = {"mvm": "mvm_kernel", "decode_attention": "attn_kernel",
-                "rglru_scan": "rglru_scan_kernel",
-                "lstm_decode": "LstmCell", "gru_decode": "GruCell"}
+#: a kernel's name on the device, as the profiler reports it: every part
+#: appears in it (the decode and sequence kernels share their cells)
+DEVICE_NAMES = {"mvm": ("mvm_kernel",), "decode_attention": ("attn_kernel",),
+                "rglru_scan": ("rglru_scan_kernel",),
+                "lstm_decode": ("cluster_kernel", "LstmCell"),
+                "gru_decode": ("cluster_kernel", "GruCell"),
+                "lstm_seq": ("seq_kernel", "LstmCell"),
+                "gru_seq": ("seq_kernel", "GruCell")}
+
+
+def is_kernel(kernel: str, name: str) -> bool:
+    """Whether the device kernel ``name`` is the port's ``kernel``."""
+    return all(part in name for part in DEVICE_NAMES[kernel])
 
 
 def _profiled_replay(graph, B, lm, per_step):
@@ -2452,13 +2707,13 @@ def _profiled_replay(graph, B, lm, per_step):
     span_us = start.elapsed_time(end) * 1e3
     on_device = tuple(
         sum(n for name, n in count.items()
-            if DEVICE_NAMES[fn.__name__] in name) for fn in lm)
+            if is_kernel(fn.__name__, name)) for fn in lm)
     booked = tuple(fn.kernel_launches for fn in lm)
     captured = tuple(graph.captured.get(fn, (0, 0))[1] for fn in lm)
     busy = sum(by_name.values()) / 1e3
     kernel_ms = tuple(
         sum(us for name, us in by_name.items()
-            if DEVICE_NAMES[fn.__name__] in name) / 1e3 for fn in lm)
+            if is_kernel(fn.__name__, name)) / 1e3 for fn in lm)
     print(f"serve_lm: one replay at B={B} under the profiler: device events "
           f"{sum(count.values())}, by kernel (mvm, decode_attention, "
           f"rglru_scan) on the device {on_device}, counted by the replay "
@@ -2746,7 +3001,8 @@ def phase_summary(ctx):
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
             **{k: m[k] for k in ("warm_ms", "condition", "b1_ms",
-                                 "b1_bound_ms") if k in m},
+                                 "b1_bound_ms", "graph_ms")
+               if k in m},
         })
     ctx["kernels"] = rows
     print("kernels:")

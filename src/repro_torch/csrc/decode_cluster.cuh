@@ -1,9 +1,11 @@
 // The cluster design shared by the two decode kernels (lstm_decode.cu,
 // gru_decode.cu): one T=1 tick through all L layers of a recurrent stack
 // in ONE launch, with each layer's hidden units spread over the S CTAs of
-// a thread-block cluster.  A kernel file supplies its cell (the gate
-// count G and the update of one hidden unit from its G input halves and
-// its G recurrent products) and instantiates `cluster_kernel` with it.
+// a thread-block cluster.  A kernel file instantiates `cluster_kernel`
+// with its cell (rnn_common.cuh's LstmCell or GruCell: the gate count G
+// and the update of one hidden unit from its G input halves and its G
+// recurrent products).  The split and the copy and barrier helpers are
+// cluster.cuh's, shared with the sequence kernels.
 //
 // Shape of a launch.  The grid is S x B: one cluster of S CTAs
 // (cudaLaunchKernelEx, cluster dimension S along x) per batch row, every
@@ -66,6 +68,7 @@
 
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "rnn_common.cuh"
 
 namespace decode {
@@ -74,70 +77,14 @@ namespace decode {
 namespace {
 
 namespace cg = cooperative_groups;
+using namespace cluster;
 using namespace rnn;
 
 constexpr int kCtaThreads = 512;
-constexpr int kMaxSplits = 16;
-constexpr int kSliceCols = 64;
-constexpr int kMaxH = 2048;
 // a thread's ring of weight loads, over the CTA's 512 threads
 constexpr int kRingBytes = 64 * 1024;
-// the H100's shared memory a block may opt in to
-constexpr int kMaxSmem = 232448;
 // h0[l + 1], one value a thread per 512 units, held in registers
 constexpr int kHeldH = kMaxH / kCtaThreads;
-
-// Slices start on multiples of this many hidden units.
-__host__ __device__ inline int unit_align(int H) {
-  return H % 8 == 0 ? 8 : (H % 4 == 0 ? 4 : 1);
-}
-
-// S, the CTAs of one cluster, from (H, G) alone: the fewest (a power of
-// two, at most 16 and at most the H / unit_align(H) aligned unit groups)
-// whose widest slice holds at most kSliceCols gate columns.
-__host__ __device__ inline int splits(int H, int G) {
-  const int A = unit_align(H), groups = H / A;
-  const int cap = groups < kMaxSplits ? groups : kMaxSplits;
-  int S = 1;
-  while (2 * S <= cap && G * ((groups + S - 1) / S) * A > kSliceCols) S *= 2;
-  return S;
-}
-
-struct Slice {
-  int u0, nu;
-};
-
-// CTA `rank` of S: the aligned unit groups [rank * n / S, (rank+1) * n / S)
-__host__ __device__ inline Slice slice(int H, int S, int rank) {
-  const int A = unit_align(H), n = H / A;
-  const int lo = rank * n / S, hi = (rank + 1) * n / S;
-  return Slice{lo * A, (hi - lo) * A};
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(unsigned dst, const void* gmem) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(gmem));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-                 "l"(gmem), "n"(BYTES));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The cluster barrier, split: arrive (release) and wait (acquire).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
 
 // V adjacent weights of type T from a ring slot, as fp32.
 template <typename T, int V>
@@ -164,11 +111,6 @@ __device__ __forceinline__ void unpack(const unsigned char* slot,
       w[i] = __uint_as_float(words[i]);
     }
   }
-}
-
-__device__ __forceinline__ float load_f32(const void* p, size_t i, int bf) {
-  return bf ? __bfloat162float(static_cast<const bf16*>(p)[i])
-            : static_cast<const float*>(p)[i];
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -489,22 +431,12 @@ struct Inst {
   }
 };
 
-struct Config {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-};
-
 // The grid, cluster and shared memory of a launch; the instance's opt-ins
 // (shared memory past 48 KB, a cluster of 16) once per instance.
 template <class I>
 cudaError_t configure(Config& c, const Args& a, int* splits_out) {
-  static const cudaError_t opt_in = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        I::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    return e != cudaSuccess ? e : cudaFuncSetAttribute(
-        I::kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }();
-  if (opt_in != cudaSuccess) return opt_in;
+  static const cudaError_t opted = opt_in(I::kernel());
+  if (opted != cudaSuccess) return opted;
   const int G = I::Cell::G;
   const int S = splits(a.H, G);
   const int A = unit_align(a.H), n = a.H / A;
@@ -513,17 +445,7 @@ cudaError_t configure(Config& c, const Args& a, int* splits_out) {
   if (G * nu_max > kCtaThreads || smem > (size_t)kMaxSmem)
     return cudaErrorInvalidValue;
   if (splits_out) *splits_out = S;
-  c.cfg = cudaLaunchConfig_t{};
-  c.cfg.gridDim = dim3(S, a.B);
-  c.cfg.blockDim = dim3(kCtaThreads);
-  c.cfg.dynamicSmemBytes = smem;
-  c.cfg.stream = a.stream;
-  c.attr.id = cudaLaunchAttributeClusterDimension;
-  c.attr.val.clusterDim.x = S;
-  c.attr.val.clusterDim.y = 1;
-  c.attr.val.clusterDim.z = 1;
-  c.cfg.attrs = &c.attr;
-  c.cfg.numAttrs = 1;
+  c.set(dim3(S, a.B), kCtaThreads, smem, a.stream, S);
   return cudaSuccess;
 }
 

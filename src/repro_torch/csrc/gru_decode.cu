@@ -32,23 +32,6 @@
 
 #include "decode_cluster.cuh"
 
-namespace gru {
-
-struct GruCell {
-  static constexpr int G = 3;
-  static constexpr bool kHasC = false;
-  // gate order z, r, n; returns h (fp32)
-  __device__ static float update(const float (&xw)[3], const float (&hu)[3],
-                                 float h_prev, float, float&) {
-    const float z = rnn::sigmoid(xw[0] + hu[0]);
-    const float rg = rnn::sigmoid(xw[1] + hu[1]);
-    const float n = tanhf(xw[2] + rg * hu[2]);
-    return (1.f - z) * n + z * h_prev;
-  }
-};
-
-}  // namespace gru
-
 // Plain C entry points (bound with ctypes).  Layouts, all contiguous:
 // xw0 (B, 3, H); Ws (L, H, 3, H) and bs (L, 3, H) in one dtype; Us
 // (L, H, 3, H) in Ws's dtype or, under bf16 Ws, fp32; h0 (L, B, H);
@@ -64,12 +47,12 @@ extern "C" int gru_decode_launch(const void* xw0, const void* Ws,
   const decode::Args a{xw0, Ws, bs, Us, h0, nullptr, hn, nullptr, L, B, H,
                        w_bf16, u_bf16, xw_bf16, h_bf16,
                        static_cast<cudaStream_t>(stream)};
-  return decode::launch<gru::GruCell>(a);
+  return decode::launch<rnn::GruCell>(a);
 }
 
 // The cluster size and occupancy query (decode::occupancy).
 extern "C" int gru_decode_clusters(int B, int H, int w_bf16, int u_bf16,
                                    int* splits, int* clusters) {
-  return decode::occupancy<gru::GruCell>(B, H, w_bf16, u_bf16, splits,
+  return decode::occupancy<rnn::GruCell>(B, H, w_bf16, u_bf16, splits,
                                          clusters);
 }

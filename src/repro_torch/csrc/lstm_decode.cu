@@ -57,25 +57,6 @@
 
 #include "decode_cluster.cuh"
 
-namespace lstm {
-
-struct LstmCell {
-  static constexpr int G = 4;
-  static constexpr bool kHasC = true;
-  // gate order i, f, g, o; returns h (fp32), c through `c`
-  __device__ static float update(const float (&xw)[4], const float (&hu)[4],
-                                 float, float c_prev, float& c) {
-    const float i_g = rnn::sigmoid(xw[0] + hu[0]);
-    const float f_g = rnn::sigmoid(xw[1] + hu[1]);
-    const float g_g = tanhf(xw[2] + hu[2]);
-    const float o_g = rnn::sigmoid(xw[3] + hu[3]);
-    c = f_g * c_prev + i_g * g_g;
-    return o_g * tanhf(c);
-  }
-};
-
-}  // namespace lstm
-
 // Plain C entry points (bound with ctypes).  Layouts, all contiguous:
 // xw0 (B, 4, H); Ws (L, H, 4, H) and bs (L, 4, H) in one dtype; Us
 // (L, H, 4, H) in Ws's dtype or, under bf16 Ws, fp32; h0 (L, B, H); c0
@@ -92,12 +73,12 @@ extern "C" int lstm_decode_launch(const void* xw0, const void* Ws,
   const decode::Args a{xw0, Ws, bs, Us, h0, c0, hn, cn, L, B, H, w_bf16,
                        u_bf16, xw_bf16, h_bf16,
                        static_cast<cudaStream_t>(stream)};
-  return decode::launch<lstm::LstmCell>(a);
+  return decode::launch<rnn::LstmCell>(a);
 }
 
 // The cluster size and occupancy query (decode::occupancy).
 extern "C" int lstm_decode_clusters(int B, int H, int w_bf16, int u_bf16,
                                     int* splits, int* clusters) {
-  return decode::occupancy<lstm::LstmCell>(B, H, w_bf16, u_bf16, splits,
+  return decode::occupancy<rnn::LstmCell>(B, H, w_bf16, u_bf16, splits,
                                            clusters);
 }

@@ -1,7 +1,7 @@
 // Helpers shared by the kernels (lstm_seq, lstm_decode, lstm_cell,
 // gru_seq, gru_decode, mvm_tile, decode_attention): dtype conversion (fp32,
 // bf16, and the int8 recurrent weights of the sequence kernels), vector
-// loads, the gate activations, and the launch shape.
+// loads, the gate activations and the two cells, and the launch shape.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,12 +11,6 @@
 namespace rnn {
 
 typedef __nv_bfloat16 bf16;
-
-// Threads per block of the sequence kernels.  Phase 1 of a step
-// gives each thread one vector of adjacent gate columns, so up to 4H <= 2048
-// (LSTM) or 3H <= 2048 (GRU) every vector has its own thread; phase 2 walks
-// the rows x H cells.
-constexpr int kThreads = 512;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -88,53 +82,37 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// The recurrent product of the sequence kernels, for one thread's VEC
-// adjacent columns u[0 .. VEC) of every U row and the block's RB batch
-// rows: acc[r][e] += h[r][k] * U[k][e] over the Hr rows of U, in fp32.
-// Dense U (SPARSE = false) has Hr = H rows and row k reads h[k];
-// row-compacted U (SPARSE = true) has Hr = Ha rows and row k reads
-// h[rows_s[k]], the h gather of the reference's block-sparse branch.
-// Padding rows are zero U rows with index 0, so they add exactly 0.0.
-template <bool SPARSE, int RB, int VEC, typename UT>
-__device__ __forceinline__ void recurrent_dot(const UT* __restrict__ u,
-                                              size_t ld,
-                                              const float* __restrict__ h_s,
-                                              const int* __restrict__ rows_s,
-                                              int Hr, int H,
-                                              float (&acc)[RB][VEC]) {
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < Hr; ++k) {
-    float uk[VEC];
-    loadv<VEC>(u + (size_t)k * ld, uk);
-    const int hk_idx = SPARSE ? rows_s[k] : k;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const float hk = h_s[r * H + hk_idx];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(hk, uk[e], acc[r][e]);
-    }
+// The cell updates of the cluster kernels (decode_cluster.cuh,
+// seq_cluster.cuh): one hidden unit from its G input halves xw and its G
+// recurrent products hu, both fp32.
+struct LstmCell {
+  static constexpr int G = 4;
+  static constexpr bool kHasC = true;
+  // gate order i, f, g, o; returns h (fp32), c through `c`
+  __device__ static float update(const float (&xw)[4], const float (&hu)[4],
+                                 float, float c_prev, float& c) {
+    const float i_g = sigmoid(xw[0] + hu[0]);
+    const float f_g = sigmoid(xw[1] + hu[1]);
+    const float g_g = tanhf(xw[2] + hu[2]);
+    const float o_g = sigmoid(xw[3] + hu[3]);
+    c = f_g * c_prev + i_g * g_g;
+    return o_g * tanhf(c);
   }
-}
+};
 
-// The int8 branch's per-gate scale on the fp32 accumulate, after the dot
-// and before anything else touches it (__fmul_rn: a rounded product, never
-// contracted into the following add, as the reference computes it).
-// scales_g is the cell's (gates,) row; column c belongs to gate c / H.
-template <int RB, int VEC>
-__device__ __forceinline__ void scale_acc(const float* __restrict__ scales_g,
-                                          int col, int H,
-                                          float (&acc)[RB][VEC]) {
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    const float s = scales_g[(col + e) / H];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r][e] = __fmul_rn(acc[r][e], s);
+struct GruCell {
+  static constexpr int G = 3;
+  static constexpr bool kHasC = false;
+  // gate order z, r, n; the reset gate scales the n gate's recurrent
+  // product only; returns h (fp32)
+  __device__ static float update(const float (&xw)[3], const float (&hu)[3],
+                                 float h_prev, float, float&) {
+    const float z = sigmoid(xw[0] + hu[0]);
+    const float rg = sigmoid(xw[1] + hu[1]);
+    const float n = tanhf(xw[2] + rg * hu[2]);
+    return (1.f - z) * n + z * h_prev;
   }
-}
+};
 
 // Rows of the batch one block owns: 4 when there are at least 3 rows,
 // else the row count itself, so a single-row launch does no dead FMAs.

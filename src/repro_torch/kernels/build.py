@@ -6,7 +6,7 @@ Each kernel is one ``.cu`` file with a plain C entry point, compiled by
 ``kernel.py`` registers its kernels here (``register``); ``build()`` with
 no names builds every family's.  Builds happen at first use, never at
 import, into ``build/repro_torch_kernels/`` at the root of the checkout;
-a library's file name carries a hash of its source, the shared header and
+a library's file name carries a hash of its source, the shared headers and
 the flags, so an edited source rebuilds and a checkout builds from its own
 sources only.  A failed build raises ``KernelBuildError`` with nvcc's
 stderr.
@@ -38,7 +38,8 @@ I = ctypes.c_int
 #: kernel -> (C entry point, its argtypes): every pointer and the stream
 #: are c_void_p, every size or flag c_int (see the .cu files' signatures)
 KERNELS: Dict[str, Tuple[str, List]] = {}
-_HEADERS = ("rnn_common.cuh", "decode_cluster.cuh")
+_HEADERS = ("rnn_common.cuh", "cluster.cuh", "decode_cluster.cuh",
+            "seq_cluster.cuh")
 #: the modules whose import registers their family's kernels
 FAMILIES = ("repro_torch.kernels.lstm_cell.kernel",
             "repro_torch.kernels.gru_cell.kernel",
@@ -73,7 +74,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``name``'s shared library lives: keyed on a hash of its
-    source, the shared header and the nvcc flags."""
+    source, the shared headers and the nvcc flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (f"{name}.cu",) + _HEADERS:
         h.update((CSRC / src).read_bytes())

@@ -1,8 +1,9 @@
 """Shared kernel utilities: integer helpers, the ragged-B mask, dtype
 names, the launch counters every kernel entry point carries, the operand
 checks every CUDA launch wrapper makes, and the pieces the LSTM and GRU
-families share: the recurrent product of their plain sequence versions
-and the decode kernels' U operand."""
+families share: the recurrent product of their plain sequence versions,
+the decode kernels' U operand, and the cluster plans of their decode and
+sequence kernels."""
 from __future__ import annotations
 
 import torch
@@ -296,3 +297,74 @@ def decode_clusters(family: str, B: int, H: int, w_dtype=torch.bfloat16,
              query(B, H, w_flag, u_flag, ctypes.addressof(S),
                    ctypes.addressof(n)), KernelLaunchRefused)
     return S.value, n.value
+
+
+#: The sequence kernels' plan (csrc/seq_cluster.cuh): the shared memory a
+#: CTA may opt in to, the widest H, and what a CTA's shared memory holds
+#: besides U: its threads' partials for up to _SEQ_ROWS batch rows, and
+#: the per-thread rings of a CTA that streams part of U.
+SEQ_MAX_SMEM = 232448
+SEQ_MAX_H = DECODE_MAX_H
+_SEQ_THREADS = 512
+_SEQ_ROWS = 4
+_SEQ_RING_BYTES = 64 * 1024
+
+
+def seq_splits(H: int, gates: int, u_bytes: int, Hr: int) -> int:
+    """S, the CTAs of a sequence kernel's cluster, from (H, gates, U's
+    element size, Hr) alone -- never from B, G or T, so each output's fp32
+    sum order is the same at every batch: the decode kernels' split of
+    (H, gates).  Raises ValueError past H <= SEQ_MAX_H or 0 <= Hr <= H."""
+    if not 1 <= H <= SEQ_MAX_H:
+        raise ValueError(f"lstm_seq / gru_seq take 1 <= H <= {SEQ_MAX_H}, "
+                         f"got H={H}")
+    if not 0 <= Hr <= H:
+        raise ValueError(f"lstm_seq / gru_seq take 0 <= Hr <= H, got "
+                         f"Hr={Hr}, H={H}")
+    return decode_splits(H, gates)
+
+
+def seq_smem(H: int, gates: int, u_bytes: int, Hr: int) -> int:
+    """Bytes of shared memory a sequence-kernel CTA takes (``plan`` in
+    csrc/seq_cluster.cuh): two mbarriers, the rows index, two h buffers
+    and the partials, plus the whole of its slice of U where every CTA's
+    fits in SEQ_MAX_SMEM, else a ring (where H % 4 == 0) and as many
+    leading rows of each thread's share of U as the rest holds."""
+    S = seq_splits(H, gates, u_bytes, Hr)
+    A = decode_unit_align(H)
+    V = 8 if A == 8 and u_bytes <= 2 else 4 if A >= 4 else 1
+    fixed = (16 + round_up(4 * Hr, 16)
+             + 4 * (2 * _SEQ_ROWS * H + _SEQ_THREADS * _SEQ_ROWS * V))
+    rows = []  # (rows of U a thread holds, bytes of one such row) a rank
+    n = H // A
+    for rank in range(S):
+        Q = gates * ((rank + 1) * n // S - rank * n // S) * A // V
+        KG = _SEQ_THREADS // Q
+        rows.append((cdiv(Hr, KG), KG * Q * V * u_bytes))
+    full = max(KR * rb for KR, rb in rows)
+    if fixed + full <= SEQ_MAX_SMEM:
+        return fixed + full
+    ring = _SEQ_RING_BYTES if V > 1 else 0
+    room = SEQ_MAX_SMEM - min(SEQ_MAX_SMEM, fixed + ring)
+    return fixed + ring + max(min(KR, room // rb) * rb for KR, rb in rows)
+
+
+def seq_shape(family: str, B: int, H: int, Hr: int, u_dtype) -> dict:
+    """What the ``family`` ("lstm" or "gru") sequence kernel's C side
+    takes for a launch at (B, H, Hr, U's dtype), without launching: S,
+    rows a cluster (R), ring bytes (0: U resident), shared memory a CTA,
+    and how many such clusters the current card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from repro_torch.kernels.build import bind
+
+    name = f"{family}_seq"
+    query = bind(name, f"{name}_shape",
+                 [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    u_type = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[u_dtype]
+    out = (ctypes.c_int * 5)()
+    launched(f"{name} (shape query)",
+             query(B, H, Hr, u_type, ctypes.addressof(out)),
+             KernelLaunchRefused)
+    return dict(zip(("S", "R", "ring", "smem", "clusters"), out))

@@ -25,7 +25,8 @@ from repro_torch.kernels.common import (KernelLaunchRefused,
                                         decode_u, dtype_flag, gather_index,
                                         launched, on_cuda, operand, ptr,
                                         ragged_b_mask, recurrent_product,
-                                        seq_variant, weight_operands)
+                                        seq_splits, seq_variant,
+                                        weight_operands)
 from repro_torch.kernels.gru_cell import kernel
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 
@@ -107,6 +108,7 @@ def gru_seq_cuda(U3, xw, h0, b_mask=None, u_scales=None, u_rows=None):
     check_operands("gru_seq", dev, U3=U3, xw=xw, h0=h0, b_mask=b_mask,
                    u_scales=u_scales, u_rows=u_rows)
     Hr, u_type = weight_operands("gru_seq", U3, u_scales, u_rows, G, H, 3)
+    seq_splits(H, 3, U3.element_size(), Hr)  # H > 2048 raises
     check_shape("gru_seq", "h0", h0, (G, B, H))
     if b_mask is not None:
         check_shape("gru_seq", "b_mask", b_mask, (G, B))
@@ -122,7 +124,7 @@ def gru_seq_cuda(U3, xw, h0, b_mask=None, u_scales=None, u_rows=None):
                     h0.data_ptr(), ptr(b_mask), hs.data_ptr(),
                     h_n.data_ptr(), G, B, T, H, Hr, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
-    launched("gru_seq", rc)
+    launched("gru_seq", rc, KernelLaunchRefused)
     count_launch(gru_seq, seq_variant(u_scales, u_rows))
     return hs, h_n
 

@@ -28,7 +28,8 @@ from repro_torch.kernels.common import (KernelLaunchRefused,
                                         decode_u, dtype_flag, gather_index,
                                         launched, on_cuda, operand, ptr,
                                         ragged_b_mask, recurrent_product,
-                                        seq_variant, weight_operands)
+                                        seq_splits, seq_variant,
+                                        weight_operands)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
 
@@ -126,6 +127,7 @@ def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None, u_scales=None,
     check_operands("lstm_seq", dev, U4=U4, xw=xw, h0=h0, c0=c0,
                    b_mask=b_mask, u_scales=u_scales, u_rows=u_rows)
     Hr, u_type = weight_operands("lstm_seq", U4, u_scales, u_rows, G, H, 4)
+    seq_splits(H, 4, U4.element_size(), Hr)  # H > 2048 raises
     check_shape("lstm_seq", "h0", h0, (G, B, H))
     check_shape("lstm_seq", "c0", c0, (G, B, H))
     if c0.dtype != torch.float32:
@@ -146,7 +148,7 @@ def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None, u_scales=None,
                     ptr(b_mask), hs.data_ptr(), h_n.data_ptr(),
                     c_n.data_ptr(), G, B, T, H, Hr, *flags,
                     torch.cuda.current_stream(dev).cuda_stream)
-    launched("lstm_seq", rc)
+    launched("lstm_seq", rc, KernelLaunchRefused)
     count_launch(lstm_seq, seq_variant(u_scales, u_rows))
     return hs, h_n, c_n
 
@@ -301,7 +303,7 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
     (h stays fp32 across the whole launch), so a chunked walk differs from
     a single launch exactly as it does in the reference: not at all in
     fp32, by the rounding of h to h0's dtype at each chunk edge otherwise.
-    The kernel walks the launch's whole T in one block, so the wrapper has
+    The kernel walks the launch's whole T in one cluster, so the wrapper has
     no use for a default stripe; the planner's choice
     (``core.tiling.select_time_block``, which weighs the precision and the
     density) sets the T of each launch it plans.

@@ -43,7 +43,9 @@ from repro_torch.kernels.common import reset_counts
 from repro_torch.kernels.gru_cell import ops
 from repro_torch.kernels.lstm_cell import ops as lstm_ops
 from repro_torch.serving import recurrent as serving
-from tests.test_torch_kernels import decode_slices
+from tests.test_torch_kernels import _seq_inputs as _lstm_seq_inputs
+from tests.test_torch_kernels import (_torch, assert_seq_bits,
+                                      cuda_seq_scale, decode_slices)
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-2
@@ -585,14 +587,21 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [340, 50])
+@pytest.mark.parametrize("H", [340, 1024, 50])
 @pytest.mark.parametrize("u_dtype,act_dtype", [
     ("float32", "float32"), ("bfloat16", "float32"),
     ("bfloat16", "bfloat16")])
 def test_cuda_gru_seq_matches_plain(cuda, H, u_dtype, act_dtype):
+    """Within 1e-4 (fp32 activations) or 2e-2 (bf16) of the plain version
+    at H = 340 (U resident), 1024 (U streamed) and 50 (plain loads); rows
+    bit-equal to their B=1 calls; with fp32 h, a chunked walk bit-equal
+    to one launch.  U is scaled by ``cuda_seq_scale``: at 0.2 a weight,
+    H = 1024's recurrence carries the plain version's own fp32 rounding
+    to 1e-4 of an fp64 walk (test_seq_plain_fp32_walk_against_fp64)."""
     (_, U3), (_, xw), (_, h0) = _seq_inputs(3, 5, 9, H, u_dtype, act_dtype,
                                             seed=2)
     U3, xw, h0 = (t.to(cuda) for t in (U3, xw, h0))
+    U3 = (U3.float() * cuda_seq_scale(H)).to(U3.dtype)
     mask = torch.tensor([[1] * 5, [1, 1, 0, 0, 0], [1] * 5],
                         dtype=torch.int32, device=cuda)
     ref = ops.gru_seq_plain(U3, xw, h0, mask)
@@ -600,6 +609,66 @@ def test_cuda_gru_seq_matches_plain(cuda, H, u_dtype, act_dtype):
     tol = 1e-4 if act_dtype == "float32" else BF16_TOL
     for r, o in zip(ref, out):
         torch.testing.assert_close(o.float(), r.float(), rtol=0, atol=tol)
+    assert_seq_bits(ops.gru_seq, U3, xw, (h0,), out, [5, 2, 5],
+                    act_dtype == "float32")
+
+
+def _seq_walk_fp64(family, U, xw, state, keep):
+    """The sequence kernels' recurrence in fp64 throughout: (hs, h_T) of
+    the GRU, (hs, h_T, c_T) of the LSTM; rows where ``keep`` is False
+    freeze their state."""
+    G, B, T, gates, H = xw.shape
+    U = U.double().reshape(G, H, gates * H)
+    st = [t.double() for t in state]
+    ys = []
+    for t in range(T):
+        a = xw[:, :, t].double()
+        hu = torch.bmm(st[0], U).reshape(G, B, gates, H)
+        if family == "gru":
+            z = torch.sigmoid(a[:, :, 0] + hu[:, :, 0])
+            r = torch.sigmoid(a[:, :, 1] + hu[:, :, 1])
+            n = torch.tanh(a[:, :, 2] + r * hu[:, :, 2])
+            new = [(1 - z) * n + z * st[0]]
+        else:
+            g = a + hu
+            c = (torch.sigmoid(g[:, :, 1]) * st[1]
+                 + torch.sigmoid(g[:, :, 0]) * torch.tanh(g[:, :, 2]))
+            new = [torch.sigmoid(g[:, :, 3]) * torch.tanh(c), c]
+        st = [torch.where(keep, n_, o_) for n_, o_ in zip(new, st)]
+        ys.append(st[0])
+    return [torch.stack(ys, dim=2)] + st
+
+
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+@pytest.mark.parametrize("H", [340, 1024])
+def test_seq_plain_fp32_walk_against_fp64(family, H):
+    """The reference of the card tests of lstm_seq / gru_seq: on their
+    inputs, with U scaled by ``cuda_seq_scale``, the fp32 plain version
+    stays within 1e-5 of an fp64 walk, a tenth of the 1e-4 the kernels
+    are held to.  Unscaled, at 0.2 a weight and H = 1024, the plain
+    version's own fp32 rounding reaches past 2e-5 of the fp64 walk (GRU
+    1.02e-4, LSTM 3.38e-5 on this data), so it could not tell a kernel's
+    1e-4 from its own."""
+    mask = torch.tensor([[1] * 5, [1, 1, 0, 0, 0], [1] * 5],
+                        dtype=torch.int32)
+    if family == "gru":
+        (_, U), (_, xw), (_, h0) = _seq_inputs(3, 5, 9, H, "float32",
+                                               "float32", seed=2)
+        state, plain = (h0,), ops.gru_seq_plain
+    else:
+        U, xw, h0, c0 = _torch(_lstm_seq_inputs(3, 5, 9, H, "float32",
+                                                "float32", seed=2))
+        state, plain = (h0, c0), lstm_ops.lstm_seq_plain
+
+    def drift(scale):
+        Us = U * scale
+        ref = _seq_walk_fp64(family, Us, xw, state, (mask != 0)[..., None])
+        return max((o.double() - r).abs().max().item()
+                   for o, r in zip(plain(Us, xw, *state, mask), ref))
+
+    assert drift(cuda_seq_scale(H)) <= 1e-5
+    if H > 340:
+        assert drift(1.0) > 2e-5
 
 
 @pytest.mark.cuda

@@ -254,6 +254,95 @@ def test_decode_splits_depend_on_the_shape_only(gates):
             ops.decode_splits(H, gates)
 
 
+SEQ_WIDTHS = (1, 5, 8, 10, 24, 50, 72, 100, 256, 340, 1000, 1024, 1536,
+              2047, 2048)
+
+
+def seq_slices(H: int, gates: int, u_bytes: int, Hr: int):
+    """The hidden units [lo, hi) each CTA of a sequence kernel's cluster
+    owns, by rank (``slice`` in csrc/cluster.cuh, as ``decode_slices``)."""
+    A = common.decode_unit_align(H)
+    n, S = H // A, common.seq_splits(H, gates, u_bytes, Hr)
+    return tuple((r * n // S * A, (r + 1) * n // S * A) for r in range(S))
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("u_bytes", [4, 2, 1])
+def test_seq_splits_cover_the_units_in_aligned_disjoint_slices(gates,
+                                                               u_bytes):
+    """The sequence kernels' clusters: S CTAs (a power of two, at most 16)
+    whose slices cover every hidden unit exactly once, in rank order,
+    each on a multiple of the unit alignment (8, 4 or 1 units), and each
+    narrow enough that its 4 rows' cells take one of a CTA's 512 threads
+    each."""
+    for H in SEQ_WIDTHS:
+        for Hr in sorted({H, max(1, H * 3 // 4), 1}):
+            S = common.seq_splits(H, gates, u_bytes, Hr)
+            A = common.decode_unit_align(H)
+            assert S & (S - 1) == 0 and 1 <= S <= common.DECODE_MAX_SPLITS
+            slices = seq_slices(H, gates, u_bytes, Hr)
+            assert len(slices) == S and slices[0][0] == 0
+            assert slices[-1][1] == H
+            for (lo, hi), (nxt, _) in zip(slices, slices[1:] + ((H, H),)):
+                assert lo < hi == nxt and lo % A == 0 and hi % A == 0
+                assert 4 * (hi - lo) <= 512
+
+
+def test_seq_splits_depend_on_the_shape_only():
+    """S and the shared memory a CTA takes are functions of (H, gates, U's
+    element size, Hr) alone -- no batch, recurrence count or T -- so each
+    output's fp32 sum order and the copy of U are the same at every B; S
+    is the decode kernels' split of (H, gates), 16 at the paper's H = 340
+    and 1024 and at the sweep's 2048."""
+    import inspect
+
+    for fn in (common.seq_splits, common.seq_smem):
+        assert list(inspect.signature(fn).parameters) == [
+            "H", "gates", "u_bytes", "Hr"]
+    for gates in (4, 3):
+        for H in SEQ_WIDTHS:
+            for u_bytes in (4, 2, 1):
+                assert common.seq_splits(H, gates, u_bytes, H) \
+                    == ops.decode_splits(H, gates)
+        for H in (340, 1024, 2048):
+            assert common.seq_splits(H, gates, 4, H) == 16
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("u_bytes", [4, 2, 1])
+def test_seq_plan_stays_within_the_cards_shared_memory(gates, u_bytes):
+    """Every plan fits the 232,448 bytes of shared memory a CTA may opt in
+    to: the rows index, the two h buffers and the partials at 4 rows, the
+    rings when U streams, and its resident U.  At the paper's H = 340 the
+    widest slice of U is resident whole in every type; at H = 1024 and
+    2048 it cannot be, so part of it streams."""
+    for H in SEQ_WIDTHS:
+        for Hr in sorted({H, max(1, H * 3 // 4)}):
+            assert 0 < common.seq_smem(H, gates, u_bytes, Hr) \
+                <= common.SEQ_MAX_SMEM
+
+    def whole(H):
+        """The widest slice of U, the two fp32 h buffers of 4 rows and at
+        least one fp32 partial a thread and row."""
+        nu = max(hi - lo for lo, hi in seq_slices(H, gates, u_bytes, H))
+        return gates * nu * H * u_bytes + 4 * (2 * 4 * H + 512 * 4)
+
+    assert common.seq_smem(340, gates, u_bytes, 340) >= whole(340)
+    for H in (1024, 2048):
+        assert whole(H) > common.SEQ_MAX_SMEM
+
+
+def test_seq_splits_raise_past_the_kernels_limit():
+    """The sequence kernels take 1 <= H <= 2048 (the paper's sweep
+    maximum) and 0 <= Hr <= H; beyond, seq_splits (which the CUDA wrappers
+    call before launching) raises a ValueError naming the limit."""
+    for H in (0, 2049, 4096):
+        with pytest.raises(ValueError, match="2048"):
+            common.seq_splits(H, 4, 4, max(H, 1))
+    with pytest.raises(ValueError, match="Hr"):
+        common.seq_smem(64, 3, 2, 65)
+
+
 @pytest.mark.parametrize("H,B", [(72, 1), (72, 5), (50, 3)])
 @pytest.mark.parametrize("w_dtype,act_dtype", [
     ("float32", "float32"), ("bfloat16", "float32"),
@@ -324,14 +413,47 @@ def cuda():
     return torch.device("cuda")
 
 
+def assert_seq_bits(seq, U, xw, state, out, b_valid, fp32_h):
+    """A sequence kernel's fixed sum order, bit for bit: each valid row of
+    ``out`` (a b_valid call) equals that row's B=1 call; with fp32 h, a
+    walk chunked 4+4+1 through the state equals the whole launch."""
+    for g, n in enumerate(b_valid):
+        for b in range(n):
+            solo = seq(U[g], xw[g, b:b + 1], *(t[g, b:b + 1] for t in state))
+            for o, s in zip(out, solo):
+                torch.testing.assert_close(o[g, b:b + 1], s, rtol=0, atol=0)
+    if fp32_h:
+        full = seq(U, xw, *state)
+        outs, cur = [], list(state)
+        for t0 in (0, 4, 8):
+            o, *cur = seq(U, xw[:, :, t0:t0 + 4], *cur, block_t=4)
+            outs.append(o)
+        for a, b in zip([torch.cat(outs, 2)] + cur, full):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def cuda_seq_scale(H: int) -> float:
+    """What the card tests of the sequence kernels scale U by at H: past
+    H = 340, to H = 340's recurrent gain, where the fp32 plain version is
+    a reference to 1e-5 of an fp64 walk; at 0.2 a weight and H = 1024 it
+    is not (test_torch_gru's test_seq_plain_fp32_walk_against_fp64)."""
+    return min(1.0, (340 / H) ** 0.5)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [340, 1024])
 @pytest.mark.parametrize("u_dtype,act_dtype", [
     ("float32", "float32"), ("bfloat16", "float32"),
     ("bfloat16", "bfloat16")])
-def test_cuda_lstm_seq_matches_plain(cuda, u_dtype, act_dtype):
+def test_cuda_lstm_seq_matches_plain(cuda, H, u_dtype, act_dtype):
+    """Within 1e-4 (fp32 activations) or 2e-2 (bf16) of the plain version
+    at H = 340 (U resident in the cluster's shared memory) and 1024 (U
+    streamed); rows bit-equal to their B=1 calls; with fp32 h, a chunked
+    walk bit-equal to one launch.  U is scaled by ``cuda_seq_scale``."""
     U4, xw, h0, c0 = _torch(_seq_inputs(
-        3, 5, 9, 340, u_dtype, act_dtype, seed=2))
+        3, 5, 9, H, u_dtype, act_dtype, seed=2))
     U4, xw, h0, c0 = (t.to(cuda) for t in (U4, xw, h0, c0))
+    U4 = (U4.float() * cuda_seq_scale(H)).to(U4.dtype)
     mask = torch.tensor([[1] * 5, [1, 1, 0, 0, 0], [1] * 5],
                         dtype=torch.int32, device=cuda)
     ref = ops.lstm_seq_plain(U4, xw, h0, c0, mask)
@@ -339,6 +461,8 @@ def test_cuda_lstm_seq_matches_plain(cuda, u_dtype, act_dtype):
     tol = 1e-4 if act_dtype == "float32" else BF16_TOL
     for r, o in zip(ref, out):
         torch.testing.assert_close(o.float(), r.float(), rtol=0, atol=tol)
+    assert_seq_bits(ops.lstm_seq, U4, xw, (h0, c0), out, [5, 2, 5],
+                    act_dtype == "float32")
 
 
 @pytest.mark.cuda
