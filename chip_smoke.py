@@ -37,10 +37,20 @@ Phases, one line (or a few) of output each:
                eager call and a walk chunked 8+8+8+5 against one launch;
                timed eager and in CUDA graphs of 20 launches (the
                serving slot and each weight branch), and at
-               DeepBench's (1024, 25) slot beside cuDNN; rglru_scan (a CTA
-               per strip of 8-32 channels walking T in tiles) at the rglru
-               phase's shape, at ragged W = 33, 100, 513 and at T = 1 and
-               each strip width's tile edges, bit-equal run to run, across
+               DeepBench's (1024, 25) slot beside cuDNN; lstm_cell (a
+               CTA per 8 hidden units over the whole card) at H = 50, 340,
+               1024 and 4096, B = 1, 4, 5, fp32 and bf16 U and
+               activations, bit-equal run to run, across B, between a
+               graph replay and the eager call and across the TPU tile,
+               its split equal to cell_split's, then timed warm and eager
+               and as the per_step chain runs it (150 launches in one CUDA
+               graph: BYSDNE's 5 U's at H = 340, 8 U's from HBM at H =
+               1024) beside the plain version and nn.LSTMCell (input
+               width 1; fp32 and bf16 weights) in the same graphs;
+               rglru_scan (a CTA per strip of 8-32 channels walking T in
+               tiles) at the rglru phase's shape, at ragged W = 33, 100,
+               513 and at T = 1 and each strip width's tile edges,
+               bit-equal run to run, across
                B and between one call and T split over two calls, then
                timed at B = 4 (eager) and at B = 1, T = 256, 1024, 2048
                (CUDA graphs of repeated launches); mvm (one
@@ -138,8 +148,9 @@ Phases, one line (or a few) of output each:
                error, times and bound
 
 With --profile, the serve, forward, serve_gru and precision phases also
-print their lstm_seq / gru_seq device ms and check the profiled
-launches against the counted run's.
+print their lstm_seq / gru_seq device ms, and offpath its per_step
+forward's lstm_cell device ms, and each checks the profiled launches
+against the counted run's.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  The script imports nothing of JAX and nothing of the
@@ -885,53 +896,217 @@ def _decode_times(ctx, dev, family):
                   "bound_ms the HBM bound of a cold tick")
 
 
-def _kernels_cell(ctx, dev):
-    """lstm_cell against its plain version, then timed at the per_step
-    schedule's BYSDNE step."""
+#: lstm_cell's widths, each taken apart differently by its split: H = 50
+#: (plain loads; the last CTA holds 2 of its 8 units), BYSDNE's 340 (8-byte
+#: bf16 vectors; the last CTA 4 units), RLDRADSPR's 1024 and 4096 (16-byte
+#: bf16 vectors; 4096 lies past the sequence kernels' limit); its operand
+#: forms (U, then xw and h dtypes), each at B = 1, 4 and 5
+CELL_WIDTHS = (50, 340, 1024, 4096)
+CELL_FORMS = (("float32", "float32"), ("bfloat16", "float32"),
+              ("bfloat16", "bfloat16"))
+#: the per_step schedule's chain of launches as one CUDA graph: (distinct
+#: U's, launches on one before the next) -- BYSDNE's 5 layers of 30 steps,
+#: layer after layer (each U warm in L2 after its first step); at H = 1024
+#: the launches cycle through 8 U's (67 MB, past the 50 MB L2), so each
+#: launch reads its U from HBM
+CELL_CHAINS = {340: (5, 30), 1024: (8, 1)}
+CELL_CHAIN_LAUNCHES = 150
+
+
+def _cell_case(B, H, u_dtype, act_dtype, seed, dev):
+    """(U4, xw_t, h_prev, c_prev) of lstm_cell, drawn on the card from a
+    seeded generator: U scaled by H^-1/2, c_prev fp32."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return [(randn(H, 4, H) * H ** -0.5).to(u_dtype),
+            randn(B, 4, H).to(act_dtype), (randn(B, H) * 0.5).to(act_dtype),
+            randn(B, H) * 0.5]
+
+
+def _cell_bound(B, H, u_bytes):
+    """The least time of one step: U read once, xw, h and c read and h, c
+    written once (fp32), 8 H^2 + 14 H operations a row at the fp32 rate."""
+    nbytes = u_bytes * H * 4 * H + 4 * (B * 4 * H + 4 * B * H)
+    return bound(nbytes, B * (8 * H * H + 14 * H))
+
+
+def cell_chain_ms(fn, Us, xws, h, c, order) -> float:
+    """ms a launch of ``fn(U, xw_t, h, c) -> (h, c)`` chained over
+    ``order`` (the index into ``Us`` of each launch; launch i takes
+    ``xws[i]``, and h and c feed forward), the chain captured in one CUDA
+    graph, as the per_step schedule runs it (``graph_ms``)."""
+
+    def run():
+        hh, cc = h, c
+        for i, l in enumerate(order):
+            hh, cc = fn(Us[l], xws[i], hh, cc)
+
+    return graph_ms(run) / len(order)
+
+
+def _cell_chains(dev):
+    """lstm_cell as the per_step schedule runs it (CELL_CHAINS): one CUDA
+    graph of CELL_CHAIN_LAUNCHES launches at B = 4, bf16 U and fp32 xw, h,
+    c, at H = 340 and 1024; then the plain version and nn.LSTMCell (fp32
+    and bf16 weights) in the same kind of graph.  nn.LSTMCell takes an
+    input of width 1, so its input GEMM reads 4H weights and it moves the
+    kernel's bytes: one U-sized recurrent matrix a step.  Returns {H:
+    {label: ms a launch, "bound": ms}}."""
     import torch
 
     from repro_torch.kernels.lstm_cell import ops
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    H = 340
-    cell_err = 0.0
-    # block_k=24 does not divide 340 (the masked reduction tail); 0 takes
-    # the autotune table's default (block_h 128, block_k 8: a tail too)
-    for B, ud, ad, bk in ((1, f32, f32, 24), (4, bf16, f32, 24),
-                          (4, bf16, f32, 0), (1, bf16, bf16, 24),
-                          (4, f32, bf16, 0)):
-        U4, xw, h, c = _seq_case(1, B, 1, H, ud, ad, seed=50 + B, dev=dev)
-        U4, xw, h, c = U4[0], xw[0, :, 0], h[0], c[0]
-        ref = ops.lstm_cell_plain(U4, xw, h, c)
-        out = ops.lstm_cell(U4, xw, h, c, block_k=bk)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        tol = TOL_FP32 if ad == f32 else TOL_BF16
-        print(f"kernels: lstm_cell B={B} H={H} U={ud} act={ad} block_k="
-              f"{bk or 'default'}: max_abs_err {err:.3e} (tol {tol:g})")
-        check(err <= tol, f"lstm_cell disagrees with its plain version: "
-                          f"{err:.3e} > {tol:g}")
-        if ad == f32:
-            cell_err = max(cell_err, err)
+    B, n = 4, CELL_CHAIN_LAUNCHES
+    out = {}
+    for H, (n_u, run) in CELL_CHAINS.items():
+        Us = [_cell_case(1, H, torch.bfloat16, torch.float32, 600 + i,
+                         dev)[0] for i in range(n_u)]
+        order = [i // run % n_u for i in range(n)]
+        g = torch.Generator(device=dev).manual_seed(700 + H)
+        xws = torch.randn((n, B, 4, H), generator=g, device=dev)
+        h = torch.randn((B, H), generator=g, device=dev) * 0.5
+        c = torch.randn((B, H), generator=g, device=dev) * 0.5
+        times = {"kernel": cell_chain_ms(ops.lstm_cell, Us, xws, h, c,
+                                         order),
+                 "plain": cell_chain_ms(ops.lstm_cell_plain, Us, xws, h, c,
+                                        order)}
+        x = torch.randn((n, B, 1), generator=g, device=dev)
+        for dt, label in ((torch.float32, "nn.LSTMCell fp32"),
+                          (torch.bfloat16, "nn.LSTMCell bf16")):
+            mods = [torch.nn.LSTMCell(1, H).to(dev, dt) for _ in range(n_u)]
+            with torch.no_grad():
+                times[label] = cell_chain_ms(
+                    lambda m, x_t, hh, cc: m(x_t, (hh, cc)), mods, x.to(dt),
+                    h.to(dt), c.to(dt), order)
+            del mods
+        b_ms, b_by = _cell_bound(B, H, 2)
+        times["bound"] = b_ms
+        out[H] = times
+        print(f"kernels: lstm_cell per_step chain at B={B} H={H} bf16 U, "
+              f"fp32 xw/h/c, one CUDA graph of {n} launches on {n_u} U's "
+              f"({run} in a row), ms a launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items()
+                          if k != "bound")
+              + f"; bound {b_ms:.6f} ({b_by})")
+        del Us, xws
+        torch.cuda.empty_cache()
+    return out
 
-    B = 4  # the per_step BYSDNE forward's step: bf16 U, fp32 xw/h/c
-    U4, xw, h, c = _seq_case(1, B, 1, H, bf16, f32, seed=55, dev=dev)
-    U4, xw, h, c = U4[0], xw[0, :, 0], h[0], c[0]
-    k_ms = median_ms(lambda: ops.lstm_cell(U4, xw, h, c), reps=100)
-    p_ms = median_ms(lambda: ops.lstm_cell_plain(U4, xw, h, c), reps=100)
-    cell = torch.nn.LSTMCell(H, H).to(dev)
-    x = torch.randn((B, H), device=dev)
+
+def _kernels_cell(ctx, dev):
+    """lstm_cell (a CTA per 8 hidden units over the whole card) against its
+    plain version at CELL_WIDTHS x CELL_FORMS x B = 1, 4, 5; bit-equal run
+    to run, across B, between a graph replay and the eager call and across
+    the TPU tile (block_h, block_k); one launch a call; the C side's split
+    equal to cell_split's; then timed warm and eager at the per_step
+    BYSDNE step and in the per_step chain's CUDA graphs."""
+    import torch
+
+    from repro_torch.kernels.common import (cell_shape, cell_smem,
+                                            cell_split, reset_counts)
+    from repro_torch.kernels.lstm_cell import ops
+
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cell_err, seed = 0.0, 50
+    for H in CELL_WIDTHS:
+        for ud, ad in CELL_FORMS:
+            u_dtype, a_dtype = dts[ud], dts[ad]
+            sp = cell_split(H, u_dtype.itemsize)
+            for B in (1, 4, 5):
+                seed += 1
+                args = _cell_case(B, H, u_dtype, a_dtype, seed, dev)
+                ref = ops.lstm_cell_plain(*args)
+                reset_counts(ops.lstm_cell)
+                out = ops.lstm_cell(*args)
+                again = ops.lstm_cell(*args)
+                rows = [ops.lstm_cell(args[0], *(t[r:r + 1]
+                                                 for t in args[1:]))
+                        for r in range(B)] if B > 1 else []
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                tol = TOL_FP32 if ad == "float32" else TOL_BF16
+                same = all(torch.equal(a, b) for a, b in zip(out, again))
+                batch = all(torch.equal(o[r:r + 1], x)
+                            for r, row in enumerate(rows)
+                            for o, x in zip(out, row))
+                n = ops.lstm_cell.kernel_launches
+                shape = cell_shape(B, H, u_dtype)
+                want = dict(ctas_x=sp["ctas"], ctas_y=-(-B // 4),
+                            V=sp["V"], KG=sp["KG"],
+                            smem=cell_smem(H, u_dtype.itemsize, B))
+                print(f"kernels: lstm_cell B={B} H={H} U={ud} act={ad}: "
+                      f"grid {shape['ctas_x']}x{shape['ctas_y']} CTAs, V="
+                      f"{shape['V']}, KG={shape['KG']}, smem "
+                      f"{shape['smem']} B; max_abs_err {err:.3e} (tol "
+                      f"{tol:g}); two runs bit-equal {same}; rows == their "
+                      f"B=1 calls {batch if B > 1 else 'n/a'}; launches {n}")
+                check(err <= tol, f"lstm_cell disagrees with its plain "
+                                  f"version (B={B} H={H} U={ud} act={ad}): "
+                                  f"{err:.3e} > {tol:g}")
+                check(same and batch, f"lstm_cell B={B} H={H}: not bit-equal "
+                                      "run to run or across B")
+                check(n == 2 + len(rows), f"lstm_cell: {n} launches for "
+                                          f"{2 + len(rows)} calls")
+                check(shape == want, f"lstm_cell B={B} H={H}: the kernel's "
+                                     f"split {shape} is not cell_split's "
+                                     f"{want}")
+                if ad == "float32":
+                    cell_err = max(cell_err, err)
+    # the per_step BYSDNE step: a graph's replay, the TPU tile
+    args = _cell_case(4, 340, torch.bfloat16, torch.float32, 55, dev)
+    eager = ops.lstm_cell(*args)
+    tiles = all(torch.equal(a, b) for bh, bk in ((128, 8), (8, 5), (340, 24))
+                for a, b in zip(ops.lstm_cell(*args, block_h=bh,
+                                              block_k=bk), eager))
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        replayed = ops.lstm_cell(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    del graph
+    ctas = cell_split(340, 2)["ctas"]
+    print(f"kernels: lstm_cell B=4 H=340 bf16 U: {ctas} CTAs; a CUDA "
+          f"graph's replay == the eager call {replay}; block_h / block_k "
+          f"change no bit {tiles}")
+    check(replay and tiles and ctas >= 32,
+          "lstm_cell: a graph replay or another TPU tile changed the "
+          "output, or the split has fewer than 32 CTAs at H = 340")
+
+    # warm and eager at the per_step BYSDNE step (the earlier condition)
+    B, H = 4, 340
+    U4, xw, h, c = args
+    w_ms = median_ms(lambda: ops.lstm_cell(U4, xw, h, c), reps=100)
+    wp_ms = median_ms(lambda: ops.lstm_cell_plain(U4, xw, h, c), reps=100)
+    cell = torch.nn.LSTMCell(1, H).to(dev)
+    x = torch.randn((B, 1), device=dev)
     with torch.no_grad():
-        l_ms = median_ms(lambda: cell(x, (h, c)), reps=100)
-    nbytes = 2 * H * 4 * H + 4 * (B * 4 * H + 4 * B * H)
-    flops = B * (8 * H * H + 14 * H)
-    b_ms, b_by = bound(nbytes, flops)
-    ctx["lstm_cell"] = dict(max_abs_err=cell_err, ms=k_ms, plain_ms=p_ms,
-                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                       shape=f"B={B} H={H} bf16 U, fp32 xw/h/c")
-    print(f"kernels: lstm_cell at B={B} H={H} bf16 U: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, nn.LSTMCell (fp32, input GEMM included) "
-          f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        wl_ms = median_ms(lambda: cell(x, (h, c)), reps=100)
+    print(f"kernels: lstm_cell warm and eager at B={B} H={H} bf16 U: kernel "
+          f"{w_ms:.4f} ms, plain {wp_ms:.4f} ms, nn.LSTMCell (fp32, input "
+          f"width 1) {wl_ms:.4f} ms")
+    chains = _cell_chains(dev)
+    b_ms, b_by = _cell_bound(B, H, 2)
+    t, wide = chains[340], chains[1024]
+    ctx["lstm_cell"] = dict(
+        max_abs_err=cell_err, ms=t["kernel"], plain_ms=t["plain"],
+        library_ms=t["nn.LSTMCell fp32"], bound_ms=b_ms, bound_by=b_by,
+        warm_ms=w_ms, wide_ms=wide["kernel"], wide_bound_ms=wide["bound"],
+        chains=chains,
+        condition=f"B={B} H={H} bf16 U, fp32 xw/h/c; ms, plain_ms and "
+                  f"library_ms (nn.LSTMCell(1, H), fp32 weights) a launch "
+                  f"of the per_step chain's {CELL_CHAIN_LAUNCHES} launches "
+                  "in one CUDA graph, on 5 U's 30 launches each, so 29 of "
+                  "30 launches read U from L2, while bound_ms is a cold "
+                  "step's HBM bound; warm_ms warm and eager; wide_ms the "
+                  "same chain at H=1024 cycling 8 U's, each launch's U from "
+                  "HBM, against wide_bound_ms")
 
 
 def _weight_branch(U, variant: str, first_layer: int = 0):
@@ -2027,7 +2202,10 @@ def phase_offpath(ctx):
     print(f"offpath: per_step warm rerun {ctx['per_step_s'] * 1e3:.1f} ms "
           f"wall ({p} launches)")
     if ctx["profile"]:
-        profile_breakdown(lambda: cs.forward(xs), "offpath per_step")
+        by_name, count = profile_breakdown(lambda: cs.forward(xs),
+                                           "offpath per_step")
+        _profiled_launches("offpath per_step", "lstm_cell", by_name, count,
+                           p)
 
     # (2) a mixed lstm/gru/lstm/gru stack at H=340: forward, then one
     # decode tick resumed from its prefill state (L=4 per-layer launches)
@@ -2666,6 +2844,7 @@ def phase_serve_lm(ctx):
 #: appears in it (the decode and sequence kernels share their cells)
 DEVICE_NAMES = {"mvm": ("mvm_kernel",), "decode_attention": ("attn_kernel",),
                 "rglru_scan": ("rglru_scan_kernel",),
+                "lstm_cell": ("lstm_cell_kernel",),
                 "lstm_decode": ("cluster_kernel", "LstmCell"),
                 "gru_decode": ("cluster_kernel", "GruCell"),
                 "lstm_seq": ("seq_kernel", "LstmCell"),
@@ -3001,7 +3180,8 @@ def phase_summary(ctx):
             "plain_ms": m.get("plain_ms"), "bound_ms": m.get("bound_ms"),
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
             **{k: m[k] for k in ("warm_ms", "condition", "b1_ms",
-                                 "b1_bound_ms", "graph_ms")
+                                 "b1_bound_ms", "graph_ms", "wide_ms",
+                                 "wide_bound_ms")
                if k in m},
         })
     ctx["kernels"] = rows

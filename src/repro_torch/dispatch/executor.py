@@ -66,9 +66,12 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.core.perfmodel import MXU_ROWS
-from repro_torch.dispatch.planner import DispatchPlan, ItemPlan
+from repro_torch.core.schedules import stack_families
+from repro_torch.dispatch.planner import (REFERENCE_SCHEDULES, DispatchPlan,
+                                          ItemPlan)
 from repro_torch.dispatch.workitem import GATES
-from repro_torch.kernels.common import (KernelBuildError,
+from repro_torch.kernels.common import (CELL_MAX_H, SEQ_MAX_H,
+                                        KernelBuildError,
                                         KernelLaunchRefused, cdiv)
 from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
@@ -790,6 +793,35 @@ def _chained_ladder(family: str, xw0, Ws, bs, Us, h0, c0):
 # ---------------------------------------------------------------------------
 # off the packed timeline: the schedule library
 # ---------------------------------------------------------------------------
+
+
+def kernel_refusal(params: dict, policy) -> Optional[str]:
+    """Why the card would refuse the forward of the stack ``params`` under
+    ``policy`` (an ``rnn.ExecutionPolicy``; its schedule is read), or
+    None: the first kernel that forward may launch whose limit on H the
+    stack's H passes.  What each schedule launches is this module's
+    dispatch: the planned schedules ("auto", "wavefront", "fused") run the
+    families' sequence kernels (H <= SEQ_MAX_H; under "auto" the planner
+    may pick them at any T); "per_step" runs LSTM layers through
+    ``lstm_cell`` (H <= CELL_MAX_H, its h rows in a CTA's shared memory)
+    and GRU layers in plain PyTorch (``_run_reference``), as the research
+    schedules run every layer.  Reads shapes only."""
+    schedule = policy.schedule
+    if not params.get("layers") or schedule in REFERENCE_SCHEDULES:
+        return None  # an empty stack is named by CompiledStack
+    layer0 = params["layers"][0]
+    H = int(layer0.get("fwd", layer0)["U"].shape[0])
+    families = sorted(set(stack_families(params)))
+    if schedule == "per_step":
+        limits = [("lstm_cell", CELL_MAX_H)] if "lstm" in families else []
+    else:
+        limits = [(f"{f}_seq", SEQ_MAX_H) for f in families]
+    for name, limit in limits:
+        if H > limit:
+            return (f"{name} takes H <= {limit} on the card, and this "
+                    f"stack's forward under schedule={schedule!r} launches "
+                    f"it at H={H}")
+    return None
 
 
 def _run_reference(stack, xs, schedule, *, block_t: int = 0):

@@ -310,6 +310,17 @@ _SEQ_ROWS = 4
 _SEQ_RING_BYTES = 64 * 1024
 
 
+def seq_limit(name: str, H: int) -> None:
+    """Refuse a sequence-kernel launch past the widest H its cluster takes
+    (SEQ_MAX_H): ``KernelLaunchRefused``, which the guarded execution
+    ladder re-raises instead of retrying the slot per step, as the decode
+    kernels' refusals are.  The CUDA wrappers call it before any other
+    check."""
+    if H > SEQ_MAX_H:
+        raise KernelLaunchRefused(
+            f"{name}: the sequence kernels take H <= {SEQ_MAX_H}, got H={H}")
+
+
 def seq_splits(H: int, gates: int, u_bytes: int, Hr: int) -> int:
     """S, the CTAs of a sequence kernel's cluster, from (H, gates, U's
     element size, Hr) alone -- never from B, G or T, so each output's fp32
@@ -368,3 +379,56 @@ def seq_shape(family: str, B: int, H: int, Hr: int, u_dtype) -> dict:
              query(B, H, Hr, u_type, ctypes.addressof(out)),
              KernelLaunchRefused)
     return dict(zip(("S", "R", "ring", "smem", "clusters"), out))
+
+
+#: The cell kernel's split (csrc/lstm_cell.cu): hidden units a CTA, its
+#: threads, the most rows a CTA takes, and the widest H whose h rows (4 of
+#: them, in fp32) fit a CTA's shared memory at every B -- the limit of the
+#: design before it as well.
+CELL_UNITS = 8
+CELL_THREADS = 256
+CELL_ROWS = 4
+CELL_MAX_H = SEQ_MAX_SMEM // (4 * CELL_ROWS)
+
+
+def cell_split(H: int, u_bytes: int) -> dict:
+    """The cell kernel's split of one step, from (H, U's element size)
+    alone -- never from B or a timing, so each output is summed in the same
+    order at every batch: ``ctas`` slices of CELL_UNITS hidden units (the
+    last may be narrower), each slice's 4 · CELL_UNITS gate columns as
+    ``Q`` vectors of ``V`` units (16-byte loads of 8 bf16 values where H %
+    8 == 0, 4 values where H % 4 == 0, else 1), the H rows as ``KG``
+    contiguous groups of ``KR`` rows, one thread per (group, vector)."""
+    if H < 1:
+        raise ValueError(f"lstm_cell takes H >= 1, got H={H}")
+    A = decode_unit_align(H)
+    V = 8 if A == 8 and u_bytes == 2 else 4 if A >= 4 else 1
+    Q = 4 * CELL_UNITS // V
+    KG = CELL_THREADS // Q
+    return dict(ctas=cdiv(H, CELL_UNITS), V=V, Q=Q, KG=KG, KR=cdiv(H, KG))
+
+
+def cell_smem(H: int, u_bytes: int, B: int) -> int:
+    """Bytes of shared memory a cell-kernel CTA takes at batch B: its rows'
+    h in fp32, whose bytes then take the KG partials of its 4 · CELL_UNITS
+    columns and rows (the rows a CTA holds: 4 from B = 3 on, else B)."""
+    rows = CELL_ROWS if B >= 3 else B
+    KG = cell_split(H, u_bytes)["KG"]
+    return 4 * rows * max(H, KG * 4 * CELL_UNITS)
+
+
+def cell_shape(B: int, H: int, u_dtype) -> dict:
+    """What the C side of the cell kernel takes for a launch at (B, H, U's
+    dtype), without launching: CTAs along x (unit slices) and y (groups of
+    rows), V, KG and shared memory a CTA."""
+    import ctypes
+
+    from repro_torch.kernels.build import bind
+
+    query = bind("lstm_cell", "lstm_cell_shape",
+                 [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    launched("lstm_cell (shape query)",
+             query(B, H, int(u_dtype == torch.bfloat16),
+                   ctypes.addressof(out)), KernelLaunchRefused)
+    return dict(zip(("ctas_x", "ctas_y", "V", "KG", "smem"), out))

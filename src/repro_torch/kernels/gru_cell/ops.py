@@ -25,7 +25,7 @@ from repro_torch.kernels.common import (KernelLaunchRefused,
                                         decode_u, dtype_flag, gather_index,
                                         launched, on_cuda, operand, ptr,
                                         ragged_b_mask, recurrent_product,
-                                        seq_splits, seq_variant,
+                                        seq_limit, seq_splits, seq_variant,
                                         weight_operands)
 from repro_torch.kernels.gru_cell import kernel
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
@@ -104,11 +104,12 @@ def gru_seq_cuda(U3, xw, h0, b_mask=None, u_scales=None, u_rows=None):
     stream; shapes and dtypes as ``gru_seq_plain``, U3 fp32, bf16 or (with
     u_scales) int8, u_rows int32."""
     G, B, T, _, H = xw.shape
+    seq_limit("gru_seq", H)  # before any other check: a refusal
     dev = xw.device
     check_operands("gru_seq", dev, U3=U3, xw=xw, h0=h0, b_mask=b_mask,
                    u_scales=u_scales, u_rows=u_rows)
     Hr, u_type = weight_operands("gru_seq", U3, u_scales, u_rows, G, H, 3)
-    seq_splits(H, 3, U3.element_size(), Hr)  # H > 2048 raises
+    seq_splits(H, 3, U3.element_size(), Hr)
     check_shape("gru_seq", "h0", h0, (G, B, H))
     if b_mask is not None:
         check_shape("gru_seq", "b_mask", b_mask, (G, B))

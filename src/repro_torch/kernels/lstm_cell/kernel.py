@@ -11,6 +11,6 @@ from repro_torch.kernels.build import I, P, entry, register
 
 register("lstm_seq", "lstm_seq_launch", [P] * 10 + [I] * 8 + [P])
 register("lstm_decode", "lstm_decode_launch", [P] * 8 + [I] * 7 + [P])
-register("lstm_cell", "lstm_cell_launch", [P] * 6 + [I] * 7 + [P])
+register("lstm_cell", "lstm_cell_launch", [P] * 6 + [I] * 5 + [P])
 
 __all__ = ["entry"]

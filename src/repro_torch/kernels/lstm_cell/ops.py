@@ -28,7 +28,7 @@ from repro_torch.kernels.common import (KernelLaunchRefused,
                                         decode_u, dtype_flag, gather_index,
                                         launched, on_cuda, operand, ptr,
                                         ragged_b_mask, recurrent_product,
-                                        seq_splits, seq_variant,
+                                        seq_limit, seq_splits, seq_variant,
                                         weight_operands)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
@@ -106,9 +106,9 @@ def lstm_decode_plain(xw0, Ws, bs, Us, h0, c0):
 
 
 #: The cell kernel's arithmetic in plain PyTorch is the oracle's: one fp32
-#: product h·U (the kernel's block_h / block_k tiling only reorders its
-#: fp32 sum), the gate and cell epilogue in fp32, h out in h_prev's dtype
-#: and c in fp32.
+#: product h·U (the kernel's split of the rows only reorders its fp32
+#: sum), the gate and cell epilogue in fp32, h out in h_prev's dtype and c
+#: in fp32.
 lstm_cell_plain = lstm_cell_ref
 
 
@@ -123,11 +123,12 @@ def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None, u_scales=None,
     stream; shapes and dtypes as ``lstm_seq_plain``, c0 fp32, U4 fp32,
     bf16 or (with u_scales) int8, u_rows int32."""
     G, B, T, _, H = xw.shape
+    seq_limit("lstm_seq", H)  # before any other check: a refusal
     dev = xw.device
     check_operands("lstm_seq", dev, U4=U4, xw=xw, h0=h0, c0=c0,
                    b_mask=b_mask, u_scales=u_scales, u_rows=u_rows)
     Hr, u_type = weight_operands("lstm_seq", U4, u_scales, u_rows, G, H, 4)
-    seq_splits(H, 4, U4.element_size(), Hr)  # H > 2048 raises
+    seq_splits(H, 4, U4.element_size(), Hr)
     check_shape("lstm_seq", "h0", h0, (G, B, H))
     check_shape("lstm_seq", "c0", c0, (G, B, H))
     if c0.dtype != torch.float32:
@@ -193,7 +194,11 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
 
 def lstm_cell_cuda(U4, xw_t, h_prev, c_prev, block_h: int, block_k: int):
     """Launch ``csrc/lstm_cell.cu`` on the current stream; shapes and
-    dtypes as ``lstm_cell_plain``, c_prev fp32."""
+    dtypes as ``lstm_cell_plain``, c_prev fp32.  ``block_h`` and
+    ``block_k`` are the TPU kernel's tile: checked (>= 1) and not passed,
+    since the card's kernel takes its split from (H, U's dtype) alone
+    (``kernels.common.cell_split``).  A width whose h rows do not fit a
+    CTA's shared memory raises ``KernelLaunchRefused``."""
     B, H = h_prev.shape
     dev = h_prev.device
     check_operands("lstm_cell", dev, U4=U4, xw_t=xw_t, h_prev=h_prev,
@@ -215,9 +220,8 @@ def lstm_cell_cuda(U4, xw_t, h_prev, c_prev, block_h: int, block_k: int):
     with torch.cuda.device(dev):
         rc = launch(U4.data_ptr(), xw_t.data_ptr(), h_prev.data_ptr(),
                     c_prev.data_ptr(), h.data_ptr(), c.data_ptr(), B, H,
-                    block_h, block_k, *flags,
-                    torch.cuda.current_stream(dev).cuda_stream)
-    launched("lstm_cell", rc)
+                    *flags, torch.cuda.current_stream(dev).cuda_stream)
+    launched("lstm_cell", rc, KernelLaunchRefused)
     count_launch(lstm_cell)
     return h, c
 
@@ -235,8 +239,11 @@ def lstm_cell(U4, xw_t, h_prev, c_prev, *, block_h: int = 0,
     read as fp32 -> (h in h_prev's dtype, c fp32).
 
     ``block_h`` (hidden units per block) and ``block_k`` (reduction
-    stripe) default to the autotune table's choice under a 2 MiB budget,
-    as in the reference; they change the fp32 summation order only."""
+    stripe) are the TPU kernel's tile and default to the autotune table's
+    choice under a 2 MiB budget, as in the reference.  They change no
+    number: the plain version takes one fp32 product, and the card's
+    kernel takes its split from (H, U's dtype) alone
+    (``kernels.common.cell_split``: a CTA per 8 hidden units)."""
     lstm_cell.calls += 1
     H = U4.shape[0]
     if not block_h or not block_k:

@@ -11,12 +11,12 @@ The input-dependent pieces (r, i, gated x, a) have no recurrent
 dependency: ``gate_inputs`` computes them for the whole sequence at once
 (two W x W products, left to ``torch.matmul`` as the reference leaves them
 to XLA), and the scan keeps only the serial per-channel update.
-``apply_rglru`` (the model's prefill) runs the scan through the
-``kernels.rglru.rglru_scan`` entry point — the hand-written kernel on CUDA
-tensors, its plain version on the CPU — as ``dispatch.execute`` does for
-rglru items.  Both evaluate each step as the reference's compiled scan
-does (``kernels.rglru.ref``), so the prefill keeps the reference's
-numbers.
+``scan_recurrence`` (and so ``apply_rglru``, the model's prefill) runs
+the scan through the ``kernels.rglru.rglru_scan`` entry point — the
+hand-written kernel on CUDA tensors, its plain version on the CPU — as
+``dispatch.execute`` does for rglru items.  Both evaluate each step as
+the reference's compiled scan does (``kernels.rglru.ref``), so the
+prefill keeps the reference's numbers.
 
 Parameters keep the reference's layout, so ``repro_torch.convert.from_jax``
 carries a JAX ``init_rglru`` tree over one to one.
@@ -65,14 +65,22 @@ def gate_inputs(params, x):
     return log_a, gx
 
 
+def scan_recurrence(log_a, gx, h0):
+    """The serial half: h_t = a_t h_(t-1) + sqrt(1 - a_t^2) gx_t, all
+    fp32; log_a, gx (B, T, W), h0 (B, W) -> (h_T (B, W), hs (B, T, W)),
+    in the reference's order.  One ``rglru_scan`` call: one kernel launch
+    on the card."""
+    hs, hT = rglru_scan(log_a, gx, h0)
+    return hT, hs
+
+
 def apply_rglru(params, x, h0=None):
-    """x (B, T, W) -> (y (B, T, W) in x's dtype, h_T fp32).  The scan is
-    one ``rglru_scan`` call: one kernel launch on the card."""
+    """x (B, T, W) -> (y (B, T, W) in x's dtype, h_T fp32)."""
     B, T, W = x.shape
     if h0 is None:
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
     log_a, gx = gate_inputs(params, x)
-    hs, hT = rglru_scan(log_a, gx, h0)
+    hT, hs = scan_recurrence(log_a, gx, h0)
     return hs.to(x.dtype), hT
 
 
@@ -114,5 +122,5 @@ def apply_conv1d(params, x, state=None):
     return y.to(x.dtype), new_state
 
 
-__all__ = ["C_EXP", "init_rglru", "gate_inputs",
+__all__ = ["C_EXP", "init_rglru", "gate_inputs", "scan_recurrence",
            "apply_rglru", "decode_step", "init_conv1d", "apply_conv1d"]

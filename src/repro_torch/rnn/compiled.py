@@ -47,7 +47,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schedules import stack_families
 from repro_torch.dispatch import (DispatchPlan, WorkItem, execute, plan,
                                   plan_decode, prepare_decode_stack)
-from repro_torch.kernels.common import dtype_name, torch_dtype
+from repro_torch.dispatch.executor import kernel_refusal
+from repro_torch.kernels.common import (KernelLaunchRefused, dtype_name,
+                                        torch_dtype)
 from repro_torch.kernels.quant import fake_quant_stack, stack_tile_maps
 from repro_torch.rnn.policy import ExecutionPolicy
 from repro_torch.runtime.errors import ExecutionReport, FaultInjector
@@ -157,7 +159,10 @@ def compile(model, policy: Optional[ExecutionPolicy] = None, *,
     variant).  For a parameter stack, families are inferred per layer from
     the gate widths — mixed lstm/gru stacks are first-class.  ``device``:
     where every entry point runs ("cuda" by default; "cpu" for the plain
-    PyTorch versions); the parameters are moved there.
+    PyTorch versions); the parameters are moved there.  On the card a
+    stack whose forward would launch a kernel past its limit on H
+    (``dispatch.executor.kernel_refusal``) is refused here with
+    ``KernelLaunchRefused``.
     """
     policy = _as_policy(policy)
     device = resolve_device(device)
@@ -197,6 +202,10 @@ def compile(model, policy: Optional[ExecutionPolicy] = None, *,
         raise TypeError(
             f"compile: expected a ModelConfig or a {{'layers': [...]}} "
             f"parameter stack, got {type(model).__name__}")
+    if device.type == "cuda":
+        refusal = kernel_refusal(params, policy)
+        if refusal:
+            raise KernelLaunchRefused(f"rnn.compile: {refusal}")
     return CompiledStack(_to_device(params, device), policy, device)
 
 

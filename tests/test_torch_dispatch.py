@@ -273,6 +273,90 @@ def test_guarded_ladder_recovers_and_build_errors_pass_through(
         cs.forward(xs)
 
 
+def _shape_stack(gates, H, X=8):
+    """A stack of meta tensors, one layer per entry of ``gates`` (4: lstm,
+    3: gru): ``executor.kernel_refusal`` reads shapes only."""
+    return {"layers": [
+        {"W": torch.empty((X if i == 0 else H, g * H), device="meta"),
+         "U": torch.empty((H, g * H), device="meta"),
+         "b": torch.empty((g * H,), device="meta")}
+        for i, g in enumerate(gates)]}
+
+
+@pytest.mark.parametrize("H", [2048, 4096])
+@pytest.mark.parametrize("schedule", rnn.policy.SCHEDULES)
+@pytest.mark.parametrize("family,gates", [
+    ("lstm", (4, 4)), ("gru", (3, 3)), ("mixed", (4, 3))])
+def test_compile_refuses_a_stack_past_its_kernels_limit(monkeypatch, family,
+                                                        gates, schedule, H):
+    """F5: on the card, a stack whose forward would launch a kernel past
+    its limit on H is refused at compile with one KernelLaunchRefused
+    naming the kernel and the limit.  The planned schedules launch the
+    sequence kernels (H <= 2048); per_step launches only lstm_cell (GRU
+    layers run plain PyTorch there), whose limit lies far above; the
+    research schedules launch nothing."""
+    from repro_torch.dispatch.executor import kernel_refusal
+    from repro_torch.kernels.common import CELL_MAX_H, SEQ_MAX_H
+    from repro_torch.rnn import compiled
+
+    params = _shape_stack(gates, H)
+    pol = rnn.ExecutionPolicy(schedule=schedule)
+    why = kernel_refusal(params, pol)
+    if H <= SEQ_MAX_H or schedule not in ("auto", "wavefront", "fused"):
+        assert why is None
+    else:
+        name = "lstm_seq" if family == "lstm" else "gru_seq"
+        assert why == (f"{name} takes H <= 2048 on the card, and this "
+                       f"stack's forward under schedule={schedule!r} "
+                       f"launches it at H={H}")
+        monkeypatch.setattr(compiled, "resolve_device",
+                            lambda d: torch.device("cuda"))
+        with pytest.raises(KernelLaunchRefused,
+                           match=f"rnn.compile: {name} takes H"):
+            rnn.compile(params, pol)
+    wide = _shape_stack(gates, CELL_MAX_H + 8)
+    per_step = rnn.ExecutionPolicy(schedule="per_step")
+    assert kernel_refusal(wide, per_step) == (
+        None if family == "gru" else
+        f"lstm_cell takes H <= {CELL_MAX_H} on the card, and this stack's "
+        f"forward under schedule='per_step' launches it at "
+        f"H={CELL_MAX_H + 8}")
+
+
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+def test_ladder_reraises_a_sequence_launch_past_the_limit(monkeypatch,
+                                                          family):
+    """F5: past H = 2048 the sequence wrappers raise KernelLaunchRefused
+    before any other check, and the guarded ladder (on_fault="fallback",
+    kernel rungs only, as on the card) re-raises it instead of retrying
+    the slot per step: one call of the entry point, no launch, no
+    degraded slot.  The card is claimed by patching the executor's and
+    the entry point's device tests, so the real wrapper runs up to its
+    refusal."""
+    import repro_torch.dispatch.executor as executor
+    from repro_torch.kernels.gru_cell import ops as gru_ops
+
+    H, g = 2049, 4 if family == "lstm" else 3
+    bf16 = torch.bfloat16
+    params = {"layers": [{"W": torch.zeros((8, g * H), dtype=bf16),
+                          "U": torch.zeros((H, g * H), dtype=bf16),
+                          "b": torch.zeros((g * H,), dtype=bf16)}]}
+    cs = rnn.compile(params, rnn.ExecutionPolicy(schedule="fused",
+                                                 on_fault="fallback"),
+                     device="cpu")
+    mod = ops if family == "lstm" else gru_ops
+    entry = mod.lstm_seq if family == "lstm" else mod.gru_seq
+    monkeypatch.setattr(executor, "_on_card", lambda t: True)
+    monkeypatch.setattr(mod, "on_cuda", lambda name, device: True)
+    reset_counts(entry)
+    with pytest.raises(KernelLaunchRefused,
+                       match=f"{family}_seq: the sequence kernels take H "
+                             "<= 2048, got H=2049"):
+        cs.forward(torch.zeros((1, 3, 8), dtype=bf16))
+    assert (entry.calls, entry.kernel_launches) == (1, 0)
+    assert cs.stats.degraded_launches == 0
+
+
 @pytest.mark.parametrize("on_card", [False, True], ids=["cpu", "card"])
 def test_refused_decode_launch_passes_through_the_ladder(monkeypatch,
                                                          on_card):

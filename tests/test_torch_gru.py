@@ -671,6 +671,43 @@ def test_seq_plain_fp32_walk_against_fp64(family, H):
         assert drift(1.0) > 2e-5
 
 
+#: The fp32 plain versions' own drift from the fp64 walk at 0.2 a weight,
+#: H = 1024, on the inputs below (test_seq_plain_fp32_walk_against_fp64
+#: records it: past 2e-5; GRU 1.02e-4, LSTM 3.38e-5).
+SEQ_FP32_DRIFT = {"gru": 1.02e-4, "lstm": 3.38e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+def test_cuda_seq_unscaled_against_fp64_walk(cuda, family):
+    """F6: gru_seq and lstm_seq at H = 1024 with 0.2 a weight and no
+    scaling (U streamed), held against the fp64 walk, not the fp32 plain
+    version, which drifts as far as a kernel may.  The tolerance is twice
+    the plain version's recorded drift: the kernel also sums each h·U in
+    fp32, only in another order (row groups, then their partials in group
+    order), so its roundings are of the same size and the recurrence
+    carries them the same way; twice that drift leaves room for another
+    order's draw, and an error of the kernel's own (a wrong row or gate)
+    moves outputs by orders of magnitude more."""
+    H = 1024
+    mask = torch.tensor([[1] * 5, [1, 1, 0, 0, 0], [1] * 5],
+                        dtype=torch.int32)
+    if family == "gru":
+        (_, U), (_, xw), (_, h0) = _seq_inputs(3, 5, 9, H, "float32",
+                                               "float32", seed=2)
+        state, seq = (h0,), ops.gru_seq
+    else:
+        U, xw, h0, c0 = _torch(_lstm_seq_inputs(3, 5, 9, H, "float32",
+                                                "float32", seed=2))
+        state, seq = (h0, c0), lstm_ops.lstm_seq
+    ref = _seq_walk_fp64(family, U, xw, state, (mask != 0)[..., None])
+    out = seq(U.to(cuda), xw.to(cuda), *(t.to(cuda) for t in state),
+              b_valid=[5, 2, 5])
+    drift = max((o.cpu().double() - r).abs().max().item()
+                for o, r in zip(out, ref))
+    assert drift <= 2 * SEQ_FP32_DRIFT[family], drift
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H", [340, 1024, 50])
 @pytest.mark.parametrize("B", [1, 4, 5])

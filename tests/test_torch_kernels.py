@@ -343,6 +343,62 @@ def test_seq_splits_raise_past_the_kernels_limit():
         common.seq_smem(64, 3, 2, 65)
 
 
+@pytest.mark.parametrize("u_bytes", [4, 2])
+def test_cell_split_depends_on_the_shape_only(u_bytes):
+    """The cell kernel's split of one step (``cell_split``, the mirror of
+    csrc/lstm_cell.cu) is a function of (H, U's element size) alone: a CTA
+    per 8 hidden units (the last one narrower where 8 does not divide H),
+    so at least 32 CTAs at the per_step BYSDNE width; vectors of 8 bf16
+    units where H % 8 == 0, of 4 where H % 4 == 0, else 1 (the slices start
+    on multiples of 8 units, so every vector is aligned); 256 threads, one
+    per (row group, vector), whose row groups cover the H rows.  Its shared
+    memory (h of up to 4 rows, reused for the partials) fits a CTA up to
+    CELL_MAX_H at every B, the limit of the design before it."""
+    import inspect
+
+    assert list(inspect.signature(common.cell_split).parameters) == [
+        "H", "u_bytes"]
+    want = {50: (7, 1), 340: (43, 4), 1024: (128, 8 if u_bytes == 2 else 4),
+            4096: (512, 8 if u_bytes == 2 else 4)}
+    for H, (ctas, V) in want.items():
+        sp = common.cell_split(H, u_bytes)
+        assert (sp["ctas"], sp["V"]) == (ctas, V)
+        assert common.decode_unit_align(H) % V == 0
+        assert sp["Q"] * V == 4 * common.CELL_UNITS
+        assert sp["KG"] * sp["Q"] == common.CELL_THREADS
+        assert sp["KR"] == -(-H // sp["KG"])  # the groups cover the rows
+        last = H - (ctas - 1) * common.CELL_UNITS
+        assert 0 < last <= common.CELL_UNITS and last % V == 0
+    assert common.decode_unit_align(340) == 4
+    assert common.decode_unit_align(50) == 1
+    assert common.cell_split(340, 2)["ctas"] >= 32
+    for B in (1, 2, 4, 5):
+        assert common.cell_smem(common.CELL_MAX_H, u_bytes, B) \
+            <= common.SEQ_MAX_SMEM
+    assert common.cell_smem(common.CELL_MAX_H + 1, u_bytes, 4) \
+        > common.SEQ_MAX_SMEM
+    assert common.cell_smem(340, u_bytes, 4) == 4 * 4 * max(
+        340, 32 * common.cell_split(340, u_bytes)["KG"])
+    with pytest.raises(ValueError, match="H >= 1"):
+        common.cell_split(0, u_bytes)
+
+
+def test_seq_limit_refuses_before_any_other_check():
+    """F5: past H = 2048 the sequence wrappers raise KernelLaunchRefused
+    (which the guarded ladder re-raises), before they look at a device or
+    any other operand; up to 2048 seq_limit passes."""
+    from repro_torch.kernels.gru_cell import ops as gru_ops
+
+    common.seq_limit("lstm_seq", common.SEQ_MAX_H)
+    for H in (2049, 4096):
+        for name, wrapper, gates in (("lstm_seq", ops.lstm_seq_cuda, 4),
+                                     ("gru_seq", gru_ops.gru_seq_cuda, 3)):
+            xw = torch.empty((1, 1, 1, gates, H), device="meta")
+            with pytest.raises(common.KernelLaunchRefused,
+                               match=f"{name}: .* H <= 2048, got H={H}"):
+                wrapper(None, xw, None, None)
+
+
 @pytest.mark.parametrize("H,B", [(72, 1), (72, 5), (50, 3)])
 @pytest.mark.parametrize("w_dtype,act_dtype", [
     ("float32", "float32"), ("bfloat16", "float32"),

@@ -363,17 +363,104 @@ def cuda():
     return torch.device("cuda")
 
 
+def _cuda_cell_args(cuda, B, H, u_dtype, act_dtype, seed=0):
+    """The cell's operands on the card, drawn as ``_cell_inputs`` draws
+    them (0.2 a weight, h and c 0.5), c in fp32; numpy alone, so H = 4096
+    takes a second.  Past H = 340, U is scaled by sqrt(340 / H) to H =
+    340's spread of the gate pre-activations: at 0.2 a weight they would
+    reach a standard deviation of 3-6, where most sigmoids and tanhs sit
+    on their flat tails and a wrong row or column of U hardly shows."""
+    rng = np.random.default_rng(seed)
+    u_scale = 0.2 * min(1.0, (340 / H) ** 0.5)
+    shapes = (((H, 4, H), u_scale, u_dtype), ((B, 4, H), 1.0, act_dtype),
+              ((B, H), 0.5, act_dtype), ((B, H), 0.5, "float32"))
+    return [torch.from_numpy(_rand(rng, shape, scale)).to(TDT[dt]).to(cuda)
+            for shape, scale, dt in shapes]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("block_k", [0, 24])
+@pytest.mark.parametrize("H", [50, 340, 1024, 4096])
+@pytest.mark.parametrize("B", [1, 4, 5])
 @pytest.mark.parametrize("u_dtype,act_dtype", [
     ("float32", "float32"), ("bfloat16", "float32"),
     ("bfloat16", "bfloat16")])
-def test_cuda_lstm_cell_matches_plain(cuda, B, block_k, u_dtype, act_dtype):
-    args = [t.to(cuda) for _, t in _cell_inputs(B, 340, u_dtype, act_dtype,
-                                                "float32", seed=B)]
+def test_cuda_lstm_cell_matches_plain(cuda, H, B, u_dtype, act_dtype):
+    """Within 1e-4 (fp32 activations) or 2e-2 (bf16) of the plain version
+    at every width the split takes apart differently: H = 50 (scalar
+    loads; the last CTA holds 2 of its 8 units, the masked tail), 340 (8-
+    byte bf16 vectors; the last CTA 4 units), 1024 and 4096 (16-byte bf16
+    vectors); B = 5 takes a second group of rows."""
+    args = _cuda_cell_args(cuda, B, H, u_dtype, act_dtype, seed=B)
     ref = ops.lstm_cell_plain(*args)
-    out = ops.lstm_cell(*args, block_k=block_k)
+    out = ops.lstm_cell(*args)
     tol = 1e-4 if act_dtype == "float32" else BF16_TOL
     for r, o in zip(ref, out):
+        assert o.dtype == r.dtype
         torch.testing.assert_close(o.float(), r.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [50, 340, 1024])
+def test_cuda_lstm_cell_is_bit_equal_across_batch_runs_and_graph(cuda, H):
+    """The split comes from (H, U's dtype) alone and no partial is added by
+    an atomic, so each row of a B = 5 call equals its B = 1 call and the
+    same row of a B = 4 call bit for bit, two runs agree, and a CUDA
+    graph's replay equals the eager call; every call is one launch."""
+    args = _cuda_cell_args(cuda, 5, H, "bfloat16", "float32", seed=H)
+    reset_counts(ops.lstm_cell)
+    out = ops.lstm_cell(*args)
+    again = ops.lstm_cell(*args)
+    four = ops.lstm_cell(args[0], *(t[:4] for t in args[1:]))
+    rows = [ops.lstm_cell(args[0], *(t[r:r + 1] for t in args[1:]))
+            for r in range(5)]
+    assert ops.lstm_cell.kernel_launches == ops.lstm_cell.calls == 8
+    for o, a, f in zip(out, again, four):
+        assert torch.equal(o, a) and torch.equal(o[:4], f)
+    for r, row in enumerate(rows):
+        for o, x in zip(out, row):
+            assert torch.equal(o[r:r + 1], x)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        replayed = ops.lstm_cell(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, x in zip(out, replayed):
+        assert torch.equal(o, x)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_cell_tile_changes_no_number(cuda):
+    """block_h / block_k are the TPU kernel's tile: the card's kernel takes
+    its split from the shape, so every tile gives the same bits; the
+    wrapper still checks them."""
+    args = _cuda_cell_args(cuda, 4, 340, "bfloat16", "float32", seed=3)
+    base = ops.lstm_cell(*args)
+    for bh, bk in ((128, 8), (8, 5), (340, 340), (1, 24)):
+        for o, b in zip(ops.lstm_cell(*args, block_h=bh, block_k=bk), base):
+            assert torch.equal(o, b)
+    with pytest.raises(ValueError, match="block_h"):
+        ops.lstm_cell_cuda(*args, block_h=0, block_k=8)
+
+
+@pytest.mark.cuda
+def test_cuda_cell_shape_mirrors_cell_split(cuda):
+    """What the C side takes for a launch (its shape query) is the Python
+    mirror's split: ceil(H / 8) CTAs along x, the groups of 4 rows along
+    y, V, KG and the shared memory; past CELL_MAX_H at 4 rows the launch is
+    refused (KernelLaunchRefused), where 1 row still fits."""
+    from repro_torch.kernels import common
+
+    for H in (50, 340, 1024, 4096):
+        for dt, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+            for B in (1, 4, 5):
+                sp = common.cell_split(H, nbytes)
+                assert common.cell_shape(B, H, dt) == dict(
+                    ctas_x=sp["ctas"], ctas_y=-(-B // 4) if B > 2 else 1,
+                    V=sp["V"], KG=sp["KG"],
+                    smem=common.cell_smem(H, nbytes, B))
+    wide = common.CELL_MAX_H + 1
+    with pytest.raises(common.KernelLaunchRefused):
+        common.cell_shape(4, wide, torch.bfloat16)
+    assert common.cell_shape(1, wide, torch.bfloat16)["ctas_x"] == \
+        -(-wide // 8)

@@ -220,6 +220,21 @@ def test_init_rglru_shapes_dtypes_and_decay_range():
     assert bool(((ac > 0.9 - 1e-5) & (ac < 0.999 + 1e-5)).all())
 
 
+@pytest.mark.parametrize("B,T,W", [(1, 4, 32), (2, 13, 100), (3, 7, 513)])
+def test_scan_recurrence_matches_reference(B, T, W):
+    """F7: the layer's serial half, ``scan_recurrence(log_a, gx, h0)``,
+    returns (h_T, hs) in the reference's order and within its tolerance
+    (atol 1e-6), over the scan kernel's entry point (one call)."""
+    la, gx, h0 = _scan_inputs(B, T, W, seed=B * T)
+    reset_counts(ops.rglru_scan)
+    hT, hs = rglru.scan_recurrence(*map(torch.from_numpy, (la, gx, h0)))
+    jhT, jhs = jrglru.scan_recurrence(*map(jnp.asarray, (la, gx, h0)))
+    assert tuple(hT.shape) == (B, W) and tuple(hs.shape) == (B, T, W)
+    _close(hT, jhT)
+    _close(hs, jhs)
+    assert ops.rglru_scan.calls == 1
+
+
 @pytest.mark.parametrize("B,T,W", [(2, 12, 64), (1, 5, 100)])
 def test_gate_inputs_and_apply_rglru_match_reference(B, T, W):
     """gate_inputs and apply_rglru (from zero and from a given state) on
