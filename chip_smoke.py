@@ -143,7 +143,27 @@ Phases, one line (or a few) of output each:
                --profile, also 8 batched ticks and the 64- and 2048-token
                prefills under torch.profiler, each prefill's rglru_scan
                device ms and launches (18, one a rglru layer)
- 11 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 11 calib      the measured cost model (repro_torch.calib) on the card:
+               replays what EESEN (B=4, T=300) and BYSDNE as an LSTM and a
+               GRU launch (prefill slots; the decode tick's chained and
+               per-layer sides at B = 4, 2, 1), EESEN's G=2 and G=1 slots
+               at the other stripes the planner weighs and its bt300 slot,
+               and the smoke grid, into a table tagged cuda(<card>) under
+               --out (a temporary directory without it): each signature's
+               med / p90 us (CUDA events around the eager call) and
+               analytic cycles; every replay one kernel launch, no plain
+               version, no other tag in the table, check_table within 25x;
+               the per_step price (lstm_seq G=1 bt1) beside lstm_cell's
+               eager us; then rnn.compile(EESEN) forward under the
+               measured policy (launches == plan.launches, output against
+               the analytic plan's, both plans, their warm walls in turns,
+               the model's us for the chosen plan and for a bt300 plan);
+               the serve and serve_gru checks under the measured policy; a
+               copy of the table with every chained signature 1000x dearer
+               flips BYSDNE's decode tick to 5 lstm_seq launches (no
+               lstm_decode), within TOL_FP32 of the chained tick; and
+               `python -m repro_torch.calib --grid smoke --check 25` exits 0
+ 12 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -169,7 +189,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "serve_gru",
-          "offpath", "rglru", "precision", "serve_lm", "summary")
+          "offpath", "rglru", "precision", "serve_lm", "calib", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -1951,22 +1971,26 @@ def _kernels_decode_attention(ctx, dev):
 REQUESTS = (30, 30, 17, 45, 8, 30)
 
 
-def _serve(device, params, frames, family="lstm"):
+def _serve(device, params, frames, family="lstm", **engine_kw):
     from repro_torch.configs.sharp_lstm import BYSDNE
     from repro_torch.serving import RecurrentRequest, RecurrentServingEngine
 
     eng = RecurrentServingEngine(BYSDNE, params, max_batch=4,
-                                 rnn_family=family, device=device)
+                                 rnn_family=family, device=device,
+                                 **engine_kw)
     for uid, fr in enumerate(frames):
         eng.submit(RecurrentRequest(uid=uid, frames=fr, max_new_frames=8))
     return eng, sorted(eng.run_to_completion(), key=lambda c: c.uid)
 
 
-def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
+def _serve_and_check(ctx, label, family, params, seq_k, dec_k,
+                     **engine_kw):
     """Serve the 6 BYSDNE requests on the card through ``family``'s
     kernels (``seq_k`` per admission slot, ``dec_k`` per tick), check the
     launches and statuses, hold the outputs against a device="cpu"
-    engine, and time a warm rerun."""
+    engine, and time a warm rerun.  ``engine_kw`` goes to the card's
+    engines (the calib phase's measured cost model); the CPU engine runs
+    the analytic default."""
     import numpy as np
     import torch
 
@@ -1978,7 +2002,7 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
               .astype(np.float32) for t in REQUESTS]
     everything = entries()
     reset_counts(*everything)
-    eng, done = _serve("cuda", params, frames, family)
+    eng, done = _serve("cuda", params, frames, family, **engine_kw)
     torch.cuda.synchronize()
     seq_n, dec_n = seq_k.kernel_launches, dec_k.kernel_launches
     others = sum(f.calls for f in everything if f not in (seq_k, dec_k))
@@ -2002,6 +2026,12 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
           "family's kernel was called")
     check(st.degraded_launches == 0 and st.fallback_level == 0,
           "a launch degraded down the guarded ladder")
+    if engine_kw.get("cost_model") == "measured":
+        print(f"{label}: measured cost model: {st.measured_hits} hits "
+              f"(with interpolated), {st.analytic_fallbacks} analytic "
+              f"fallbacks")
+        check(st.measured_hits > 0,
+              "the measured cost model priced no launch from its table")
     tally(ctx, seq_k, dec_k)
 
     _, cpu_done = _serve("cpu", params, frames, family)
@@ -2020,7 +2050,7 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
     check(err <= TOL_E2E, "served outputs disagree with the CPU path")
 
     t0 = time.perf_counter()
-    eng2, _ = _serve("cuda", params, frames, family)
+    eng2, _ = _serve("cuda", params, frames, family, **engine_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     frames_out = sum(t + 8 for t in REQUESTS)
@@ -2030,20 +2060,16 @@ def _serve_and_check(ctx, label, family, params, seq_k, dec_k):
           f"frames, {eng2.packed_launches + eng2.decode_launches} launches)")
     if ctx["profile"]:
         by_name, count = profile_breakdown(
-            lambda: _serve("cuda", params, frames, family), label)
+            lambda: _serve("cuda", params, frames, family, **engine_kw),
+            label)
         _profiled_launches(label, seq_k.__name__, by_name, count, seq_n)
 
 
 def phase_serve(ctx):
-    import torch
-
-    from repro_torch.configs.sharp_lstm import BYSDNE
     from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
-    from repro_torch.models.layers.lstm import init_lstm_stack
 
-    params = init_lstm_stack(torch.Generator().manual_seed(0), BYSDNE,
-                             torch.bfloat16)
-    _serve_and_check(ctx, "serve", "lstm", params, lstm_seq, lstm_decode)
+    _serve_and_check(ctx, "serve", "lstm", _bysdne("lstm"), lstm_seq,
+                     lstm_decode)
 
 
 def phase_forward(ctx):
@@ -2133,16 +2159,10 @@ def _check_ladder_on_card(cfg, xs, healthy):
 
 def phase_serve_gru(ctx):
     """The serve phase's 6 requests through BYSDNE as a GRU."""
-    import torch
-
-    from repro_torch.configs.sharp_lstm import BYSDNE
-    from repro_torch.core.gru import init_gru_stack
     from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
 
-    params = init_gru_stack(torch.Generator().manual_seed(0),
-                            BYSDNE.lstm_input, BYSDNE.lstm_hidden,
-                            BYSDNE.n_layers, torch.bfloat16)
-    _serve_and_check(ctx, "serve_gru", "gru", params, gru_seq, gru_decode)
+    _serve_and_check(ctx, "serve_gru", "gru", _bysdne("gru"), gru_seq,
+                     gru_decode)
 
 
 def _mixed_stack(H: int, seed: int):
@@ -2259,10 +2279,9 @@ def phase_offpath(ctx):
     check(err <= TOL_E2E, "unfolded output disagrees with the CPU path")
 
 
-def _stack(family: str, seed: int):
+def _bysdne(family: str, seed: int = 0):
     """BYSDNE (L=5, H=X=340) as ``family``, bf16 weights from a seeded
-    torch.Generator, with layer l's U zeroed on every 8-row tile t with
-    t % (l + 2) == 0 (H=340 has 43 tiles, the last one 4 rows)."""
+    torch.Generator."""
     import torch
 
     from repro_torch.configs.sharp_lstm import BYSDNE
@@ -2271,10 +2290,18 @@ def _stack(family: str, seed: int):
 
     gen = torch.Generator().manual_seed(seed)
     if family == "lstm":
-        params = init_lstm_stack(gen, BYSDNE, torch.bfloat16)
-    else:
-        params = init_gru_stack(gen, BYSDNE.lstm_input, BYSDNE.lstm_hidden,
-                                BYSDNE.n_layers, torch.bfloat16)
+        return init_lstm_stack(gen, BYSDNE, torch.bfloat16)
+    return init_gru_stack(gen, BYSDNE.lstm_input, BYSDNE.lstm_hidden,
+                          BYSDNE.n_layers, torch.bfloat16)
+
+
+def _stack(family: str, seed: int):
+    """``_bysdne(family, seed)`` with layer l's U zeroed on every 8-row
+    tile t with t % (l + 2) == 0 (H=340 has 43 tiles, the last one 4
+    rows)."""
+    from repro_torch.configs.sharp_lstm import BYSDNE
+
+    params = _bysdne(family, seed)
     H = BYSDNE.lstm_hidden
     for l, layer in enumerate(params["layers"]):
         for t in range(0, -(-H // 8), l + 2):
@@ -3165,6 +3192,316 @@ def _depth3_vs_cpu(cfg, params):
           f"({cpu_s:.1f} s on the CPU): tokens {on_card} vs {on_cpu}; "
           f"logits max_abs_err {err:.3e} over {compared} tokens (tol "
           f"{TOL_LM_DEPTH3:g})")
+
+
+#: the calib phase: BYSDNE's prefill shapes (B, T) and, from their B's,
+#: the decode tick's chained and per-layer sides (the serve phases decode
+#: at B = 4 and 2)
+CALIB_BYSDNE_SHAPES = ((4, 30), (2, 30), (1, 30))
+#: the stripes the planner weighs for EESEN's item (2, 4, 8; 300 is
+#: closed by the TPU's VMEM budget): each one's G=2 (fwd+bwd) and G=1
+#: slots are calibrated, so the measured model scores every road the
+#: planner weighs on exact hits; at 300 only the G=2 slot a bt300 plan
+#: would launch
+CALIB_EESEN_STRIPES = (2, 4, 8, 300)
+CALIB_REPEATS = 5
+#: check_table's gross gate: a fresh replay within 25x of the stored
+#: median either way (catches unit and lowering errors, not jitter)
+CALIB_CHECK_TOL = 25.0
+#: the planted table's factor on every chained-decode signature
+CALIB_PLANT = 1000.0
+CALIB_TICKS = 3
+
+
+def _calib_candidates():
+    """The candidates the card is calibrated on: what EESEN (B=4, T=300)
+    and BYSDNE as an LSTM and a GRU launch (``candidates_for``), EESEN's
+    other stripes and its bt300 slot, and the smoke grid."""
+    from types import SimpleNamespace
+
+    from repro_torch import calib
+    from repro_torch.configs.sharp_lstm import BYSDNE, eesen_demo
+
+    eesen = eesen_demo()
+    H = eesen.lstm_hidden
+    cands = calib.candidates_for(eesen, shapes=((4, 300),))
+    for bt in CALIB_EESEN_STRIPES:
+        cands += [calib.Candidate("lstm", H, 2, 4, bt, dirs=("bwd", "fwd"))]
+        if bt != 300:
+            cands += [calib.Candidate("lstm", H, 1, 4, bt, dirs=(d,))
+                      for d in ("fwd", "bwd")]
+    for family in ("lstm", "gru"):
+        stack = SimpleNamespace(families=(family,) * BYSDNE.n_layers,
+                                H=BYSDNE.lstm_hidden, X=BYSDNE.lstm_input,
+                                L=BYSDNE.n_layers, bidirectional=False)
+        cands += calib.candidates_for(stack, shapes=CALIB_BYSDNE_SHAPES)
+    return calib.dedupe(cands + calib.sweep_grid(**calib.SMOKE_GRID))
+
+
+def _plan_us(model, slots) -> float:
+    """The measured model's µs for a plan's launches."""
+    return sum(model.slot_us(s.family, s.H, s.g, s.B, s.chunk_len, s.dtype,
+                             tuple(c.direction for c in s.cells), s.chained,
+                             s.precision) for s in slots)
+
+
+def phase_calib(ctx):
+    """The measured cost model on the card: calibrate, check the replay,
+    then the EESEN forward and the BYSDNE serves under it, a planted table
+    that flips the decode tick, and the CLI."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="calib-") as tmp:
+        _calib(ctx, ctx["out"] or tmp)
+
+
+def _calib(ctx, out):
+    import torch
+
+    from repro_torch import calib, rnn
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
+    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
+
+    paths = {k: os.path.join(out, f"measured_costs{k}.json")
+             for k in ("", "_planted", "_cli")}
+    for p in paths.values():
+        if os.path.exists(p):
+            os.remove(p)
+    rnn.resolve_device("cuda")
+    card = f"cuda({torch.cuda.get_device_name(0)})"
+
+    # 1. calibrate, counting every launch the replay makes
+    cands = _calib_candidates()
+    replayed = (lstm_seq, gru_seq, lstm_decode, gru_decode)
+    everything = entries()
+    reset_counts(*everything)
+    print(f"calib: {len(cands)} candidates, {CALIB_REPEATS} timed replays "
+          f"each after one warm-up (CUDA events around the eager call: the "
+          f"entry point's host time and the kernel), on {ctx.get('card')}")
+    t0 = time.perf_counter()
+    table = calib.calibrate(cands, device="cuda", repeats=CALIB_REPEATS,
+                            warmup=1, progress=print)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    table.save(paths[""])
+    calls = {f.__name__: (f.calls, f.kernel_launches) for f in replayed}
+    others = sum(f.calls for f in everything if f not in replayed)
+    print(f"calib: table [{table.backend}], {len(table)} signatures in "
+          f"{calib_s:.1f} s; entry point calls / kernel launches: "
+          + ", ".join(f"{k} {c} / {n}" for k, (c, n) in calls.items())
+          + f"; other entry points {others}")
+    check(table.backend == card, f"the table is tagged {table.backend!r}, "
+                                 f"not {card!r}")
+    check(all(c > 0 and c == n for c, n in calls.values()) and others == 0,
+          "a replay ran an entry point without launching its kernel (a "
+          "plain version ran), or a family's kernel was never replayed")
+    check(sum(c for c, _ in calls.values())
+          == len(cands) * (1 + CALIB_REPEATS),
+          "the replays' calls != candidates x (warm-up + repeats)")
+    with open(paths[""]) as f:
+        tags = sorted(json.load(f)["backends"])
+    check(tags == [card], f"the saved table holds other tags: {tags}")
+    bad = calib.check_table(table, device="cuda",
+                            tolerance=CALIB_CHECK_TOL, progress=print)
+    print(f"calib: check_table within {CALIB_CHECK_TOL:g}x: "
+          f"{len(table) - len(bad)} of {len(table)} agree")
+    check(not bad, f"replays disagree with the table beyond "
+                   f"{CALIB_CHECK_TOL:g}x: {bad}")
+    ctx["calib"] = {"backend": table.backend, "seconds": calib_s,
+                    "table": {s: table.lookup(s) for s in
+                              table.signatures()}}
+    _calib_per_step_price(ctx, table)
+
+    # 2. the EESEN forward, measured against analytic scoring
+    _calib_forward(ctx, paths[""], table)
+
+    # 3. BYSDNE served under the measured policy, as an LSTM and a GRU
+    lstm_params = _bysdne("lstm")
+    _serve_and_check(ctx, "calib_serve", "lstm", lstm_params, lstm_seq,
+                     lstm_decode, cost_model="measured",
+                     cost_table=paths[""])
+    _serve_and_check(ctx, "calib_serve_gru", "gru", _bysdne("gru"), gru_seq,
+                     gru_decode, cost_model="measured",
+                     cost_table=paths[""])
+
+    # 4. a planted table that prices the chain 1000x dearer
+    _calib_planted(ctx, paths[""], paths["_planted"], table.backend,
+                   lstm_params)
+
+    # 5. the CLI on the card
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.calib", "--grid", "smoke",
+         "--check", f"{CALIB_CHECK_TOL:g}", "--out", paths["_cli"]],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    tail = cli.stdout.strip().splitlines()[-2:]
+    print(f"calib: python -m repro_torch.calib --grid smoke --check "
+          f"{CALIB_CHECK_TOL:g}: exit {cli.returncode}; {' | '.join(tail)}")
+    check(cli.returncode == 0, f"the calib CLI failed: "
+                               f"{cli.stderr.strip()[-2000:]}")
+    with open(paths["_cli"]) as f:
+        tags = sorted(json.load(f)["backends"])
+    check(tags == [card], f"the CLI's table holds other tags: {tags}")
+
+
+def _calib_per_step_price(ctx, table):
+    """The per_step schedule is priced as the lstm G=1 bt1 signature
+    (replayed through lstm_seq, the reference's rule) while the card runs
+    lstm_cell: both eager, by the same clock, for the record."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell
+    from repro_torch.runtime.obs import measure_samples, slot_signature
+
+    sig = slot_signature("lstm", 340, 1, 4, 1, "float32")
+    priced = table.lookup(sig)["med_us"]
+    U, xw, h, c = _cell_case(4, 340, torch.float32, torch.float32, 7,
+                             torch.device("cuda"))
+    cell = statistics.median(measure_samples(lambda: lstm_cell(U, xw, h, c),
+                                     repeats=CALIB_REPEATS, warmup=1))
+    ctx["calib"]["per_step"] = {"priced_us": priced, "lstm_cell_us": cell}
+    print(f"calib: per_step's price {sig} = {priced:.1f} us (lstm_seq); "
+          f"lstm_cell, which per_step runs, eager at the same shape "
+          f"{cell:.1f} us")
+
+
+def _calib_forward(ctx, path, table):
+    """rnn.compile(EESEN) under the measured policy: launches, stats and
+    output against the analytic plan on the card, the plans, their warm
+    walls in turns, and the model's µs for the chosen plan and for the
+    bt300 plan the TPU budget closes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import calib, rnn
+    from repro_torch.configs.sharp_lstm import eesen_demo
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq
+
+    cfg = eesen_demo()
+    xs = (np.random.default_rng(1).standard_normal((4, 300, 340)) * 0.5
+          ).astype(np.float32)
+    analytic = rnn.compile(cfg, device="cuda", seed=0)
+    measured = rnn.compile(cfg, rnn.ExecutionPolicy(
+        cost_model="measured", cost_table=path), device="cuda", seed=0)
+    everything = entries()
+    reset_counts(*everything)
+    ys = measured.forward(xs)
+    torch.cuda.synchronize()
+    n, p = lstm_seq.kernel_launches, measured.plan.launches
+    others = sum(f.calls for f in everything if f is not lstm_seq)
+    st = measured.stats
+    check(tuple(ys.shape) == (4, 300, 680)
+          and bool(torch.isfinite(ys).all()),
+          "measured forward: wrong shape or not finite")
+    check(n == p == lstm_seq.calls and others == 0,
+          "measured forward: launches != plan.launches")
+    check(st.degraded_launches == 0, "measured forward degraded")
+    check(st.measured_hits > 0, "measured forward: no launch priced from "
+                                "the table")
+    tally(ctx, lstm_seq)
+    ref = analytic.forward(xs)
+    torch.cuda.synchronize()
+    err = float((ys - ref).abs().max())
+    check(err <= TOL_E2E, "measured forward disagrees with the analytic "
+                          "plan's")
+
+    def items(cs):
+        return [(ip.schedule, ip.block_t) for ip in cs.plan.items]
+
+    walls = {"analytic": [], "measured": []}
+    for _ in range(3):
+        for name in ("analytic", "measured", "measured", "analytic"):
+            cs = analytic if name == "analytic" else measured
+            t0 = time.perf_counter()
+            cs.forward(xs)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    model = calib.MeasuredCostModel(table)
+    us = {"measured": _plan_us(model, measured.plan.slots),
+          "analytic": _plan_us(model, analytic.plan.slots),
+          "bt300": cfg.n_layers * model.slot_us(
+              "lstm", 340, 2, 4, 300, "float32", ("bwd", "fwd"))}
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    ctx["calib"]["forward"] = {
+        "measured_items": items(measured), "analytic_items": items(analytic),
+        "measured_launches": p, "analytic_launches": analytic.plan.launches,
+        "walls_ms": walls, "model_us": us, "max_abs_err": err,
+        "measured_hits": st.measured_hits,
+        "analytic_fallbacks": st.analytic_fallbacks}
+    print(f"calib forward: EESEN B=4 T=300 measured plan {items(measured)}, "
+          f"{p} launches ({st.measured_hits} hits with interpolated, "
+          f"{st.analytic_fallbacks} analytic fallbacks); analytic plan "
+          f"{items(analytic)}, {analytic.plan.launches} launches; "
+          f"max_abs_err {err:.3e} (tol {TOL_E2E:g})")
+    print(f"calib forward: warm walls in turns (a, m, m, a) x3: measured "
+          f"median {med['measured']:.2f} ms {['%.2f' % w for w in walls['measured']]}, "
+          f"analytic median {med['analytic']:.2f} ms "
+          f"{['%.2f' % w for w in walls['analytic']]}")
+    print(f"calib forward: the model's us for the measured plan "
+          f"{us['measured']:.1f}, the analytic plan {us['analytic']:.1f}, "
+          f"and a bt300 plan ({cfg.n_layers} G=2 launches, which the TPU "
+          f"VMEM budget keeps from the planner) {us['bt300']:.1f}")
+
+
+def _calib_planted(ctx, path, planted, backend, params):
+    """The table with every chained-decode signature priced CALIB_PLANT x
+    dearer must flip BYSDNE's decode tick to the per-layer plan on the
+    card (5 lstm_seq launches a tick, no lstm_decode), with the chained
+    tick's outputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
+
+    with open(path) as f:
+        raw = json.load(f)
+    n_planted = 0
+    for sig, e in raw["backends"][backend].items():
+        if sig.endswith("|chained"):
+            e["med_us"] *= CALIB_PLANT
+            e["p90_us"] *= CALIB_PLANT
+            n_planted += 1
+    with open(planted, "w") as f:
+        json.dump(raw, f)
+    xs = (np.random.default_rng(2).standard_normal((4, 30, 340)) * 0.5
+          ).astype(np.float32)
+    flipped = rnn.compile(params, rnn.ExecutionPolicy(
+        cost_model="measured", cost_table=planted), device="cuda")
+    chained = rnn.compile(params, device="cuda")
+    ys, st_f = flipped.prefill(xs)
+    _, st_c = chained.prefill(xs)
+    y_f = y_c = ys[:, -1:]
+    everything = entries()
+    err = 0.0
+    for _ in range(CALIB_TICKS):
+        reset_counts(*everything)
+        y_f, st_f = flipped.decode(y_f, st_f)
+        torch.cuda.synchronize()
+        got = (lstm_seq.calls, lstm_seq.kernel_launches, lstm_decode.calls)
+        p = flipped.last_decode_plan
+        check(got == (5, 5, 0) and p.launches == 5
+              and all(ip.schedule != "decode" for ip in p.items),
+              f"the planted table did not flip the tick to 5 per-layer "
+              f"launches: lstm_seq calls/launches, lstm_decode calls {got}")
+        tally(ctx, lstm_seq)
+        reset_counts(*everything)
+        y_c, st_c = chained.decode(y_c, st_c)
+        torch.cuda.synchronize()
+        check(lstm_decode.kernel_launches == 1 and lstm_seq.calls == 0,
+              "the analytic tick is not one lstm_decode launch")
+        err = max(err, float((y_f - y_c).abs().max()),
+                  *(float((st_f[k] - st_c[k]).abs().max()) for k in "hc"))
+    ctx["calib"]["planted"] = {"chained_signatures": n_planted,
+                               "max_abs_err": err}
+    print(f"calib planted: {n_planted} chained signatures x{CALIB_PLANT:g}: "
+          f"{CALIB_TICKS} BYSDNE ticks at B=4 ran 5 lstm_seq launches each "
+          f"and no lstm_decode; vs the chained ticks max_abs_err {err:.3e} "
+          f"(tol {TOL_FP32:g})")
+    check(err <= TOL_FP32, "the flipped tick disagrees with the chained one")
 
 
 def phase_summary(ctx):

@@ -637,9 +637,17 @@ def _schedule_item(it: WorkItem, macs: int, design: Design,
         est = _wave_est(it, design, nk=nk)
         scored.append((est, -bt, bt, nk, "wavefront" if nk > 1 else "fused"))
     ps = _per_step_plan(it, design, tile_k, mvm_block, dirs=it.dirs)
-    scored.append((ps.est_cycles, 0, 0, it.T, "per_step"))
-
     cm = _active_cost_model(cost_model)
+    if not (cm is not None and cm.on_card and "gru" in it.families):
+        # The port departs from the reference here, on the card only: the
+        # reference prices a gru layer's per_step as launch-free compute
+        # (its pure-jnp scan), which a table measured on a card converts to
+        # a few µs, so measured mode would pick it for every gru item.  On
+        # the card that road is plain PyTorch (or, collecting state, L
+        # launches the plan does not count), which the port never takes
+        # by itself; a table of any other backend plans as the reference.
+        scored.append((ps.est_cycles, 0, 0, it.T, "per_step"))
+
     measured_us: Dict[Tuple[str, int], float] = {}
     if cm is not None:
         # re-rank on measured µs: price each candidate's actual launches

@@ -15,7 +15,8 @@ the tile dispatcher's planner/executor:
                          admission wave)
     decode(x_t, state)   one T=1 tick resumed from ``state`` — a single
                          chained ``lstm_decode`` / ``gru_decode`` launch
-                         (a mixed stack: L per-layer launches)
+                         (a mixed stack, or a measured table that prices
+                         the chain dearer: L per-layer launches)
     plan                 the most recent DispatchPlan (``.describe()``
                          prints every launch the executor will make)
     stats                launches / est_cycles / plans_built accounting
@@ -109,7 +110,14 @@ class StackStats:
     buffer keeping the ``MAX_FAULT_TRAIL`` most recent entries
     (``faults_total`` counts every fault ever).  All of these stay
     zero/empty on a healthy stack — they are the degradation signal the
-    serving layer watches."""
+    serving layer watches.
+
+    ``measured_hits``/``analytic_fallbacks`` (policy
+    ``cost_model="measured"``) count the measured cost model's lookup
+    resolutions across every plan this stack built: hits include
+    interpolated neighbours; fallbacks are shapes the calibration table
+    could not price (scored analytically instead).  Both stay zero under
+    ``cost_model="analytic"``."""
 
     #: ring-buffer bound on ``faults``
     MAX_FAULT_TRAIL = 64
@@ -126,6 +134,8 @@ class StackStats:
     fallback_level: int = 0
     faults: List[str] = dataclasses.field(default_factory=list)
     faults_total: int = 0
+    measured_hits: int = 0
+    analytic_fallbacks: int = 0
 
     def record_faults(self, entries: Sequence[str]) -> None:
         """Append to the fault trail, keeping only the last
@@ -261,6 +271,22 @@ class CompiledStack:
         #: at compile (policy ``sparsity="block"``): per-layer 8-row tile
         #: bitmaps the planner prices and the executor row-compacts
         #: against.  None = dense.
+        #: the planner's cost scorer (policy ``cost_model="measured"``): a
+        #: calib.MeasuredCostModel over the persisted calibration table,
+        #: bound to THIS device's backend tag (``cuda(<name>)`` or
+        #: ``torch(cpu)``); None under "analytic".  A missing or empty
+        #: table leaves the model inactive — the planner then takes the
+        #: analytic paths untouched (cold start).
+        self.cost_model = None
+        if policy.cost_model == "measured":
+            from repro_torch.calib import (MEASURED_COSTS_PATH,
+                                           MeasuredCostModel,
+                                           MeasuredCostTable,
+                                           current_backend)
+            table = MeasuredCostTable.load(
+                policy.cost_table or MEASURED_COSTS_PATH,
+                backend=current_backend(device))
+            self.cost_model = MeasuredCostModel(table, macs=policy.macs)
         self._tile_map: Optional[tuple] = None
         if policy.sparsity == "block":
             self._tile_map = stack_tile_maps(params)
@@ -324,6 +350,10 @@ class CompiledStack:
             self.stats.plans_built += 1
             if key[0] == "dec":
                 self.stats.decode_plans_built += 1
+            if self.cost_model is not None:
+                cm = self.cost_model
+                self.stats.measured_hits = cm.hits + cm.interpolated
+                self.stats.analytic_fallbacks = cm.fallbacks
         else:
             self._plans[key] = self._plans.pop(key)  # LRU refresh
         return p
@@ -346,7 +376,8 @@ class CompiledStack:
             [self._item(i, b, t, dt, priority=p)
              for i, ((b, t, dt), p) in enumerate(zip(shapes, prios))],
             macs=pol.macs, cross_b=pol.packing, align_stripes=pol.packing,
-            schedule=force, block_t=pol.block_t, tracer=self.tracer))
+            schedule=force, block_t=pol.block_t, tracer=self.tracer,
+            cost_model=self.cost_model))
 
     # ------------------------------------------------------------------
     def _as_input(self, x):
@@ -480,7 +511,8 @@ class CompiledStack:
         [, "c"]}); returns (y_t (B, 1, H), new_state).
 
         Homogeneous lstm/gru stacks run the whole tick as ONE chained
-        ``lstm_decode`` / ``gru_decode`` launch (the serving steady state);
+        ``lstm_decode`` / ``gru_decode`` launch (the serving steady state)
+        unless the measured cost model prices L per-layer launches cheaper;
         mixed stacks run a per-layer T=1 plan (L launches).  The policy's
         schedule preference does not apply here — decode is always
         state-resumed, which only the dispatcher paths support.
@@ -509,16 +541,23 @@ class CompiledStack:
             if not self.heterogeneous:
                 p = self._cached(key, lambda: plan_decode(
                     [self._item(0, B, 1, dtype)], macs=self.policy.macs,
-                    tracer=tr))
-                if self._prepared is None:
-                    # self.params already carries the fake-quant view, so
-                    # the precision round-trip here is an exact idempotent
-                    # no-op — passed anyway to keep the surfaces honest
-                    # about what decode computes with
-                    self._prepared = prepare_decode_stack(
-                        self.params, self.families[0],
-                        precision=self.policy.precision)
-                prepared = {0: self._prepared}
+                    tracer=tr, cost_model=self.cost_model))
+                if p.items[0].schedule == "decode":
+                    if self._prepared is None:
+                        # self.params already carries the fake-quant view,
+                        # so the precision round-trip here is an exact
+                        # idempotent no-op — passed anyway to keep the
+                        # surfaces honest about what decode computes with
+                        self._prepared = prepare_decode_stack(
+                            self.params, self.families[0],
+                            precision=self.policy.precision)
+                    prepared = {0: self._prepared}
+                else:
+                    # the measured cost model flipped this tick to the
+                    # per-layer plan (L lstm_seq / gru_seq launches beat
+                    # one chained launch on this device) — the mixed-stack
+                    # path, which needs no hoisted decode operands
+                    prepared = None
             else:
                 # mixed stacks: per-layer T=1 plan — FORCED onto the packed
                 # timeline (schedule="wavefront" at bt=1 collapses to
@@ -530,7 +569,7 @@ class CompiledStack:
                 p = self._cached(key, lambda: plan(
                     [self._item(0, B, 1, dtype)], macs=self.policy.macs,
                     cross_b=self.policy.packing, schedule="wavefront",
-                    block_t=1, tracer=tr))
+                    block_t=1, tracer=tr, cost_model=self.cost_model))
                 prepared = None
             rep, guard = self._guard()
             outs, states = execute(p, {0: self.params}, {0: x_t},
@@ -552,11 +591,14 @@ class CompiledStack:
                 else self.families[0])
         bi = " bidirectional" if self.bidirectional else ""
         s = self.stats
+        cm_line = ("analytic (perfmodel cycle formulas)"
+                   if self.cost_model is None
+                   else self.cost_model.describe())
         lines = [
             f"CompiledStack: {fams} L{self.L} H{self.H} "
             f"X{self.X}{bi} on {self.device}",
             f"  {self.policy.describe()}",
-            "  cost model: analytic (perfmodel cycle formulas)",
+            f"  cost model: {cm_line}",
             f"  stats: {s.forward_calls} forward / {s.decode_calls} decode "
             f"calls, {s.launches} launches ({s.decode_launches} decode), "
             f"{s.plans_built} plans built ({s.decode_plans_built} decode, "

@@ -16,7 +16,6 @@ from typing import Optional
 
 from repro_torch.dispatch.planner import DEFAULT_MACS
 from repro_torch.dispatch.workitem import PRECISIONS, SPARSITIES
-from repro_torch.runtime.errors import not_ported
 
 #: "auto" lets the planner score wavefront/fused/per_step per shape;
 #: the rest force one execution shape (the research schedules
@@ -45,7 +44,12 @@ VERIFY = ("off", "plan")
 # WorkItems): the port runs "fp32" / "none" (see the module doc).
 
 #: "analytic" scores plans with the perfmodel's cycle formulas (the
-#: default, zero-IO); "measured" (a replay-calibrated cost table) is queued.
+#: default, zero-IO).  "measured" loads the replay-calibrated table
+#: (``repro_torch.calib``, ``artifacts/measured_costs.json``) for the stack's
+#: device (``calib.current_backend``: ``cuda(<device name>)`` or
+#: ``torch(cpu)``) and scores merge/schedule/chained decisions in measured
+#: µs, falling back to analytic scaling for unmeasured shapes; an empty or
+#: missing table plans exactly as "analytic".
 COST_MODELS = ("analytic", "measured")
 
 
@@ -92,10 +96,16 @@ class ExecutionPolicy:
                before anything launches; "off" skips the check.  Runs
                once per plan-cache build (amortizes to zero across cache
                hits) and is counted in ``.stats.plans_verified``.
-    cost_model: "analytic" (perfmodel cycle formulas) runs; "measured"
-               is queued (ROADMAP.md, P2).
-    cost_table: path to the measured-cost JSON of the "measured" model
-               (validated, unused until P2 lands).
+    cost_model: "analytic" (perfmodel cycle formulas, the default) or
+               "measured" (score planner decisions — merge-vs-split,
+               schedule choice, chained-vs-loop decode — against the
+               replay-calibrated ``repro_torch.calib`` table for the
+               stack's device; unmeasured shapes interpolate from the
+               nearest measured neighbour or fall back to analytic, and an
+               empty table plans exactly as "analytic").
+    cost_table: path to the measured-cost JSON; None = the default
+               ``artifacts/measured_costs.json``.  Only read when
+               ``cost_model="measured"``.
     trace:     record wall-clock spans + metrics for every plan/launch/
                decode tick on ``CompiledStack.tracer`` (a
                ``runtime.obs.Tracer`` — Chrome-trace export, latency
@@ -149,8 +159,6 @@ class ExecutionPolicy:
                        (None, "a path to a measured-cost JSON"))
         if not isinstance(self.trace, bool):
             raise _bad("trace", self.trace, (True, False))
-        if self.cost_model != "analytic":
-            raise not_ported("ExecutionPolicy(cost_model='measured')", "P2")
 
     def describe(self) -> str:
         return (f"ExecutionPolicy(schedule={self.schedule}, "

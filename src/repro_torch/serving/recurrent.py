@@ -118,7 +118,11 @@ class RecurrentCompletion:
 
 
 class RecurrentServingEngine:
-    """Continuous batching over a fixed slot pool, recurrent edition."""
+    """Continuous batching over a fixed slot pool, recurrent edition.
+
+    ``cost_model`` / ``cost_table`` pass through to the compiled stack's
+    ``ExecutionPolicy`` (``"measured"`` plans every wave and tick against
+    the device's calibration table, ``repro_torch.calib``)."""
 
     def __init__(self, cfg: ModelConfig, stack_params, max_batch: int = 4,
                  macs: int = 16384, rnn_family: str = "lstm", *,
@@ -127,7 +131,9 @@ class RecurrentServingEngine:
                  backpressure: str = "reject",
                  watchdog_factor: Optional[float] = None,
                  watchdog_alpha: float = 0.3,
-                 trace: bool = False, device="cuda"):
+                 trace: bool = False, device="cuda",
+                 cost_model: str = "analytic",
+                 cost_table: Optional[str] = None):
         if cfg.family != "rnn":
             raise PlanRejected(
                 f"recurrent engine serves rnn stacks, got config "
@@ -155,7 +161,9 @@ class RecurrentServingEngine:
         self.on_fault = on_fault
         self.compiled: CompiledStack = rnn_compile(
             stack_params, ExecutionPolicy(macs=macs, on_fault=on_fault,
-                                          trace=trace), device=device)
+                                          trace=trace, cost_model=cost_model,
+                                          cost_table=cost_table),
+            device=device)
         self.device = self.compiled.device
         #: the compiled stack's tracer (runtime.obs) — the engine folds its
         #: serving events (admit spans, per-request admit->retire spans on

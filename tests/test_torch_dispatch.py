@@ -194,15 +194,18 @@ def test_default_device_without_cuda_raises():
     ({"precision": "bf16"}, "P1"), ({"sparsity": "block"}, "P1"),
     ({"cost_model": "measured"}, "P2")])
 def test_unported_policy_values_raise(policy_kw, item):
-    """Only the measured cost model (P2) is still unported, and it raises
-    naming P2 whatever it is combined with.  The P1 values (reduced
-    recurrent-weight precision, block sparsity) are ported: they construct
-    on their own (tests/test_torch_precision.py runs them)."""
-    with pytest.raises(NotImplementedError, match="P2"):
-        rnn.ExecutionPolicy(**{**policy_kw, "cost_model": "measured"})
-    if item == "P1":
-        pol = rnn.ExecutionPolicy(**policy_kw)
-        assert {k: getattr(pol, k) for k in policy_kw} == policy_kw
+    """Every policy value is ported now: the P1 values (reduced
+    recurrent-weight precision, block sparsity) and the measured cost
+    model (P2, ``repro_torch.calib``) construct on their own and together,
+    and ``describe()`` names the cost model, as the reference's does
+    (tests/test_torch_calib.py runs the measured model)."""
+    for kw in (policy_kw, {**policy_kw, "cost_model": "measured"}):
+        pol = rnn.ExecutionPolicy(**kw)
+        assert {k: getattr(pol, k) for k in kw} == kw
+        assert f"cost_model={pol.cost_model}" in pol.describe()
+        ref = jrnn.ExecutionPolicy(**kw)
+        assert pol.describe() == ref.describe().replace(
+            "interpret=None, ", "")
 
 
 def test_policy_validation_messages_match_reference():

@@ -50,6 +50,22 @@ def test_import_loads_neither_jax_nor_repro():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_calib_imports_neither_jax_nor_repro():
+    """The measured cost model's package and its CLI stand alone too."""
+    code = (
+        "import sys\n"
+        "import repro_torch.calib, repro_torch.calib.__main__\n"
+        "from repro_torch.calib import MeasuredCostTable, calibrate\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_chip_smoke_refuses_without_the_package(tmp_path):
     """Alone in a directory (no src/repro_torch beside it) the script
     exits non-zero and prints no result line."""

@@ -525,10 +525,14 @@ def test_reference_rung_dequantizes_and_expands():
 
 
 def test_measured_cost_model_still_raises():
-    """P2 stays unported, whatever precision and sparsity it comes with."""
-    with pytest.raises(NotImplementedError, match="P2"):
-        rnn.ExecutionPolicy(precision="int8", sparsity="block",
-                            cost_model="measured")
+    """The measured cost model (P2) is ported: it constructs with int8 and
+    block sparsity, and ``describe()`` names all three."""
+    pol = rnn.ExecutionPolicy(precision="int8", sparsity="block",
+                              cost_model="measured")
+    assert (pol.precision, pol.sparsity, pol.cost_model) == \
+        ("int8", "block", "measured")
+    for part in ("precision=int8", "sparsity=block", "cost_model=measured"):
+        assert part in pol.describe()
 
 
 # ---------------------------------------------------------------------------
