@@ -79,37 +79,54 @@ Phases, one line (or a few) of output each:
                no degraded launch; outputs held against a device="cpu"
                engine
   5 forward    rnn.compile(EESEN).forward (bidirectional, L=5, H=340,
-               fp32) at B=4, T=300 (200 lstm_seq launches); launches ==
-               plan.launches; output held
-               against the CPU path; then, outside the counted run, the
-               guarded ladder on the card: an injected fused fault
-               recovers through per-step kernel launches, one past
-               per-step raises
-  6 serve_gru  the same 6 requests through BYSDNE as a GRU
+               fp32) at B=4, T=300 under the card's device model
+               (core.tiling.device_model: one G=2 lstm_seq launch a layer
+               at bt300, which the TPU's VMEM budget refuses; the CPU
+               plans the reference's 200 launches at bt8); launches ==
+               plan.launches; output held against the CPU path; then,
+               outside the counted run, the guarded ladder on the card: an
+               injected fused fault recovers through per-step kernel
+               launches, one past per-step raises; then the plan beside
+               ExecutionPolicy(block_t=8) (the bt8 plan), outputs held
+               together, warm walls in turns (model, bt8, bt8, model) x3
+  6 paper      the paper's H=1024 networks at full width through the main
+               path under the card's model: RLDRADSPR (L=10, fp32) forward
+               at B=4, T=400 as an LSTM and as a GRU stack (lstm_seq /
+               gru_seq launches == plan.launches, no degraded launch,
+               within TOL_E2E of the CPU path: verify="off" under the
+               reference's model); GMAT (L=17, bf16 weights) served by
+               RecurrentServingEngine(max_batch=4): 4 prompts of 75 frames,
+               8 decoded frames each, one chained lstm_decode launch a
+               tick over the 17 layers, held against the CPU path's
+               prefill and ticks; each plan's (schedule, bt, launches) and
+               warm wall; then one lstm_seq launch of 16 rows at H=1024
+               over 132,096 steps, whose element offsets pass 2^31, bit for
+               bit against the same walk in two launches
+  7 serve_gru  the same 6 requests through BYSDNE as a GRU
                (rnn_family="gru", bf16 weights): gru_seq + gru_decode
                launches == the plans' launches, one gru_decode per tick,
                no degraded launch; outputs held against the CPU engine
-  7 offpath    off the packed timeline: the per_step BYSDNE LSTM forward
+  8 offpath    off the packed timeline: the per_step BYSDNE LSTM forward
                (B=4, T=30: 150 lstm_cell launches == plan.launches); a
                mixed lstm/gru/lstm/gru stack at H=340 (forward, then one
                decode tick resumed from its prefill state: 4 launches);
                the "unfolded" research schedule (plain PyTorch, zero
                kernel launches); each held against the CPU path
-  8 rglru      one RG-LRU layer of RecurrentGemma-2B at full width (W =
+  9 rglru      one RG-LRU layer of RecurrentGemma-2B at full width (W =
                2560, B = 4, T = 2048, random weights from a seeded
                torch.Generator): gate_inputs, then dispatch.execute of an
                L=1 rglru item — one rglru_scan launch == plan.launches;
                held against the device="cpu" path; the model's L=18 item
                stays plan-only; a mixed plan of one BYSDNE LSTM item and
                one rglru item runs in one execute
-  9 precision  BYSDNE as an LSTM and as a GRU (bf16 weights, layer l's U
+ 10 precision  BYSDNE as an LSTM and as a GRU (bf16 weights, layer l's U
                with every 8-row tile t, t % (l + 2) == 0, zeroed) under
                ExecutionPolicy(precision="int8", sparsity="block") at B=4,
                T=30: forward, prefill, then decode ticks resumed from the
                prefill state; then int8 alone and bf16 + block sparsity,
                forward; launches == the plans' launches in every run, each
                output held against the CPU path
- 10 serve_lm   serving.ServingEngine serves RecurrentGemma-2B at full width
+ 11 serve_lm   serving.ServingEngine serves RecurrentGemma-2B at full width
                (26 layers, d_model 2560, vocab 256000, bf16 weights drawn
                on the card from a seeded torch.Generator; max_batch 4,
                max_seq 4096: 2048-slot rings) 6 requests of 5, 37, 300,
@@ -143,7 +160,7 @@ Phases, one line (or a few) of output each:
                --profile, also 8 batched ticks and the 64- and 2048-token
                prefills under torch.profiler, each prefill's rglru_scan
                device ms and launches (18, one a rglru layer)
- 11 calib      the measured cost model (repro_torch.calib) on the card:
+ 12 calib      the measured cost model (repro_torch.calib) on the card:
                replays what EESEN (B=4, T=300) and BYSDNE as an LSTM and a
                GRU launch (prefill slots; the decode tick's chained and
                per-layer sides at B = 4, 2, 1), EESEN's G=2 and G=1 slots
@@ -163,14 +180,15 @@ Phases, one line (or a few) of output each:
                flips BYSDNE's decode tick to 5 lstm_seq launches (no
                lstm_decode), within TOL_FP32 of the chained tick; and
                `python -m repro_torch.calib --grid smoke --check 25` exits 0
- 12 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 13 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
-With --profile, the serve, forward, serve_gru and precision phases also
-print their lstm_seq / gru_seq device ms, and offpath its per_step
-forward's lstm_cell device ms, and each checks the profiled launches
-against the counted run's.
+With --profile, the serve, forward, paper, serve_gru and precision
+phases also print their lstm_seq / gru_seq device ms (paper's GMAT serve
+its lstm_decode ms too), and offpath its per_step forward's lstm_cell
+device ms, and each checks the profiled launches against the counted
+run's.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  The script imports nothing of JAX and nothing of the
@@ -188,8 +206,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-PHASES = ("card", "build", "kernels", "serve", "forward", "serve_gru",
-          "offpath", "rglru", "precision", "serve_lm", "calib", "summary")
+PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
+          "serve_gru", "offpath", "rglru", "precision", "serve_lm", "calib",
+          "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -2089,8 +2108,9 @@ def phase_forward(ctx):
     ys = cs.forward(xs)
     torch.cuda.synchronize()
     n, p = lstm_seq.kernel_launches, cs.plan.launches
-    print(f"forward: EESEN B=4 T=300 -> {tuple(ys.shape)}; lstm_seq kernel "
-          f"launches {n}, plan.launches {p}, lstm_decode "
+    print(f"forward: EESEN B=4 T=300 -> {tuple(ys.shape)} under "
+          f"{cs.device_model.name}'s model: plan {_plan_items(cs.plan)}; "
+          f"lstm_seq kernel launches {n}, plan.launches {p}, lstm_decode "
           f"{lstm_decode.kernel_launches}; degraded "
           f"{cs.stats.degraded_launches}")
     check(tuple(ys.shape) == (4, 300, 680), "wrong forward output shape")
@@ -2117,6 +2137,61 @@ def phase_forward(ctx):
     if ctx["profile"]:
         by_name, count = profile_breakdown(lambda: cs.forward(xs), "forward")
         _profiled_launches("forward", "lstm_seq", by_name, count, p)
+    _forward_turns(ctx, cfg, xs, cs, ys)
+
+
+def _plan_items(plan):
+    """A plan's (schedule, block_t) per item."""
+    return [(ip.schedule, ip.block_t) for ip in plan.items]
+
+
+def _turns(runs: dict, order: tuple, rounds: int = 3) -> dict:
+    """Warm walls (ms, host clock around work that ends in a synchronize)
+    of each of ``runs`` (name -> callable), in ``order`` per round."""
+    import torch
+
+    walls = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name in order:
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _forward_turns(ctx, cfg, xs, cs, ys):
+    """EESEN's plan under the card's model beside ExecutionPolicy(
+    block_t=8), the plan the reference's VMEM budget leaves it: outputs
+    held together, warm walls in turns (model, bt8, bt8, model) x3."""
+    import torch
+
+    from repro_torch import rnn
+
+    pinned = rnn.compile(cfg, rnn.ExecutionPolicy(block_t=8),
+                         device="cuda", seed=0)
+    y8 = pinned.forward(xs)
+    torch.cuda.synchronize()
+    err = float((y8 - ys).abs().max())
+    check(err <= TOL_FP32, "the bt8 plan's forward disagrees with the "
+                           "card model's plan")
+    walls = _turns({"model": lambda: cs.forward(xs),
+                    "bt8": lambda: pinned.forward(xs)},
+                   ("model", "bt8", "bt8", "model"))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    ctx["forward_turns"] = {
+        "model_items": _plan_items(cs.plan),
+        "model_launches": cs.plan.launches,
+        "bt8_items": _plan_items(pinned.plan),
+        "bt8_launches": pinned.plan.launches, "walls_ms": walls,
+        "max_abs_err": err}
+    print(f"forward: the card model's plan {_plan_items(cs.plan)} "
+          f"({cs.plan.launches} launches) beside block_t=8 "
+          f"{_plan_items(pinned.plan)} ({pinned.plan.launches} launches): "
+          f"max_abs_err {err:.3e} (tol {TOL_FP32:g}); warm walls in turns "
+          f"(model, bt8, bt8, model) x3: model median {med['model']:.2f} ms "
+          f"{['%.2f' % w for w in walls['model']]}, bt8 median "
+          f"{med['bt8']:.2f} ms {['%.2f' % w for w in walls['bt8']]}")
 
 
 def _check_ladder_on_card(cfg, xs, healthy):
@@ -2155,6 +2230,238 @@ def _check_ladder_on_card(cfg, xs, healthy):
           "the per-step rung did not recover a fused fault with kernels")
     check(raised == "per_step",
           "a fault past per-step did not raise on the card")
+
+
+#: the paper phase's shapes: RLDRADSPR's forward (B, T), GMAT's served
+#: prompts (count, frames, decoded frames), and the lstm_seq launch whose
+#: element offsets pass 2^31 (B, T at H = 1024)
+PAPER_FORWARD = (4, 400)
+PAPER_SERVE = (4, 75, 8)
+PAPER_OFFSETS = (16, 132096)
+
+
+def phase_paper(ctx):
+    """The paper's H=1024 networks (Table 5) through the main path at full
+    width under the card's device model."""
+    _paper_forward(ctx, "lstm")
+    _paper_forward(ctx, "gru")
+    _paper_serve(ctx)
+    _paper_offsets(ctx)
+
+
+def _paper_forward(ctx, family):
+    """rnn.compile(RLDRADSPR) forward as ``family`` (fp32 weights from a
+    seeded torch.Generator): launches, degraded launches and outputs
+    against the CPU path (the reference's model, unverified: its VMEM
+    budget refuses every H=1024 slot)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.configs.sharp_lstm import RLDRADSPR
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.gru_cell.ops import gru_seq
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq
+
+    label = f"paper RLDRADSPR {family}"
+    cfg = dataclasses.replace(RLDRADSPR, dtype="float32")
+    B, T = PAPER_FORWARD
+    xs = (np.random.default_rng(3).standard_normal(
+        (B, T, cfg.lstm_input)) * 0.5).astype(np.float32)
+    seq_k = lstm_seq if family == "lstm" else gru_seq
+    cs = rnn.compile(cfg, rnn_family=family, device="cuda", seed=0)
+    everything = entries()
+    reset_counts(*everything)
+    ys = cs.forward(xs)
+    torch.cuda.synchronize()
+    n, p = seq_k.kernel_launches, cs.plan.launches
+    others = sum(f.calls for f in everything if f is not seq_k)
+    st = cs.stats
+    print(f"{label}: L={cfg.n_layers} H={cfg.lstm_hidden} B={B} T={T} -> "
+          f"{tuple(ys.shape)}; plan {_plan_items(cs.plan)}, {p} launches; "
+          f"{seq_k.__name__} kernel launches {n}; other entry points "
+          f"{others}; degraded {st.degraded_launches}")
+    check(tuple(ys.shape) == (B, T, cfg.lstm_hidden)
+          and bool(torch.isfinite(ys).all()),
+          f"{label}: wrong shape or not finite")
+    check(n == p == seq_k.calls and others == 0,
+          f"{label}: launches != plan.launches")
+    check(st.degraded_launches == 0 and st.fallback_level == 0,
+          f"{label}: a launch degraded down the guarded ladder")
+    tally(ctx, seq_k)
+
+    cpu = rnn.compile(cfg, rnn.ExecutionPolicy(verify="off"),
+                      rnn_family=family, device="cpu", seed=0)
+    t0 = time.perf_counter()
+    ref = cpu.forward(xs)
+    cpu_s = time.perf_counter() - t0
+    err = float((ys.cpu() - ref).abs().max())
+    print(f"{label}: vs the CPU path (plan {_plan_items(cpu.plan)}, "
+          f"{cpu.plan.launches} launches, {cpu_s:.1f} s) max_abs_err "
+          f"{err:.3e} (tol {TOL_E2E:g})")
+    check(err <= TOL_E2E, f"{label}: output disagrees with the CPU path")
+
+    walls = _turns({"warm": lambda: cs.forward(xs)}, ("warm",))["warm"]
+    ctx.setdefault("paper", {})[f"RLDRADSPR_{family}"] = {
+        "items": _plan_items(cs.plan), "launches": p, "max_abs_err": err,
+        "warm_ms": walls}
+    print(f"{label}: warm walls {['%.2f' % w for w in walls]} ms "
+          f"({p} launches)")
+    if ctx["profile"]:
+        by_name, count = profile_breakdown(lambda: cs.forward(xs), label)
+        _profiled_launches(label, seq_k.__name__, by_name, count, p)
+
+
+def _paper_serve(ctx):
+    """RecurrentServingEngine serves GMAT (bf16 weights from a seeded
+    torch.Generator) on the card; the CPU path is the same stack compiled
+    on the CPU (the reference's model, unverified), prefilled and ticked
+    as the engine does."""
+    import numpy as np
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.configs.sharp_lstm import GMAT
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
+    from repro_torch.models.layers.lstm import init_lstm_stack
+    from repro_torch.serving import RecurrentRequest, RecurrentServingEngine
+
+    label = "paper GMAT serve"
+    n_req, T, new = PAPER_SERVE
+    params = init_lstm_stack(torch.Generator().manual_seed(0), GMAT,
+                             torch.bfloat16)
+    rng = np.random.default_rng(4)
+    frames = [(rng.standard_normal((T, GMAT.lstm_input)) * 0.5)
+              .astype(np.float32) for _ in range(n_req)]
+
+    def serve():
+        eng = RecurrentServingEngine(GMAT, params, max_batch=n_req,
+                                     device="cuda")
+        for uid, fr in enumerate(frames):
+            eng.submit(RecurrentRequest(uid=uid, frames=fr,
+                                        max_new_frames=new))
+        return eng, sorted(eng.run_to_completion(), key=lambda c: c.uid)
+
+    everything = entries()
+    reset_counts(*everything)
+    eng, done = serve()
+    torch.cuda.synchronize()
+    seq_n, dec_n = lstm_seq.kernel_launches, lstm_decode.kernel_launches
+    others = sum(f.calls for f in everything
+                 if f not in (lstm_seq, lstm_decode))
+    st = eng.compiled.stats
+    tick = eng.last_decode_plan
+    print(f"{label}: L={GMAT.n_layers} H={GMAT.lstm_hidden}, {n_req} "
+          f"prompts of {T} frames, {new} decoded each: statuses "
+          f"{[c.status for c in done]}; prefill plan "
+          f"{_plan_items(eng.last_plan)[:1]} x{len(eng.last_plan.items)}, "
+          f"{eng.packed_launches} launches in {eng.prefill_waves} wave(s); "
+          f"{eng.decode_ticks} ticks, each plan {tick.items[0].schedule} "
+          f"({tick.launches} launch, {len(tick.slots[0].groups)} layers "
+          f"chained); kernel launches lstm_seq {seq_n}, lstm_decode "
+          f"{dec_n}; other entry points {others}; degraded "
+          f"{st.degraded_launches}")
+    check(all(c.status == "ok" for c in done) and len(done) == n_req,
+          f"{label}: a request did not finish ok")
+    check(eng.prefill_waves == 1 and seq_n == lstm_seq.calls
+          == eng.packed_launches, f"{label}: prefill launches != the plan's")
+    check(dec_n == lstm_decode.calls == eng.decode_ticks == new
+          and eng.decode_launches == eng.decode_ticks
+          and tick.slots[0].chained
+          and len(tick.slots[0].groups) == GMAT.n_layers,
+          f"{label}: a tick did not take exactly one chained lstm_decode "
+          f"launch over the {GMAT.n_layers} layers")
+    check(others == 0, f"{label}: another entry point was called")
+    check(st.degraded_launches == 0 and st.fallback_level == 0,
+          f"{label}: a launch degraded down the guarded ladder")
+    tally(ctx, lstm_seq, lstm_decode)
+
+    cpu = rnn.compile(params, rnn.ExecutionPolicy(verify="off"),
+                      device="cpu")
+    results = cpu.prefill([torch.from_numpy(f)[None] for f in frames])
+    state = {k: torch.cat([s[k].float() for _, s in results], dim=1)
+             for k in ("h", "c")}
+    y = torch.stack([ys[0, -1].float() for ys, _ in results])[:, None]
+    generated = []
+    for _ in range(new):
+        y, state = cpu.decode(y, state)
+        y = y.float()
+        state = {k: v.float() for k, v in state.items()}
+        generated.append(y[:, 0])
+    gen = torch.stack(generated, dim=1).numpy()
+    err = max(max(float(np.abs(c.outputs - results[i][0][0].float().numpy())
+                        .max()),
+                  float(np.abs(c.generated - gen[i]).max()))
+              for i, c in enumerate(done))
+    shapes_ok = all(c.outputs.shape == (T, GMAT.lstm_hidden)
+                    and c.generated.shape == (new, GMAT.lstm_hidden)
+                    and np.isfinite(c.outputs).all()
+                    and np.isfinite(c.generated).all() for c in done)
+    print(f"{label}: outputs and decoded frames vs the CPU path (prefill "
+          f"plan {cpu.plan.launches} launches) max_abs_err {err:.3e} (tol "
+          f"{TOL_E2E:g}); shapes and finiteness "
+          f"{'ok' if shapes_ok else 'WRONG'}")
+    check(shapes_ok, f"{label}: wrong shape or not finite")
+    check(err <= TOL_E2E, f"{label}: served frames disagree with the CPU "
+                          "path")
+
+    walls = _turns({"warm": serve}, ("warm",))["warm"]
+    ctx.setdefault("paper", {})["GMAT_serve"] = {
+        "prefill_items": _plan_items(eng.last_plan),
+        "prefill_launches": eng.packed_launches, "ticks": eng.decode_ticks,
+        "max_abs_err": err, "warm_ms": walls}
+    print(f"{label}: warm walls {['%.2f' % w for w in walls]} ms "
+          f"({eng.packed_launches} + {eng.decode_launches} launches, "
+          f"{n_req * (T + new)} prompt + decoded frames)")
+    if ctx["profile"]:
+        by_name, count = profile_breakdown(serve, label)
+        _profiled_launches(label, "lstm_seq", by_name, count, seq_n)
+        _profiled_launches(label, "lstm_decode", by_name, count, dec_n)
+
+
+def _paper_offsets(ctx):
+    """One lstm_seq launch whose xw and hs element offsets pass 2^31 (the
+    kernel computes them in size_t), bit for bit against the same walk in
+    two launches, each below 2^31.  Outside the counted runs."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq
+
+    B, T = PAPER_OFFSETS
+    H = 1024
+    check((4 * B * T - 1) * H >= 2 ** 31 and (B * T - 1) * H >= 2 ** 31,
+          "the offsets case does not pass 2^31")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    U = (torch.randn((1, H, 4, H), generator=gen, device=dev) * 0.02
+         ).to(torch.bfloat16)
+    xw = torch.randn((1, B, T, 4, H), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    h0 = torch.zeros((1, B, H), device=dev)
+    c0 = torch.zeros((1, B, H), device=dev)
+    t0 = time.perf_counter()
+    hs, hT, cT = lstm_seq(U, xw, h0, c0)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    half = T // 2
+    hs1, h1, c1 = lstm_seq(U, xw[:, :, :half].contiguous(), h0, c0)
+    same = torch.equal(hs[:, :, :half], hs1)
+    del hs1
+    hs2, h2, c2 = lstm_seq(U, xw[:, :, half:].contiguous(), h1, c1)
+    same = (same and torch.equal(hs[:, :, half:], hs2)
+            and torch.equal(hT, h2) and torch.equal(cT, c2))
+    finite = bool(torch.isfinite(hs).all())
+    print(f"paper offsets: lstm_seq B={B} T={T} H={H} (bf16 xw, fp32 h): "
+          f"largest xw offset {(4 * B * T - 1) * H + H - 1}, hs "
+          f"{(B * T - 1) * H + H - 1} (2^31 = {2 ** 31}); one launch "
+          f"{one_s:.2f} s; == two launches bit for bit {same}; finite "
+          f"{finite}")
+    check(same and finite, "a launch past 2^31 element offsets differs "
+                           "from the same walk in two launches")
+    del hs, xw
 
 
 def phase_serve_gru(ctx):
@@ -3198,11 +3505,10 @@ def _depth3_vs_cpu(cfg, params):
 #: the decode tick's chained and per-layer sides (the serve phases decode
 #: at B = 4 and 2)
 CALIB_BYSDNE_SHAPES = ((4, 30), (2, 30), (1, 30))
-#: the stripes the planner weighs for EESEN's item (2, 4, 8; 300 is
-#: closed by the TPU's VMEM budget): each one's G=2 (fwd+bwd) and G=1
-#: slots are calibrated, so the measured model scores every road the
-#: planner weighs on exact hits; at 300 only the G=2 slot a bt300 plan
-#: would launch
+#: the stripes the planner weighs for EESEN's item under the card's model
+#: (2, 4, 8 and the whole T, 300): each one's G=2 (fwd+bwd) and G=1 slots
+#: are calibrated, so the measured model scores every road the planner
+#: weighs on exact hits; at 300 only the G=2 slot a bt300 plan launches
 CALIB_EESEN_STRIPES = (2, 4, 8, 300)
 CALIB_REPEATS = 5
 #: check_table's gross gate: a fresh replay within 25x of the stored
@@ -3215,16 +3521,19 @@ CALIB_TICKS = 3
 
 def _calib_candidates():
     """The candidates the card is calibrated on: what EESEN (B=4, T=300)
-    and BYSDNE as an LSTM and a GRU launch (``candidates_for``), EESEN's
-    other stripes and its bt300 slot, and the smoke grid."""
+    and BYSDNE as an LSTM and a GRU launch under the card's model
+    (``candidates_for``), EESEN's other stripes, and the smoke grid."""
     from types import SimpleNamespace
 
     from repro_torch import calib
     from repro_torch.configs.sharp_lstm import BYSDNE, eesen_demo
+    from repro_torch.core.tiling import device_model
 
+    card = device_model("cuda")
     eesen = eesen_demo()
     H = eesen.lstm_hidden
-    cands = calib.candidates_for(eesen, shapes=((4, 300),))
+    cands = calib.candidates_for(eesen, shapes=((4, 300),),
+                                 device_model=card)
     for bt in CALIB_EESEN_STRIPES:
         cands += [calib.Candidate("lstm", H, 2, 4, bt, dirs=("bwd", "fwd"))]
         if bt != 300:
@@ -3234,7 +3543,8 @@ def _calib_candidates():
         stack = SimpleNamespace(families=(family,) * BYSDNE.n_layers,
                                 H=BYSDNE.lstm_hidden, X=BYSDNE.lstm_input,
                                 L=BYSDNE.n_layers, bidirectional=False)
-        cands += calib.candidates_for(stack, shapes=CALIB_BYSDNE_SHAPES)
+        cands += calib.candidates_for(stack, shapes=CALIB_BYSDNE_SHAPES,
+                                      device_model=card)
     return calib.dedupe(cands + calib.sweep_grid(**calib.SMOKE_GRID))
 
 
@@ -3369,8 +3679,8 @@ def _calib_per_step_price(ctx, table):
 def _calib_forward(ctx, path, table):
     """rnn.compile(EESEN) under the measured policy: launches, stats and
     output against the analytic plan on the card, the plans, their warm
-    walls in turns, and the model's µs for the chosen plan and for the
-    bt300 plan the TPU budget closes."""
+    walls in turns, and the model's µs for the chosen plan and for a
+    bt300 plan (both plans under the card's device model)."""
     import numpy as np
     import torch
 
@@ -3407,17 +3717,9 @@ def _calib_forward(ctx, path, table):
     check(err <= TOL_E2E, "measured forward disagrees with the analytic "
                           "plan's")
 
-    def items(cs):
-        return [(ip.schedule, ip.block_t) for ip in cs.plan.items]
-
-    walls = {"analytic": [], "measured": []}
-    for _ in range(3):
-        for name in ("analytic", "measured", "measured", "analytic"):
-            cs = analytic if name == "analytic" else measured
-            t0 = time.perf_counter()
-            cs.forward(xs)
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
+    walls = _turns({"analytic": lambda: analytic.forward(xs),
+                    "measured": lambda: measured.forward(xs)},
+                   ("analytic", "measured", "measured", "analytic"))
     model = calib.MeasuredCostModel(table)
     us = {"measured": _plan_us(model, measured.plan.slots),
           "analytic": _plan_us(model, analytic.plan.slots),
@@ -3425,15 +3727,16 @@ def _calib_forward(ctx, path, table):
               "lstm", 340, 2, 4, 300, "float32", ("bwd", "fwd"))}
     med = {k: statistics.median(v) for k, v in walls.items()}
     ctx["calib"]["forward"] = {
-        "measured_items": items(measured), "analytic_items": items(analytic),
+        "measured_items": _plan_items(measured.plan),
+        "analytic_items": _plan_items(analytic.plan),
         "measured_launches": p, "analytic_launches": analytic.plan.launches,
         "walls_ms": walls, "model_us": us, "max_abs_err": err,
         "measured_hits": st.measured_hits,
         "analytic_fallbacks": st.analytic_fallbacks}
-    print(f"calib forward: EESEN B=4 T=300 measured plan {items(measured)}, "
-          f"{p} launches ({st.measured_hits} hits with interpolated, "
+    print(f"calib forward: EESEN B=4 T=300 measured plan "
+          f"{_plan_items(measured.plan)}, {p} launches ({st.measured_hits} hits with interpolated, "
           f"{st.analytic_fallbacks} analytic fallbacks); analytic plan "
-          f"{items(analytic)}, {analytic.plan.launches} launches; "
+          f"{_plan_items(analytic.plan)}, {analytic.plan.launches} launches; "
           f"max_abs_err {err:.3e} (tol {TOL_E2E:g})")
     print(f"calib forward: warm walls in turns (a, m, m, a) x3: measured "
           f"median {med['measured']:.2f} ms {['%.2f' % w for w in walls['measured']]}, "
@@ -3441,8 +3744,8 @@ def _calib_forward(ctx, path, table):
           f"{['%.2f' % w for w in walls['analytic']]}")
     print(f"calib forward: the model's us for the measured plan "
           f"{us['measured']:.1f}, the analytic plan {us['analytic']:.1f}, "
-          f"and a bt300 plan ({cfg.n_layers} G=2 launches, which the TPU "
-          f"VMEM budget keeps from the planner) {us['bt300']:.1f}")
+          f"and a bt300 plan ({cfg.n_layers} G=2 launches) "
+          f"{us['bt300']:.1f}")
 
 
 def _calib_planted(ctx, path, planted, backend, params):

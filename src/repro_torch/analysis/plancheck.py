@@ -1,6 +1,7 @@
 """Static verification of ``DispatchPlan``s: prove dispatch invariants
 before launch, with no execution.  A copy of ``repro.analysis.plancheck``
-(same 13 rules, same reference VMEM budget, so plans verify identically).
+(same 13 rules; under the reference's device model, the default, the same
+VMEM budget, so plans verify identically).
 
 SHARP's core claim is that a tiled dispatch mechanism handles RNN data
 dependencies safely across arbitrary model shapes.  The planner constructs
@@ -59,13 +60,17 @@ Tiling provenance (``stripe-align``)
     smuggle in a launch shape the offline exploration never validated.
 
 Resource budget (``vmem-budget``)
-    The per-slot VMEM footprint from tile shapes × dtype — the sequence
-    kernels' working set for packed slots, the per-layer resident set for
-    chained decode slots — fits a configurable budget (default: the
-    autotune table's own ``SEQ_VMEM_BUDGET``).  Precision-aware: an int8
-    slot is budgeted at its 1-byte resident payload plus per-gate scales
-    (bf16 at 2 bytes), and a block-sparse slot at its densest member
-    layer's occupied row-tiles plus the gather index.
+    The device admits every slot (``core.tiling.DeviceModel``).  Under the
+    reference's model: the per-slot VMEM footprint from tile shapes × dtype
+    — the sequence kernels' working set for packed slots, the per-layer
+    resident set for chained decode slots — fits a configurable budget
+    (default: the autotune table's own ``SEQ_VMEM_BUDGET``).
+    Precision-aware: an int8 slot is budgeted at its 1-byte resident
+    payload plus per-gate scales (bf16 at 2 bytes), and a block-sparse slot
+    at its densest member layer's occupied row-tiles plus the gather index.
+    Under a card's model: the card's kernels' limits (H, a CTA's shared
+    memory within the card's opt-in, the launch's C ints), each message
+    naming the card's limit.
 
 Any violation raises a structured ``runtime.errors.PlanInvariantError``
 naming the rule, slot, and cell; a clean pass returns a
@@ -80,7 +85,7 @@ from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core.tiling import SEQ_VMEM_BUDGET, seq_block_footprint
+from repro_torch.core.tiling import REFERENCE, DeviceModel
 from repro_torch.dispatch.planner import (DispatchPlan, ItemPlan, Slot,
                                           _chunk_lens, _slot_config,
                                           validate_unique_uids)
@@ -161,40 +166,32 @@ def _item_spec(ip: ItemPlan):
     return expected, lens, dirs
 
 
-def _decode_footprint(slot: Slot) -> int:
-    """Per-layer resident VMEM of a chained decode launch: the layer's W
-    and U tiles, its bias, the chained xw row, and the (h, c) state rows
-    (fp32).  The decode kernel grid streams layers, so the budget is
-    per-layer, not the whole (L, ...) stack."""
-    gates = GATES[slot.family]
-    itemsize = dtype_itemsize(slot.dtype)
-    weights = 2 * slot.H * gates * slot.H * itemsize + gates * slot.H * itemsize
-    rows = slot.B * gates * slot.H * itemsize + 4 * slot.B * slot.H * 4
-    return weights + rows
-
-
-def _check_slot_budget(slot: Slot, budget: int,
-                       covered: Dict[int, ItemPlan]) -> None:
-    """The footprint is precision-aware (an int8 slot's resident U is the
-    1-byte payload + per-gate scales) and sparsity-aware: a row-compacted
-    launch keeps only the densest member layer's occupied row-tiles
-    resident (slot-uniform Ha), so that density bounds the true set.
-    Unknown uids fall back dense — ``coverage-unknown`` fires right after.
+def _check_slot_budget(slot: Slot, budget: Optional[int],
+                       covered: Dict[int, ItemPlan],
+                       device_model: DeviceModel) -> None:
+    """The device admits the slot: a chained decode slot by its per-layer
+    rule, a sequence slot by its stripe's.  The reference's footprint is
+    precision-aware (an int8 slot's resident U is the 1-byte payload +
+    per-gate scales) and sparsity-aware: a row-compacted launch keeps only
+    the densest member layer's occupied row-tiles resident (slot-uniform
+    Ha), so that density bounds the true set.  Unknown uids fall back
+    dense — ``coverage-unknown`` fires right after.
     """
+    gates = GATES[slot.family]
     if slot.chained:
-        used = _decode_footprint(slot)
+        why = device_model.decode_refusal(
+            slot.B, slot.H, gates=gates,
+            bytes_per_el=dtype_itemsize(slot.dtype), budget=budget)
     else:
         dens = max((covered[grp[0].uid].item.layer_density(grp[0].layer)
                     for grp in slot.groups
                     if grp and grp[0].uid in covered), default=1.0)
-        used = seq_block_footprint(slot.chunk_len, slot.B, slot.H,
-                                   gates=GATES[slot.family],
-                                   precision=slot.precision,
-                                   density=dens)
-    if used > budget:
+        why = device_model.seq_refusal(
+            slot.chunk_len, slot.B, slot.H, gates=gates, G=slot.g,
+            precision=slot.precision, density=dens, budget=budget)
+    if why:
         raise _fail("vmem-budget",
-                    f"footprint {used}B exceeds budget {budget}B "
-                    f"({slot.family} H{slot.H} B{slot.B} "
+                    f"{why} ({slot.family} H{slot.H} B{slot.B} "
                     f"bt{slot.chunk_len} {slot.dtype} "
                     f"p{slot.precision})", slot=slot)
 
@@ -333,18 +330,21 @@ def _check_readiness(cell_wave: Dict[tuple, int],
 
 
 def check_plan(plan: DispatchPlan, *,
-               vmem_budget: Optional[int] = None) -> PlanCheckReport:
+               vmem_budget: Optional[int] = None,
+               device_model: DeviceModel = REFERENCE) -> PlanCheckReport:
     """Statically verify ``plan`` against every rule in ``RULES``.
 
     Pure inspection — no kernel launches, no parameters, no inputs.
     Raises ``PlanInvariantError`` (naming rule, slot, cell) on the first
     violation; returns a ``PlanCheckReport`` on a clean pass.
 
-    ``vmem_budget`` overrides the per-slot footprint bound (default:
-    ``core.tiling.SEQ_VMEM_BUDGET``, the same working-set budget the
-    autotune table stripes against).
+    ``device_model``: the device whose admission ``vmem-budget`` proves
+    (``core.tiling.DeviceModel``; by default the reference's, whose bound
+    is ``core.tiling.SEQ_VMEM_BUDGET``, the same working-set budget the
+    autotune table stripes against).  ``vmem_budget`` overrides the
+    model's bound on a slot's footprint (on a card: a sequence slot's
+    shared memory a CTA).
     """
-    budget = SEQ_VMEM_BUDGET if vmem_budget is None else vmem_budget
     validate_unique_uids([ip.item for ip in plan.items])
     covered = _covered_items(plan)
     specs = {uid: _item_spec(ip) for uid, ip in covered.items()}
@@ -353,7 +353,7 @@ def check_plan(plan: DispatchPlan, *,
     cell_wave: Dict[tuple, int] = {}
     chained = 0
     for slot in plan.slots:
-        _check_slot_budget(slot, budget, covered)
+        _check_slot_budget(slot, vmem_budget, covered, device_model)
         _check_slot_tiling(slot, plan.macs)
         _check_slot_rows(slot, covered)
         if slot.chained:
@@ -412,12 +412,14 @@ def check_plan(plan: DispatchPlan, *,
                            cells=sum(scheduled.values()), chained=chained)
 
 
-def check_decode_tick(plan: DispatchPlan, n_active: int) -> None:
+def check_decode_tick(plan: DispatchPlan, n_active: int, *,
+                      device_model: DeviceModel = REFERENCE) -> None:
     """The serving engine's per-tick dispatch claim, as a plan invariant:
     a decode tick over ``n_active`` active slots plans exactly
     ``n_active``-row cells in every slot — empty pool slots are never
-    computed.  Raises ``PlanInvariantError`` (rule "decode-active-rows");
-    replaces the engine's former bare ``assert``."""
+    computed (rule "decode-active-rows"; replaces the engine's former bare
+    ``assert``) — and every chained slot is one ``device_model`` admits
+    (rule "vmem-budget").  Raises ``PlanInvariantError``."""
     for slot in plan.slots:
         if slot.B != n_active or any(b != n_active for b in slot.group_b):
             raise PlanInvariantError(
@@ -425,6 +427,8 @@ def check_decode_tick(plan: DispatchPlan, n_active: int) -> None:
                 f"{slot.group_b}) for {n_active} active slots — empty "
                 "slots must never be computed:\n" + plan.describe(),
                 rule="decode-active-rows", slot=slot.index)
+        if slot.chained:
+            _check_slot_budget(slot, None, {}, device_model)
 
 
 __all__ = ["check_plan", "check_decode_tick", "PlanCheckReport", "RULES"]

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 from typing import Iterable, List, Sequence, Tuple, Union
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tiling import REFERENCE, DeviceModel
 from repro_torch.dispatch.planner import DispatchPlan, plan, plan_decode
 from repro_torch.dispatch.workitem import WorkItem
 from repro_torch.runtime.obs import slot_signature
@@ -83,12 +84,16 @@ def candidates_for(model: Union[ModelConfig, "object"], *,
                    dtype: str = "float32",
                    macs: int = 16384,
                    decode: bool = True,
-                   precision: str = "fp32") -> List[Candidate]:
+                   precision: str = "fp32",
+                   device_model: DeviceModel = REFERENCE
+                   ) -> List[Candidate]:
     """Candidates a model would actually launch: plan it at each (B, T)
     shape and harvest the slots; for homogeneous lstm/gru stacks add the
     decode tick's chained AND per-layer alternatives at each B.
     ``precision`` plans (and therefore prices) the quantized-weight
-    variant of the same stack.
+    variant of the same stack; ``device_model`` plans for the device the
+    table is measured on (``core.tiling.device_model``: a card admits
+    stripes the reference's VMEM budget does not).
 
     ``model`` is a ModelConfig (family "rnn") or any object with the
     CompiledStack shape surface (``families``/``H``/``X``/``L``/
@@ -110,15 +115,18 @@ def candidates_for(model: Union[ModelConfig, "object"], *,
 
     out: List[Candidate] = []
     for B, T in shapes:
-        out += _from_plan(plan([item(0, B, T)], macs=macs))
+        out += _from_plan(plan([item(0, B, T)], macs=macs,
+                               device_model=device_model))
     if decode and not bidir and len(set(fams)) == 1 \
             and fams[0] in ("lstm", "gru"):
         for B in sorted({b for b, _ in shapes}):
             # both sides of the chained-vs-loop decode decision
             out += _from_plan(plan_decode([item(0, B, 1, share=0)],
-                                          macs=macs))
+                                          macs=macs,
+                                          device_model=device_model))
             out += _from_plan(plan([item(0, B, 1, share=0)], macs=macs,
-                                   schedule="wavefront", block_t=1))
+                                   schedule="wavefront", block_t=1,
+                                   device_model=device_model))
     return dedupe(out)
 
 

@@ -15,8 +15,9 @@ import json
 import os
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core.tiling import (TileConfig, select_block_shape,
-                                     select_time_block, select_tile)
+from repro_torch.core.tiling import (REFERENCE, DeviceModel, TileConfig,
+                                     select_block_shape, select_time_block,
+                                     select_tile)
 
 DEFAULT_PATH = os.path.join("artifacts", "autotune_table.json")
 
@@ -49,21 +50,26 @@ class ConfigTable:
         return self._blocks[key]
 
     def seq_block(self, T: int, B: int, H: int, *, gates: int = 4,
-                  precision: str = "fp32", density: float = 1.0, **kw) -> int:
+                  precision: str = "fp32", density: float = 1.0,
+                  device_model: DeviceModel = REFERENCE, **kw) -> int:
         """T-block for the sequence-fused recurrent kernels (LSTM: gates=4,
         GRU: gates=3).  Keys for gates=4 / fp32 / dense stay unsuffixed so
         older persisted tables remain valid; quantized (``p{precision}``)
         and block-sparse (``d{density}``) variants key separately — the
-        narrowed resident-U footprint re-tunes them to larger stripes."""
+        narrowed resident-U footprint re-tunes them to larger stripes — and
+        so does a device model other than the reference's
+        (``@{model name}``), which admits other stripes."""
         key = f"{T}x{B}x{H}" if gates == 4 else f"{T}x{B}x{H}g{gates}"
         if precision != "fp32":
             key += f"p{precision}"
         if density != 1.0:
             key += f"d{round(density, 4):g}"
+        if device_model != REFERENCE:
+            key += f"@{device_model.name}"
         if key not in self._seq_blocks:
             self._seq_blocks[key] = select_time_block(
                 T, B, H, gates=gates, precision=precision, density=density,
-                **kw)
+                device_model=device_model, **kw)
         return self._seq_blocks[key]
 
     def save(self):

@@ -18,16 +18,19 @@ Two artifacts live here:
    lane alignment (8, 128) and a VMEM budget — the paper's "offline table"
    becomes a block-shape autotuner.
 
-A copy of ``repro.core.tiling``: the port keeps the reference device
-constants (``SEQ_VMEM_BUDGET``, the (8, 128) tiling) so that its plans
-equal the reference's; an H100 device model is queued in ROADMAP.md.
+A copy of ``repro.core.tiling``, plus the device models (``DeviceModel``):
+which sequence stripes and chained decode slots a device admits.  The
+reference's constants (``SEQ_VMEM_BUDGET``, the (8, 128) tiling) stay:
+under ``REFERENCE`` (the CPU's model) the port's plans equal the
+reference's; a card's model (``card_model``) holds a slot to the limits of
+the card's own kernels instead.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 K_CHOICES = (32, 64, 128, 256, 512)  # paper Fig. 9 exploration range
 
@@ -168,13 +171,168 @@ def seq_block_footprint(bt: int, B: int, H: int, *, gates: int = 4,
     return w_bytes + bytes_per_el * (B * bt * (gates + 1) * H + 4 * B * H)
 
 
+def decode_block_footprint(B: int, H: int, *, gates: int = 4,
+                           bytes_per_el: int = 4) -> int:
+    """VMEM of one layer of a chained decode launch: the layer's W and U
+    tiles, its bias, the chained xw row, and the (h, c) state rows (fp32).
+    The decode kernel grid streams layers, so the budget is per layer, not
+    the whole (L, ...) stack."""
+    weights = 2 * H * gates * H * bytes_per_el + gates * H * bytes_per_el
+    rows = B * gates * H * bytes_per_el + 4 * B * H * 4
+    return weights + rows
+
+
+@dataclass(frozen=True)
+class DeviceModel:
+    """Which sequence-kernel slots (a T-stripe ``bt`` of G recurrences of B
+    rows) and chained decode slots a device admits: a slot's footprint, the
+    bound it is held to (``budget``), and, on a card, the limits of the
+    card's kernels.
+
+    ``REFERENCE`` (``sms == 0``) is the reference's TPU model: a sequence
+    slot's VMEM working set (``seq_block_footprint``) and a chained decode
+    slot's per-layer one (``decode_block_footprint``) within
+    ``SEQ_VMEM_BUDGET``, so plans equal the reference's bit for bit.
+
+    A card's model (``card_model``): the card's sequence kernels keep U (or
+    a leading share of it and a ring) in a cluster's shared memory and read
+    xw and write hs in HBM one step at a time, so no stripe's T adds to a
+    CTA's working set.  A sequence slot is admitted when H is within the
+    sequence kernels' limit (``seq_max_h``), a CTA's shared memory
+    (``kernels.common.seq_smem``, dense U) within the block opt-in the card
+    offers (``budget``), and the launch's C ints within theirs
+    (``kernels.common.seq_launch_refusal``: T, G, B); a chained decode slot
+    when H is within the decode kernels' limit (``decode_max_h``)."""
+    name: str
+    budget: int            # bytes a slot's footprint is held to
+    sms: int = 0           # the card's SMs; 0 for the reference's model
+    seq_max_h: int = 0     # widest H of the card's sequence kernels
+    decode_max_h: int = 0  # widest H of the card's decode kernels
+
+    @property
+    def on_card(self) -> bool:
+        return self.sms > 0
+
+    def describe(self) -> str:
+        if not self.on_card:
+            return (f"{self.name}: a slot's VMEM working set within "
+                    f"{self.budget} B")
+        return (f"{self.name}: {self.sms} SMs, {self.budget} B of shared "
+                f"memory a block (opt-in); sequence slots at H <= "
+                f"{self.seq_max_h} within the launch's C ints, chained "
+                f"decode slots at H <= {self.decode_max_h}")
+
+    def seq_footprint(self, bt: int, B: int, H: int, *, gates: int = 4,
+                      bytes_per_el: int = 4, precision: str = "fp32",
+                      density: float = 1.0) -> int:
+        """Bytes of a sequence slot's working set: the reference's VMEM
+        stripe, or on a card the shared memory a CTA takes (whatever the
+        stripe; dense U, the most a CTA takes)."""
+        if not self.on_card:
+            return seq_block_footprint(bt, B, H, gates=gates,
+                                       bytes_per_el=bytes_per_el,
+                                       precision=precision, density=density)
+        from repro_torch.kernels.common import seq_smem
+
+        return seq_smem(H, gates, PRECISION_WEIGHT_BYTES[precision], H)
+
+    def seq_refusal(self, bt: int, B: int, H: int, *, gates: int = 4,
+                    G: int = 1, bytes_per_el: int = 4,
+                    precision: str = "fp32", density: float = 1.0,
+                    budget: Optional[int] = None) -> Optional[str]:
+        """Why this device refuses a sequence slot, or None.  ``budget``
+        overrides the bound its footprint is held to."""
+        if self.on_card:
+            from repro_torch.kernels.common import seq_launch_refusal
+
+            if H > self.seq_max_h:
+                return (f"H={H} is past the sequence kernels' H <= "
+                        f"{self.seq_max_h} on {self.name}")
+            why = seq_launch_refusal(G, B, bt)
+            if why:
+                return f"{why} on {self.name}"
+        used = self.seq_footprint(bt, B, H, gates=gates,
+                                  bytes_per_el=bytes_per_el,
+                                  precision=precision, density=density)
+        bound = self.budget if budget is None else budget
+        if used <= bound:
+            return None
+        if not self.on_card:
+            return f"footprint {used}B exceeds budget {bound}B"
+        return (f"shared memory {used}B a CTA exceeds the {bound}B a block "
+                f"may take on {self.name}")
+
+    def seq_fits(self, bt: int, B: int, H: int, **kw) -> bool:
+        return self.seq_refusal(bt, B, H, **kw) is None
+
+    def decode_refusal(self, B: int, H: int, *, gates: int = 4,
+                       bytes_per_el: int = 4,
+                       budget: Optional[int] = None) -> Optional[str]:
+        """Why this device refuses a chained decode slot of B rows at width
+        H, or None.  ``budget`` overrides the reference's VMEM bound; a
+        card holds the slot to its decode kernels' limit on H."""
+        if self.on_card:
+            if H > self.decode_max_h:
+                return (f"H={H} is past the decode kernels' H <= "
+                        f"{self.decode_max_h} on {self.name}")
+            return None
+        used = decode_block_footprint(B, H, gates=gates,
+                                      bytes_per_el=bytes_per_el)
+        bound = self.budget if budget is None else budget
+        if used <= bound:
+            return None
+        return f"footprint {used}B exceeds budget {bound}B"
+
+
+#: the reference's TPU model: every plan equals the reference's
+REFERENCE = DeviceModel(name="reference", budget=SEQ_VMEM_BUDGET)
+
+
+def card_model(props) -> DeviceModel:
+    """The model of a CUDA card from its properties (what
+    ``torch.cuda.get_device_properties`` returns: ``name``,
+    ``multi_processor_count``, ``shared_memory_per_block_optin``), with
+    the kernels' limits from ``kernels.common``.  A card whose blocks
+    cannot opt in to the sequence kernels' shared memory
+    (``SEQ_MAX_SMEM``) is refused (``KernelLaunchRefused``)."""
+    from repro_torch.kernels.common import (MAX_H, SEQ_MAX_SMEM,
+                                            KernelLaunchRefused)
+
+    name = f"cuda({props.name})"
+    optin = int(props.shared_memory_per_block_optin)
+    if optin < SEQ_MAX_SMEM:
+        raise KernelLaunchRefused(
+            f"{name} offers {optin} B of shared memory a block; the "
+            f"sequence kernels take up to {SEQ_MAX_SMEM} B")
+    return DeviceModel(
+        name=name, budget=optin, sms=int(props.multi_processor_count),
+        seq_max_h=min(MAX_H["lstm_seq"], MAX_H["gru_seq"]),
+        decode_max_h=min(MAX_H["lstm_decode"], MAX_H["gru_decode"]))
+
+
+def device_model(device) -> DeviceModel:
+    """The model of the device a stack runs on: ``REFERENCE`` for the CPU
+    (the kernels' plain versions plan as the reference), the card's own
+    for CUDA."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cpu":
+        return REFERENCE
+    if device.type == "cuda":
+        return card_model(torch.cuda.get_device_properties(device))
+    raise ValueError(f"device_model: no model for {device}; allowed: cpu, "
+                     "cuda")
+
+
 @functools.lru_cache(maxsize=None)
 def select_time_block(T: int, B: int, H: int, *,
-                      vmem_budget: int = SEQ_VMEM_BUDGET,
+                      vmem_budget: Optional[int] = None,
                       bytes_per_el: int = 4, gates: int = 4,
                       precision: str = "fp32", density: float = 1.0,
                       bt_choices: Sequence[int] = (1, 2, 4, 8, 16, 32, 64,
                                                    128, 256),
+                      device_model: DeviceModel = REFERENCE,
                       ) -> int:
     """T-block for the sequence-fused recurrent kernels (kernels.lstm_cell,
     kernels.gru_cell).
@@ -188,16 +346,17 @@ def select_time_block(T: int, B: int, H: int, *,
     time-axis analogue of ``select_block_shape``.  ``gates`` is 4 for the
     LSTM, 3 for GRU.  ``precision``/``density`` narrow the resident weight
     term (see seq_block_footprint), so quantized/sparse launches re-tune
-    to larger time stripes at the same budget."""
+    to larger time stripes at the same budget.  ``device_model`` decides
+    which stripes are admitted (``vmem_budget`` overrides its bound)."""
     if T <= 0:
         return 1
 
     best = None
     for bt in bt_choices:
         bt = min(bt, T)
-        if bt > 1 and seq_block_footprint(
+        if bt > 1 and not device_model.seq_fits(
                 bt, B, H, gates=gates, bytes_per_el=bytes_per_el,
-                precision=precision, density=density) > vmem_budget:
+                precision=precision, density=density, budget=vmem_budget):
             continue
         waste = math.ceil(T / bt) * bt - T
         key = (round(waste / T, 6), -bt)

@@ -70,8 +70,7 @@ from repro_torch.core.schedules import stack_families
 from repro_torch.dispatch.planner import (REFERENCE_SCHEDULES, DispatchPlan,
                                           ItemPlan)
 from repro_torch.dispatch.workitem import GATES
-from repro_torch.kernels.common import (CELL_MAX_H, SEQ_MAX_H,
-                                        KernelBuildError,
+from repro_torch.kernels.common import (MAX_H, KernelBuildError,
                                         KernelLaunchRefused, cdiv)
 from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
@@ -801,11 +800,12 @@ def kernel_refusal(params: dict, policy) -> Optional[str]:
     None: the first kernel that forward may launch whose limit on H the
     stack's H passes.  What each schedule launches is this module's
     dispatch: the planned schedules ("auto", "wavefront", "fused") run the
-    families' sequence kernels (H <= SEQ_MAX_H; under "auto" the planner
-    may pick them at any T); "per_step" runs LSTM layers through
-    ``lstm_cell`` (H <= CELL_MAX_H, its h rows in a CTA's shared memory)
-    and GRU layers in plain PyTorch (``_run_reference``), as the research
-    schedules run every layer.  Reads shapes only."""
+    families' sequence kernels (under "auto" the planner may pick them at
+    any T); "per_step" runs LSTM layers through ``lstm_cell`` (its h rows
+    in a CTA's shared memory) and GRU layers in plain PyTorch
+    (``_run_reference``), as the research schedules run every layer.  Each
+    kernel's limit is its entry in ``kernels.common.MAX_H``, the table the
+    card's device model reads too.  Reads shapes only."""
     schedule = policy.schedule
     if not params.get("layers") or schedule in REFERENCE_SCHEDULES:
         return None  # an empty stack is named by CompiledStack
@@ -813,10 +813,11 @@ def kernel_refusal(params: dict, policy) -> Optional[str]:
     H = int(layer0.get("fwd", layer0)["U"].shape[0])
     families = sorted(set(stack_families(params)))
     if schedule == "per_step":
-        limits = [("lstm_cell", CELL_MAX_H)] if "lstm" in families else []
+        names = ["lstm_cell"] if "lstm" in families else []
     else:
-        limits = [(f"{f}_seq", SEQ_MAX_H) for f in families]
-    for name, limit in limits:
+        names = [f"{f}_seq" for f in families]
+    for name in names:
+        limit = MAX_H[name]
         if H > limit:
             return (f"{name} takes H <= {limit} on the card, and this "
                     f"stack's forward under schedule={schedule!r} launches "

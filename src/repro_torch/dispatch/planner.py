@@ -1,7 +1,10 @@
 """The dispatch planner: WorkItems -> an explicit, inspectable DispatchPlan.
 
-A copy of ``repro.dispatch.planner`` (pure Python): the port's plans, and
-their ``describe()`` strings, equal the reference's.
+A copy of ``repro.dispatch.planner`` (pure Python).  Under the reference's
+device model (``core.tiling.REFERENCE``, the default and the CPU's) the
+port's plans, and their ``describe()`` strings, equal the reference's; a
+card's model (``device_model=``) admits the stripes and slots the card's
+kernels take instead of those within the TPU's VMEM budget.
 
 This is the software rendition of SHARP's intelligent tile-based dispatch
 (§5) plus dynamic reconfiguration (§6): for every admitted item the planner
@@ -52,7 +55,7 @@ from repro_torch.core.perfmodel import (Design, LAUNCH_CYCLES,
                                         per_step_plan_cycles, slot_launch_cycles,
                                         stack_plan_cycles)
 from repro_torch.core.schedules import wavefront_active
-from repro_torch.core.tiling import SEQ_VMEM_BUDGET, seq_block_footprint
+from repro_torch.core.tiling import REFERENCE, DeviceModel
 from repro_torch.dispatch.workitem import GATES, WorkItem
 from repro_torch.kernels.common import cdiv
 from repro_torch.runtime.obs import NULL_TRACER, as_tracer, slot_signature
@@ -316,7 +319,8 @@ def _slots_us(slots: Sequence[Slot], cm) -> float:
 
 
 def _pack(item_plans: Sequence[ItemPlan], macs: int, *,
-          cross_b: bool = True, cost_model=None) -> Tuple[Slot, ...]:
+          cross_b: bool = True, cost_model=None,
+          device_model: DeviceModel = REFERENCE) -> Tuple[Slot, ...]:
     """Merge items' wavefront cells into one slot timeline.
 
     Every slot is one G-batched launch; cells group by launch signature
@@ -381,14 +385,14 @@ def _pack(item_plans: Sequence[ItemPlan], macs: int, *,
 
             def fits(width: int) -> bool:
                 # every item validated its block_t at its OWN B; a concat
-                # row is wider, so re-check the sequence kernels' VMEM
-                # working-set bound before widening (a singleton row always
+                # row is wider, so re-check the device's admission of the
+                # sequence slot before widening (a singleton row always
                 # fits by the per-item validation).  The precision-narrowed
                 # weight term applies; density stays conservative at 1.0 —
                 # widening never ASSUMES sparsity
-                return seq_block_footprint(chunk_len, width, H, gates=gates,
-                                           precision=precision) \
-                    <= SEQ_VMEM_BUDGET
+                return device_model.seq_fits(chunk_len, width, H,
+                                             gates=gates,
+                                             precision=precision)
 
             rows = []  # (lead order key, cells, valid B)
             for members in sigs[sig].values():
@@ -455,14 +459,15 @@ FORCED_SCHEDULES = REFERENCE_SCHEDULES + ("wavefront", "fused", "per_step")
 
 
 def _fit_stripe(bt: int, B: int, H: int, gates: int,
-                precision: str = "fp32", density: float = 1.0) -> int:
-    """Halve a requested T-stripe until its sequence-kernel working set
-    fits the VMEM budget (shared by the forced and auto paths).  The
+                precision: str = "fp32", density: float = 1.0,
+                device_model: DeviceModel = REFERENCE) -> int:
+    """Halve a requested T-stripe until the device admits its sequence
+    slot — under the reference's model, until its working set fits the
+    VMEM budget (shared by the forced and auto paths).  The
     precision/density-narrowed weight residency applies — an int8 item
     keeps stripes an fp32 one would have to halve."""
-    while bt > 1 and seq_block_footprint(
-            bt, B, H, gates=gates, precision=precision,
-            density=density) > SEQ_VMEM_BUDGET:
+    while bt > 1 and not device_model.seq_fits(
+            bt, B, H, gates=gates, precision=precision, density=density):
         bt //= 2
     return bt
 
@@ -499,7 +504,8 @@ def _per_step_plan(it: WorkItem, design: Design, tile_k, mvm_block,
 
 
 def _forced_plan(it: WorkItem, design: Design, force: str, force_bt: int,
-                 tile_k, mvm_block) -> ItemPlan:
+                 tile_k, mvm_block,
+                 device_model: DeviceModel = REFERENCE) -> ItemPlan:
     """Plan one item under an explicitly requested schedule (the repro_torch.rnn
     ``ExecutionPolicy.schedule`` preference) instead of the scorer's pick.
 
@@ -542,13 +548,15 @@ def _forced_plan(it: WorkItem, design: Design, force: str, force_bt: int,
         # VMEM budget — one G=2 launch per layer, fwd and bwd merged —
         # otherwise the minimal striping that does fit)
         force_bt = force_bt or it.T
-    # wavefront: forced stripe if given (VMEM-checked), else the autotuned
+    # wavefront: forced stripe if given (admission-checked), else the autotuned
     # one — nk may collapse to 1, which IS the packable fused shape
     bt = _fit_stripe(min(it.T, force_bt) if force_bt else
                      table().seq_block(it.T, it.B, it.H, gates=it.gates,
                                        precision=it.precision,
-                                       density=it.max_density),
-                     it.B, it.H, it.gates, it.precision, it.max_density)
+                                       density=it.max_density,
+                                       device_model=device_model),
+                     it.B, it.H, it.gates, it.precision, it.max_density,
+                     device_model)
     nk = cdiv(it.T, bt)
     est = _wave_est(it, design, nk=nk)
     ip = ItemPlan(item=it, schedule="wavefront" if nk > 1 else "fused",
@@ -578,7 +586,8 @@ def _per_step_us(it: WorkItem, cm, design: Design) -> float:
 def _schedule_item(it: WorkItem, macs: int, design: Design,
                    force: Optional[str] = None,
                    force_bt: int = 0, tracer=NULL_TRACER,
-                   cost_model=None) -> ItemPlan:
+                   cost_model=None,
+                   device_model: DeviceModel = REFERENCE) -> ItemPlan:
     """Tile + score one item: pick fused/wavefront striping or fallback.
 
     With an active measured ``cost_model``, the CHOICE among candidates is
@@ -610,27 +619,30 @@ def _schedule_item(it: WorkItem, macs: int, design: Design,
                         naive_launches=0, est_cycles=0.0)
 
     if force is not None:
-        return _forced_plan(it, design, force, force_bt, tile_k, mvm_block)
+        return _forced_plan(it, design, force, force_bt, tile_k, mvm_block,
+                            device_model)
 
     if force_bt:
         # an explicit stripe override (ExecutionPolicy.block_t) pins the
         # wavefront candidate even under "auto" — the scorer still weighs
         # it against per_step, but never re-stripes it
         cands = [_fit_stripe(min(it.T, force_bt), it.B, it.H, it.gates,
-                             it.precision, it.max_density)]
+                             it.precision, it.max_density, device_model)]
     else:
         bt0 = table().seq_block(it.T, it.B, it.H, gates=it.gates,
                                 precision=it.precision,
-                                density=it.max_density)
+                                density=it.max_density,
+                                device_model=device_model)
         cands = sorted({min(it.T, bt0), min(it.T, max(1, bt0 // 2)),
                         min(it.T, bt0 * 2), it.T})
-        # wider-than-bt0 candidates must still respect the sequence
-        # kernels' VMEM working-set bound the autotune table enforces
+        # wider-than-bt0 candidates must still be admitted by the device
+        # (under the reference's model: the VMEM bound the autotune table
+        # enforces)
         cands = [bt for bt in cands
-                 if bt <= 1 or seq_block_footprint(
+                 if bt <= 1 or device_model.seq_fits(
                      bt, it.B, it.H, gates=it.gates,
                      precision=it.precision, density=it.max_density)
-                 <= SEQ_VMEM_BUDGET] or [min(it.T, bt0)]
+                 ] or [min(it.T, bt0)]
     scored = []
     for bt in cands:
         nk = cdiv(it.T, bt)
@@ -659,7 +671,8 @@ def _schedule_item(it: WorkItem, macs: int, design: Design,
                              tile_k=tile_k, mvm_block=mvm_block,
                              naive_launches=0, est_cycles=e)
             measured_us[(s, b)] = _slots_us(
-                _pack([trial], macs, cost_model=cm), cm)
+                _pack([trial], macs, cost_model=cm,
+                      device_model=device_model), cm)
         mu, _, bt, nk, sched = min(
             (measured_us[(s, b)], negb, b, n, s)
             for _, negb, b, n, s in scored)
@@ -716,7 +729,8 @@ def validate_unique_uids(items: Sequence[WorkItem]) -> None:
 def plan(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
          align_stripes: bool = True, cross_b: bool = True,
          schedule: Optional[str] = None, block_t: int = 0,
-         tracer=None, cost_model=None) -> DispatchPlan:
+         tracer=None, cost_model=None,
+         device_model: DeviceModel = REFERENCE) -> DispatchPlan:
     """Plan a batch of WorkItems into an explicit DispatchPlan.
 
     ``align_stripes``: items that could share launches (same family/H/
@@ -748,6 +762,10 @@ def plan(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
     cold (empty table) every decision is exactly the analytic one.
     Stripe alignment stays analytic either way (a launch-credit
     heuristic, not a launch-shape choice).
+
+    ``device_model``: which stripes and cross-B rows the device admits
+    (``core.tiling.DeviceModel``; the reference's VMEM budget by default,
+    a card's own limits from ``core.tiling.device_model("cuda")``).
     """
     tracer = as_tracer(tracer)
     if schedule is not None and schedule not in FORCED_SCHEDULES:
@@ -764,12 +782,14 @@ def plan(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
                      else "analytic") as sp:
         plans = {it.uid: _schedule_item(it, macs, design, force=schedule,
                                         force_bt=block_t, tracer=tracer,
-                                        cost_model=cm)
+                                        cost_model=cm,
+                                        device_model=device_model)
                  for it in items}
 
         # a pinned block_t is a contract — alignment must not re-stripe it
         if align_stripes and schedule is None and not block_t:
-            _align_group_stripes(items, plans, design, cross_b=cross_b)
+            _align_group_stripes(items, plans, design, cross_b=cross_b,
+                                 device_model=device_model)
 
         packable, external = [], []
         for it in items:
@@ -780,7 +800,8 @@ def plan(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
             else:
                 external.append(ip.uid)
 
-        slots = _pack(packable, macs, cross_b=cross_b, cost_model=cm)
+        slots = _pack(packable, macs, cross_b=cross_b, cost_model=cm,
+                      device_model=device_model)
         out = DispatchPlan(items=tuple(plans[it.uid] for it in items),
                            slots=slots, external=tuple(external), macs=macs)
         sp.tag(slots=len(out.slots), launches=out.launches,
@@ -789,7 +810,8 @@ def plan(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
 
 
 def plan_decode(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
-                tracer=None, cost_model=None) -> DispatchPlan:
+                tracer=None, cost_model=None,
+                device_model: DeviceModel = REFERENCE) -> DispatchPlan:
     """Plan one serving decode tick: each item is a T=1 evaluation of the
     SAME parameter stack (all items must carry one non-None ``share`` key)
     for some batch rows — one active request each, in the serving engine.
@@ -813,6 +835,9 @@ def plan_decode(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
     it unchanged).  On backends where one chained launch wall-clocks worse
     than L small launches (every interpret backend we measure), the
     measured table flips this tick to the per-layer plan.
+
+    ``device_model`` plans that per-layer alternative (see ``plan``); the
+    chained slot itself is admitted or refused by ``analysis.plancheck``.
     """
     tracer = as_tracer(tracer)
     items = sorted(items, key=WorkItem.order_key)
@@ -881,7 +906,8 @@ def plan_decode(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
                                   head.dtype, chained=True,
                                   precision=head.precision)
         alt = plan(items, macs=macs, cross_b=True, schedule="wavefront",
-                   block_t=1, tracer=None, cost_model=cost_model)
+                   block_t=1, tracer=None, cost_model=cost_model,
+                   device_model=device_model)
         est_layers_us = _slots_us(alt.slots, cm)
         if est_layers_us < est_chain_us:
             chosen = "per_layer"
@@ -923,7 +949,8 @@ def plan_decode(items: Iterable[WorkItem], *, macs: int = DEFAULT_MACS,
 
 def _align_group_stripes(items: Sequence[WorkItem],
                          plans: Dict[int, ItemPlan],
-                         design: Design, *, cross_b: bool = True) -> None:
+                         design: Design, *, cross_b: bool = True,
+                         device_model: DeviceModel = REFERENCE) -> None:
     """Re-stripe packable same-signature items to one shared block_t.
 
     Candidate stripes are the members' chosen ones; each candidate is
@@ -952,13 +979,13 @@ def _align_group_stripes(items: Sequence[WorkItem],
         out = []
         for m in members:
             mbt = min(bt, m.T) if bt else plans[m.uid].block_t
-            # a cross-B group mixes batch widths: the shared stripe must
-            # respect the VMEM working-set bound at each member's OWN B
-            # (its original block_t was only validated there) — members the
-            # stripe doesn't fit keep their own validated choice
-            if mbt > 1 and seq_block_footprint(
+            # a cross-B group mixes batch widths: the device must admit
+            # the shared stripe at each member's OWN B (its original
+            # block_t was only validated there) — members the stripe
+            # doesn't fit keep their own validated choice
+            if mbt > 1 and not device_model.seq_fits(
                     mbt, m.B, m.H, gates=m.gates, precision=m.precision,
-                    density=m.max_density) > SEQ_VMEM_BUDGET:
+                    density=m.max_density):
                 mbt = plans[m.uid].block_t
             nk = cdiv(m.T, mbt)
             est = stack_plan_cycles(m.family, m.H, m.X, m.T, m.L, design,
@@ -970,7 +997,8 @@ def _align_group_stripes(items: Sequence[WorkItem],
 
     def group_cost(trial):
         naive = sum(len(_pack([t], 0, cross_b=cross_b)) for t in trial)
-        packed = len(_pack(trial, 0, cross_b=cross_b))
+        packed = len(_pack(trial, 0, cross_b=cross_b,
+                           device_model=device_model))
         return (sum(t.est_cycles for t in trial)
                 - LAUNCH_CYCLES * (naive - packed))
 

@@ -360,6 +360,29 @@ def seq_smem(H: int, gates: int, u_bytes: int, Hr: int) -> int:
     return fixed + ring + max(min(KR, room // rb) * rb for KR, rb in rows)
 
 
+#: The sequence kernels' launch takes its shape as C ints
+#: (csrc/seq_cluster.cuh ``dispatch``): at most SEQ_MAX_T steps a launch,
+#: SEQ_MAX_G recurrences (the grid's z) and SEQ_MAX_B batch rows (its y,
+#: _SEQ_ROWS rows a cluster).  These are the int32 limits of a stripe: the
+#: kernel's element offsets into xw and hs, ((row * T + t) * gates + j) * H
+#: and (row * T + t) * H, are size_t, so no product of the shape is held to
+#: 32 bits.
+SEQ_MAX_T = 2**31 - 1
+SEQ_MAX_G = 65535
+SEQ_MAX_B = _SEQ_ROWS * 65535
+
+
+def seq_launch_refusal(G: int, B: int, T: int) -> str | None:
+    """Why the sequence kernels' C side refuses a launch of G recurrences
+    of B rows over T steps for its ints (the limits above), or None."""
+    for name, value, limit in (("T", T, SEQ_MAX_T), ("G", G, SEQ_MAX_G),
+                               ("B", B, SEQ_MAX_B)):
+        if value > limit:
+            return (f"a sequence launch takes {name} <= {limit} (a C int of "
+                    f"its shape), got {name}={value}")
+    return None
+
+
 def seq_shape(family: str, B: int, H: int, Hr: int, u_dtype) -> dict:
     """What the ``family`` ("lstm" or "gru") sequence kernel's C side
     takes for a launch at (B, H, Hr, U's dtype), without launching: S,
@@ -389,6 +412,14 @@ CELL_UNITS = 8
 CELL_THREADS = 256
 CELL_ROWS = 4
 CELL_MAX_H = SEQ_MAX_SMEM // (4 * CELL_ROWS)
+
+#: Each kernel of the recurrent path and the widest H it takes on the card:
+#: the one table that the executor's refusal of a stack
+#: (``dispatch.executor.kernel_refusal``) and the card's device model
+#: (``core.tiling.card_model``) read.
+MAX_H = {"lstm_seq": SEQ_MAX_H, "gru_seq": SEQ_MAX_H,
+         "lstm_decode": DECODE_MAX_H, "gru_decode": DECODE_MAX_H,
+         "lstm_cell": CELL_MAX_H}
 
 
 def cell_split(H: int, u_bytes: int) -> dict:

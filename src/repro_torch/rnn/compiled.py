@@ -35,7 +35,10 @@ row-compacted U (decode ticks run the dense decode kernels on the
 fake-quant view).
 
 Entry points run on ``device`` ("cuda" by default: the hand-written
-kernels); ``device="cpu"`` runs the kernels' plain PyTorch versions.
+kernels); ``device="cpu"`` runs the kernels' plain PyTorch versions.  The
+device also decides which stripes and slots the stack's plans may hold
+(``core.tiling.device_model``): on the CPU the reference's TPU model, so
+plans equal the reference's; on CUDA the card's own limits.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tiling
 from repro_torch.core.schedules import stack_families
 from repro_torch.dispatch import (DispatchPlan, WorkItem, execute, plan,
                                   plan_decode, prepare_decode_stack)
@@ -229,6 +233,11 @@ class CompiledStack:
             raise ValueError("CompiledStack: empty parameter stack")
         self.policy = policy
         self.device = device
+        #: which stripes and slots this device admits: the reference's
+        #: model on the CPU (plans equal the reference's), the card's own
+        #: on CUDA (``core.tiling.device_model``); the planner and the plan
+        #: verifier both take it
+        self.device_model = tiling.device_model(device)
         if policy.precision != "fp32":
             # bind the fake-quant view ONCE: packed kernels (which
             # re-quantize it, an exact idempotent round-trip), decode ticks
@@ -342,7 +351,7 @@ class CompiledStack:
                 # executable from the cache
                 from repro_torch.analysis.plancheck import check_plan
                 with self.tracer.span("verify", slots=len(p.slots)):
-                    check_plan(p)
+                    check_plan(p, device_model=self.device_model)
                 self.stats.plans_verified += 1
             while len(self._plans) >= self.MAX_CACHED_PLANS:
                 self._plans.pop(next(iter(self._plans)))
@@ -377,7 +386,7 @@ class CompiledStack:
              for i, ((b, t, dt), p) in enumerate(zip(shapes, prios))],
             macs=pol.macs, cross_b=pol.packing, align_stripes=pol.packing,
             schedule=force, block_t=pol.block_t, tracer=self.tracer,
-            cost_model=self.cost_model))
+            cost_model=self.cost_model, device_model=self.device_model))
 
     # ------------------------------------------------------------------
     def _as_input(self, x):
@@ -541,7 +550,8 @@ class CompiledStack:
             if not self.heterogeneous:
                 p = self._cached(key, lambda: plan_decode(
                     [self._item(0, B, 1, dtype)], macs=self.policy.macs,
-                    tracer=tr, cost_model=self.cost_model))
+                    tracer=tr, cost_model=self.cost_model,
+                    device_model=self.device_model))
                 if p.items[0].schedule == "decode":
                     if self._prepared is None:
                         # self.params already carries the fake-quant view,
@@ -569,7 +579,8 @@ class CompiledStack:
                 p = self._cached(key, lambda: plan(
                     [self._item(0, B, 1, dtype)], macs=self.policy.macs,
                     cross_b=self.policy.packing, schedule="wavefront",
-                    block_t=1, tracer=tr, cost_model=self.cost_model))
+                    block_t=1, tracer=tr, cost_model=self.cost_model,
+                    device_model=self.device_model))
                 prepared = None
             rep, guard = self._guard()
             outs, states = execute(p, {0: self.params}, {0: x_t},
@@ -599,6 +610,10 @@ class CompiledStack:
             f"X{self.X}{bi} on {self.device}",
             f"  {self.policy.describe()}",
             f"  cost model: {cm_line}",
+        ]
+        if self.device_model.on_card:
+            lines.append(f"  device model: {self.device_model.describe()}")
+        lines += [
             f"  stats: {s.forward_calls} forward / {s.decode_calls} decode "
             f"calls, {s.launches} launches ({s.decode_launches} decode), "
             f"{s.plans_built} plans built ({s.decode_plans_built} decode, "

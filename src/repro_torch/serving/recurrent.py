@@ -416,8 +416,10 @@ class RecurrentServingEngine:
         y, st = self.compiled.decode(self.last_y[idx], state)
         p = self.compiled.last_decode_plan
         # the dispatch claim, verified every tick: k active slots plan
-        # exactly k-row cells — empty slots are never computed
-        check_decode_tick(p, len(active))
+        # exactly k-row cells — empty slots are never computed — in a
+        # chained slot the stack's device admits
+        check_decode_tick(p, len(active),
+                          device_model=self.compiled.device_model)
         self.decode_ticks += 1
         self.decode_launches += p.launches
         self.last_decode_plan = p

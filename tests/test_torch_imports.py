@@ -75,3 +75,22 @@ def test_chip_smoke_refuses_without_the_package(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_device_models_import_neither_jax_nor_repro():
+    """core.tiling's device models (the reference's and a card's, built
+    from faked properties) stand alone too."""
+    code = (
+        "import sys, types\n"
+        "from repro_torch.core import tiling\n"
+        "assert tiling.device_model('cpu') is tiling.REFERENCE\n"
+        "tiling.card_model(types.SimpleNamespace(name='x', "
+        "multi_processor_count=132, shared_memory_per_block_optin=232448))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
