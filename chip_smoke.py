@@ -90,18 +90,21 @@ Phases, one line (or a few) of output each:
                ExecutionPolicy(block_t=8) (the bt8 plan), outputs held
                together, warm walls in turns (model, bt8, bt8, model) x3
   6 paper      the paper's H=1024 networks at full width through the main
-               path under the card's model: RLDRADSPR (L=10, fp32) forward
-               at B=4, T=400 as an LSTM and as a GRU stack (lstm_seq /
-               gru_seq launches == plan.launches, no degraded launch,
-               within TOL_E2E of the CPU path: verify="off" under the
-               reference's model); GMAT (L=17, bf16 weights) served by
-               RecurrentServingEngine(max_batch=4): 4 prompts of 75 frames,
-               8 decoded frames each, one chained lstm_decode launch a
-               tick over the 17 layers, held against the CPU path's
-               prefill and ticks; each plan's (schedule, bt, launches) and
-               warm wall; then one lstm_seq launch of 16 rows at H=1024
-               over 132,096 steps, whose element offsets pass 2^31, bit for
-               bit against the same walk in two launches
+               path under the card's model, weights from a seeded
+               generator at PAPER_GAIN x the fan-in init: RLDRADSPR (L=10,
+               fp32) forward at B=4, T=400 as an LSTM and as a GRU stack
+               (lstm_seq / gru_seq launches == plan.launches, no degraded
+               launch); GMAT (L=17, bf16 weights) served by
+               RecurrentServingEngine(max_batch=4): 4 prompts of 75
+               frames, 8 decoded frames each, one chained lstm_decode
+               launch a tick over the 17 layers; each held against the CPU
+               path (verify="off" under the reference's model) within
+               TOL_E2E and a share of its max |ref| (TOL_REL), and the
+               same stack with its last layer skipped planted against
+               that check, which it must fail; each plan's (schedule, bt, launches) and warm wall;
+               then one lstm_seq launch of 16 rows at H=1024 over 132,096
+               steps, whose element offsets pass 2^31, bit for bit against
+               the same walk in 8 launches whose offsets stay below 2^31
   7 serve_gru  the same 6 requests through BYSDNE as a GRU
                (rnn_family="gru", bf16 weights): gru_seq + gru_decode
                launches == the plans' launches, one gru_decode per tick,
@@ -2234,10 +2237,25 @@ def _check_ladder_on_card(cfg, xs, healthy):
 
 #: the paper phase's shapes: RLDRADSPR's forward (B, T), GMAT's served
 #: prompts (count, frames, decoded frames), and the lstm_seq launch whose
-#: element offsets pass 2^31 (B, T at H = 1024)
+#: element offsets pass 2^31 (B, T at H = 1024) with the number of
+#: launches its witness walks the same steps in
 PAPER_FORWARD = (4, 400)
 PAPER_SERVE = (4, 75, 8)
-PAPER_OFFSETS = (16, 132096)
+PAPER_OFFSETS = (16, 132096, 8)
+# the paper phase's weights: the fan-in init times this gain per family.
+# At fan-in init an LSTM layer's h is about half the size of its input, so
+# the top of a 10- or 17-layer stack falls to 1e-4 .. 1e-6, under TOL_E2E,
+# where a check in absolute terms cannot tell a right output from zeros.
+# Twice the fan-in weights keep every LSTM layer's h of order 0.5; a GRU
+# layer keeps its h of order 0.1 .. 1 at fan-in.  The phase prints each
+# output's max |ref|.
+PAPER_GAIN = {"lstm": 2.0, "gru": 1.0}
+# the paper phase against the CPU path: besides TOL_E2E, max_abs_err
+# within this share of the output's max |ref|: the same weights (GMAT's
+# bf16 values on both sides) and fp32 arithmetic, products summed in other
+# orders over up to 400 steps x 17 layers.  A stack with a layer skipped
+# is planted against the same limit and must fail it.
+TOL_REL = 1e-4
 
 
 def phase_paper(ctx):
@@ -2249,11 +2267,53 @@ def phase_paper(ctx):
     _paper_offsets(ctx)
 
 
+def _paper_params(cfg, family, dtype):
+    """``cfg``'s stack as ``family`` from a seeded torch.Generator (as
+    rnn.compile draws it), W and U times PAPER_GAIN[family]."""
+    import torch
+
+    from repro_torch.core.gru import init_gru_stack
+    from repro_torch.models.layers.lstm import init_lstm_stack
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "lstm":
+        params = init_lstm_stack(gen, cfg, torch.float32)
+    else:
+        params = init_gru_stack(gen, cfg.lstm_input, cfg.lstm_hidden,
+                                cfg.n_layers, torch.float32)
+    g = PAPER_GAIN[family]
+    return {"layers": [{k: (v * g if k in ("W", "U") else v).to(dtype)
+                        for k, v in layer.items()}
+                       for layer in params["layers"]]}
+
+
+def _paper_held(label, what, err, ref_max, rel_tol):
+    """Print ``what``'s max_abs_err beside max |ref| and hold it within
+    TOL_E2E and ``rel_tol`` of max |ref|."""
+    rel = err / ref_max
+    print(f"{label}: {what} max_abs_err {err:.3e}, max|ref| {ref_max:.3e}, "
+          f"ratio {rel:.3e} (tol {TOL_E2E:g}, ratio {rel_tol:g})")
+    check(err <= TOL_E2E and rel <= rel_tol,
+          f"{label}: {what} disagrees with the CPU path")
+
+
+def _paper_planted(label, what, err, ref_max, rel_tol):
+    """A planted fault (a layer skipped) must fail the check that the
+    right output passes."""
+    rel = err / ref_max
+    caught = err > TOL_E2E or rel > rel_tol
+    print(f"{label}: planted fault, {what}: max_abs_err {err:.3e}, ratio "
+          f"{rel:.3e} against the CPU path (tol {TOL_E2E:g}, ratio "
+          f"{rel_tol:g}): caught {caught}")
+    check(caught, f"{label}: the check passed a planted fault ({what})")
+
+
 def _paper_forward(ctx, family):
-    """rnn.compile(RLDRADSPR) forward as ``family`` (fp32 weights from a
-    seeded torch.Generator): launches, degraded launches and outputs
-    against the CPU path (the reference's model, unverified: its VMEM
-    budget refuses every H=1024 slot)."""
+    """rnn.compile(RLDRADSPR) forward as ``family`` (fp32 weights,
+    ``_paper_params``): launches, degraded launches and outputs against
+    the CPU path (the reference's model, unverified: its VMEM budget
+    refuses every H=1024 slot), and a planted fault: the stack without its
+    last layer on the card."""
     import dataclasses
 
     import numpy as np
@@ -2271,7 +2331,8 @@ def _paper_forward(ctx, family):
     xs = (np.random.default_rng(3).standard_normal(
         (B, T, cfg.lstm_input)) * 0.5).astype(np.float32)
     seq_k = lstm_seq if family == "lstm" else gru_seq
-    cs = rnn.compile(cfg, rnn_family=family, device="cuda", seed=0)
+    params = _paper_params(cfg, family, torch.float32)
+    cs = rnn.compile(params, device="cuda")
     everything = entries()
     reset_counts(*everything)
     ys = cs.forward(xs)
@@ -2279,10 +2340,11 @@ def _paper_forward(ctx, family):
     n, p = seq_k.kernel_launches, cs.plan.launches
     others = sum(f.calls for f in everything if f is not seq_k)
     st = cs.stats
-    print(f"{label}: L={cfg.n_layers} H={cfg.lstm_hidden} B={B} T={T} -> "
-          f"{tuple(ys.shape)}; plan {_plan_items(cs.plan)}, {p} launches; "
-          f"{seq_k.__name__} kernel launches {n}; other entry points "
-          f"{others}; degraded {st.degraded_launches}")
+    print(f"{label}: L={cfg.n_layers} H={cfg.lstm_hidden} B={B} T={T} "
+          f"(weights {PAPER_GAIN[family]:g}x fan-in) -> {tuple(ys.shape)}; "
+          f"plan {_plan_items(cs.plan)}, {p} launches; {seq_k.__name__} "
+          f"kernel launches {n}; other entry points {others}; degraded "
+          f"{st.degraded_launches}")
     check(tuple(ys.shape) == (B, T, cfg.lstm_hidden)
           and bool(torch.isfinite(ys).all()),
           f"{label}: wrong shape or not finite")
@@ -2292,21 +2354,26 @@ def _paper_forward(ctx, family):
           f"{label}: a launch degraded down the guarded ladder")
     tally(ctx, seq_k)
 
-    cpu = rnn.compile(cfg, rnn.ExecutionPolicy(verify="off"),
-                      rnn_family=family, device="cpu", seed=0)
+    cpu = rnn.compile(params, rnn.ExecutionPolicy(verify="off"),
+                      device="cpu")
     t0 = time.perf_counter()
     ref = cpu.forward(xs)
     cpu_s = time.perf_counter() - t0
     err = float((ys.cpu() - ref).abs().max())
-    print(f"{label}: vs the CPU path (plan {_plan_items(cpu.plan)}, "
-          f"{cpu.plan.launches} launches, {cpu_s:.1f} s) max_abs_err "
-          f"{err:.3e} (tol {TOL_E2E:g})")
-    check(err <= TOL_E2E, f"{label}: output disagrees with the CPU path")
+    ref_max = float(ref.abs().max())
+    _paper_held(label, f"output vs the CPU path (plan "
+                f"{_plan_items(cpu.plan)}, {cpu.plan.launches} launches, "
+                f"{cpu_s:.1f} s)", err, ref_max, TOL_REL)
+    skipped = rnn.compile({"layers": params["layers"][:-1]}, device="cuda")
+    _paper_planted(label, f"the last of {cfg.n_layers} layers skipped",
+                   float((skipped.forward(xs).cpu() - ref).abs().max()),
+                   ref_max, TOL_REL)
+    del skipped
 
     walls = _turns({"warm": lambda: cs.forward(xs)}, ("warm",))["warm"]
     ctx.setdefault("paper", {})[f"RLDRADSPR_{family}"] = {
         "items": _plan_items(cs.plan), "launches": p, "max_abs_err": err,
-        "warm_ms": walls}
+        "max_ref": ref_max, "warm_ms": walls}
     print(f"{label}: warm walls {['%.2f' % w for w in walls]} ms "
           f"({p} launches)")
     if ctx["profile"]:
@@ -2314,11 +2381,28 @@ def _paper_forward(ctx, family):
         _profiled_launches(label, seq_k.__name__, by_name, count, p)
 
 
+def _paper_served_err(done, results, gen):
+    """max |served - CPU path| over each request's prompt outputs and
+    decoded frames, and max |CPU path|."""
+    import numpy as np
+
+    refs = [(results[i][0][0].float().numpy(), gen[i])
+            for i in range(len(done))]
+    err = max(max(float(np.abs(c.outputs - out).max()),
+                  float(np.abs(c.generated - new).max()))
+              for c, (out, new) in zip(done, refs))
+    ref_max = max(max(float(np.abs(out).max()), float(np.abs(new).max()))
+                  for out, new in refs)
+    return err, ref_max
+
+
 def _paper_serve(ctx):
-    """RecurrentServingEngine serves GMAT (bf16 weights from a seeded
-    torch.Generator) on the card; the CPU path is the same stack compiled
-    on the CPU (the reference's model, unverified), prefilled and ticked
-    as the engine does."""
+    """RecurrentServingEngine serves GMAT (bf16 weights, ``_paper_params``)
+    on the card; the CPU path is the same stack compiled on the CPU (the
+    reference's model, unverified), prefilled and ticked as the engine
+    does.  A planted fault: the stack without its last layer, served."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2326,19 +2410,17 @@ def _paper_serve(ctx):
     from repro_torch.configs.sharp_lstm import GMAT
     from repro_torch.kernels.common import reset_counts
     from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
-    from repro_torch.models.layers.lstm import init_lstm_stack
     from repro_torch.serving import RecurrentRequest, RecurrentServingEngine
 
     label = "paper GMAT serve"
     n_req, T, new = PAPER_SERVE
-    params = init_lstm_stack(torch.Generator().manual_seed(0), GMAT,
-                             torch.bfloat16)
+    params = _paper_params(GMAT, "lstm", torch.bfloat16)
     rng = np.random.default_rng(4)
     frames = [(rng.standard_normal((T, GMAT.lstm_input)) * 0.5)
               .astype(np.float32) for _ in range(n_req)]
 
-    def serve():
-        eng = RecurrentServingEngine(GMAT, params, max_batch=n_req,
+    def serve(cfg=GMAT, stack=params):
+        eng = RecurrentServingEngine(cfg, stack, max_batch=n_req,
                                      device="cuda")
         for uid, fr in enumerate(frames):
             eng.submit(RecurrentRequest(uid=uid, frames=fr,
@@ -2354,7 +2436,8 @@ def _paper_serve(ctx):
                  if f not in (lstm_seq, lstm_decode))
     st = eng.compiled.stats
     tick = eng.last_decode_plan
-    print(f"{label}: L={GMAT.n_layers} H={GMAT.lstm_hidden}, {n_req} "
+    print(f"{label}: L={GMAT.n_layers} H={GMAT.lstm_hidden} (weights "
+          f"{PAPER_GAIN['lstm']:g}x fan-in), {n_req} "
           f"prompts of {T} frames, {new} decoded each: statuses "
           f"{[c.status for c in done]}; prefill plan "
           f"{_plan_items(eng.last_plan)[:1]} x{len(eng.last_plan.items)}, "
@@ -2392,27 +2475,28 @@ def _paper_serve(ctx):
         state = {k: v.float() for k, v in state.items()}
         generated.append(y[:, 0])
     gen = torch.stack(generated, dim=1).numpy()
-    err = max(max(float(np.abs(c.outputs - results[i][0][0].float().numpy())
-                        .max()),
-                  float(np.abs(c.generated - gen[i]).max()))
-              for i, c in enumerate(done))
+    err, ref_max = _paper_served_err(done, results, gen)
     shapes_ok = all(c.outputs.shape == (T, GMAT.lstm_hidden)
                     and c.generated.shape == (new, GMAT.lstm_hidden)
                     and np.isfinite(c.outputs).all()
                     and np.isfinite(c.generated).all() for c in done)
-    print(f"{label}: outputs and decoded frames vs the CPU path (prefill "
-          f"plan {cpu.plan.launches} launches) max_abs_err {err:.3e} (tol "
-          f"{TOL_E2E:g}); shapes and finiteness "
+    print(f"{label}: shapes and finiteness "
           f"{'ok' if shapes_ok else 'WRONG'}")
     check(shapes_ok, f"{label}: wrong shape or not finite")
-    check(err <= TOL_E2E, f"{label}: served frames disagree with the CPU "
-                          "path")
+    _paper_held(label, f"outputs and decoded frames vs the CPU path "
+                f"(prefill plan {cpu.plan.launches} launches)", err,
+                ref_max, TOL_REL)
+    short = dataclasses.replace(GMAT, n_layers=GMAT.n_layers - 1)
+    _, skipped = serve(short, {"layers": params["layers"][:-1]})
+    _paper_planted(label, f"the last of {GMAT.n_layers} layers skipped",
+                   _paper_served_err(skipped, results, gen)[0], ref_max,
+                   TOL_REL)
 
     walls = _turns({"warm": serve}, ("warm",))["warm"]
     ctx.setdefault("paper", {})["GMAT_serve"] = {
         "prefill_items": _plan_items(eng.last_plan),
         "prefill_launches": eng.packed_launches, "ticks": eng.decode_ticks,
-        "max_abs_err": err, "warm_ms": walls}
+        "max_abs_err": err, "max_ref": ref_max, "warm_ms": walls}
     print(f"{label}: warm walls {['%.2f' % w for w in walls]} ms "
           f"({eng.packed_launches} + {eng.decode_launches} launches, "
           f"{n_req * (T + new)} prompt + decoded frames)")
@@ -2425,42 +2509,47 @@ def _paper_serve(ctx):
 def _paper_offsets(ctx):
     """One lstm_seq launch whose xw and hs element offsets pass 2^31 (the
     kernel computes them in size_t), bit for bit against the same walk in
-    two launches, each below 2^31.  Outside the counted runs."""
+    PAPER_OFFSETS[2] launches, in each of which every xw and hs offset is
+    below 2^31.  Outside the counted runs."""
     import torch
 
     from repro_torch.kernels.lstm_cell.ops import lstm_seq
 
-    B, T = PAPER_OFFSETS
+    B, T, parts = PAPER_OFFSETS
     H = 1024
-    check((4 * B * T - 1) * H >= 2 ** 31 and (B * T - 1) * H >= 2 ** 31,
-          "the offsets case does not pass 2^31")
+    step = T // parts
+    check((4 * B * T - 1) * H >= 2 ** 31 and (B * T - 1) * H >= 2 ** 31
+          and T % parts == 0 and 4 * B * step * H <= 2 ** 31,
+          "the offsets case does not pass 2^31 in one launch and stay "
+          "below it in each part")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     U = (torch.randn((1, H, 4, H), generator=gen, device=dev) * 0.02
          ).to(torch.bfloat16)
     xw = torch.randn((1, B, T, 4, H), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    h0 = torch.zeros((1, B, H), device=dev)
-    c0 = torch.zeros((1, B, H), device=dev)
+    h, c = torch.zeros((1, B, H), device=dev), torch.zeros((1, B, H),
+                                                           device=dev)
     t0 = time.perf_counter()
-    hs, hT, cT = lstm_seq(U, xw, h0, c0)
+    hs, hT, cT = lstm_seq(U, xw, h, c)
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
-    half = T // 2
-    hs1, h1, c1 = lstm_seq(U, xw[:, :, :half].contiguous(), h0, c0)
-    same = torch.equal(hs[:, :, :half], hs1)
-    del hs1
-    hs2, h2, c2 = lstm_seq(U, xw[:, :, half:].contiguous(), h1, c1)
-    same = (same and torch.equal(hs[:, :, half:], hs2)
-            and torch.equal(hT, h2) and torch.equal(cT, c2))
+    same = True
+    for k in range(parts):
+        part = slice(k * step, (k + 1) * step)
+        hs_k, h, c = lstm_seq(U, xw[:, :, part].contiguous(), h, c)
+        same = same and torch.equal(hs[:, :, part], hs_k)
+        del hs_k
+    same = same and torch.equal(hT, h) and torch.equal(cT, c)
     finite = bool(torch.isfinite(hs).all())
     print(f"paper offsets: lstm_seq B={B} T={T} H={H} (bf16 xw, fp32 h): "
           f"largest xw offset {(4 * B * T - 1) * H + H - 1}, hs "
           f"{(B * T - 1) * H + H - 1} (2^31 = {2 ** 31}); one launch "
-          f"{one_s:.2f} s; == two launches bit for bit {same}; finite "
+          f"{one_s:.2f} s; == {parts} launches of {step} steps (largest "
+          f"xw offset {4 * B * step * H - 1}) bit for bit {same}; finite "
           f"{finite}")
     check(same and finite, "a launch past 2^31 element offsets differs "
-                           "from the same walk in two launches")
+                           "from the same walk in launches below it")
     del hs, xw
 
 

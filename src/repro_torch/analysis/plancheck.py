@@ -68,9 +68,8 @@ Resource budget (``vmem-budget``)
     Precision-aware: an int8 slot is budgeted at its 1-byte resident
     payload plus per-gate scales (bf16 at 2 bytes), and a block-sparse slot
     at its densest member layer's occupied row-tiles plus the gather index.
-    Under a card's model: the card's kernels' limits (H, a CTA's shared
-    memory within the card's opt-in, the launch's C ints), each message
-    naming the card's limit.
+    Under a card's model: the card's kernels' limits (H, the launch's C
+    ints), each message naming the card's limit.
 
 Any violation raises a structured ``runtime.errors.PlanInvariantError``
 naming the rule, slot, and cell; a clean pass returns a
@@ -342,8 +341,9 @@ def check_plan(plan: DispatchPlan, *,
     (``core.tiling.DeviceModel``; by default the reference's, whose bound
     is ``core.tiling.SEQ_VMEM_BUDGET``, the same working-set budget the
     autotune table stripes against).  ``vmem_budget`` overrides the
-    model's bound on a slot's footprint (on a card: a sequence slot's
-    shared memory a CTA).
+    reference's bound on a slot's footprint; a card's model holds slots to
+    its kernels' limits, not to a footprint, and refuses an override
+    (``ValueError``).
     """
     validate_unique_uids([ip.item for ip in plan.items])
     covered = _covered_items(plan)

@@ -185,33 +185,30 @@ def decode_block_footprint(B: int, H: int, *, gates: int = 4,
 @dataclass(frozen=True)
 class DeviceModel:
     """Which sequence-kernel slots (a T-stripe ``bt`` of G recurrences of B
-    rows) and chained decode slots a device admits: a slot's footprint, the
-    bound it is held to (``budget``), and, on a card, the limits of the
-    card's kernels.
+    rows) and chained decode slots a device admits.
 
-    ``REFERENCE`` (``sms == 0``) is the reference's TPU model: a sequence
-    slot's VMEM working set (``seq_block_footprint``) and a chained decode
-    slot's per-layer one (``decode_block_footprint``) within
-    ``SEQ_VMEM_BUDGET``, so plans equal the reference's bit for bit.
+    ``REFERENCE`` is the reference's TPU model: a sequence slot's VMEM
+    working set (``seq_block_footprint``) and a chained decode slot's
+    per-layer one (``decode_block_footprint``) within ``budget``
+    (``SEQ_VMEM_BUDGET``), so plans equal the reference's bit for bit.
 
-    A card's model (``card_model``): the card's sequence kernels keep U (or
-    a leading share of it and a ring) in a cluster's shared memory and read
-    xw and write hs in HBM one step at a time, so no stripe's T adds to a
-    CTA's working set.  A sequence slot is admitted when H is within the
-    sequence kernels' limit (``seq_max_h``), a CTA's shared memory
-    (``kernels.common.seq_smem``, dense U) within the block opt-in the card
-    offers (``budget``), and the launch's C ints within theirs
-    (``kernels.common.seq_launch_refusal``: T, G, B); a chained decode slot
-    when H is within the decode kernels' limit (``decode_max_h``)."""
+    A card's model (``card_model``, ``on_card``) holds a slot to the
+    limits of the card's kernels, and to no footprint: the sequence
+    kernels keep U (or a leading share of it and a ring) in a cluster's
+    shared memory and read xw and write hs in HBM one step at a time, so
+    no stripe adds to a CTA's working set, and a CTA's shared memory
+    (``kernels.common.seq_smem``) is at most ``SEQ_MAX_SMEM`` at any H,
+    which ``card_model`` has already held the card's opt-in (``budget``)
+    to.  A sequence slot is admitted when H is within the sequence
+    kernels' limit (``seq_max_h``) and the launch's C ints within theirs
+    (``kernels.common.seq_launch_refusal``: T, G, B); a chained decode
+    slot when H is within the decode kernels' limit (``decode_max_h``)."""
     name: str
-    budget: int            # bytes a slot's footprint is held to
-    sms: int = 0           # the card's SMs; 0 for the reference's model
+    budget: int            # REFERENCE: the VMEM bound; a card: its opt-in
+    on_card: bool = False
+    sms: int = 0           # the card's SMs (describe only)
     seq_max_h: int = 0     # widest H of the card's sequence kernels
     decode_max_h: int = 0  # widest H of the card's decode kernels
-
-    @property
-    def on_card(self) -> bool:
-        return self.sms > 0
 
     def describe(self) -> str:
         if not self.on_card:
@@ -222,26 +219,23 @@ class DeviceModel:
                 f"{self.seq_max_h} within the launch's C ints, chained "
                 f"decode slots at H <= {self.decode_max_h}")
 
-    def seq_footprint(self, bt: int, B: int, H: int, *, gates: int = 4,
-                      bytes_per_el: int = 4, precision: str = "fp32",
-                      density: float = 1.0) -> int:
-        """Bytes of a sequence slot's working set: the reference's VMEM
-        stripe, or on a card the shared memory a CTA takes (whatever the
-        stripe; dense U, the most a CTA takes)."""
-        if not self.on_card:
-            return seq_block_footprint(bt, B, H, gates=gates,
-                                       bytes_per_el=bytes_per_el,
-                                       precision=precision, density=density)
-        from repro_torch.kernels.common import seq_smem
-
-        return seq_smem(H, gates, PRECISION_WEIGHT_BYTES[precision], H)
+    def _bound(self, budget: Optional[int]) -> int:
+        if budget is None:
+            return self.budget
+        if self.on_card:
+            raise ValueError(
+                f"{self.name} holds a slot to its kernels' limits, not to "
+                f"a footprint: a budget override ({budget}B) applies to "
+                "the reference's model only")
+        return budget
 
     def seq_refusal(self, bt: int, B: int, H: int, *, gates: int = 4,
                     G: int = 1, bytes_per_el: int = 4,
                     precision: str = "fp32", density: float = 1.0,
                     budget: Optional[int] = None) -> Optional[str]:
         """Why this device refuses a sequence slot, or None.  ``budget``
-        overrides the bound its footprint is held to."""
+        overrides the reference's VMEM bound (a card has none)."""
+        bound = self._bound(budget)
         if self.on_card:
             from repro_torch.kernels.common import seq_launch_refusal
 
@@ -249,18 +243,12 @@ class DeviceModel:
                 return (f"H={H} is past the sequence kernels' H <= "
                         f"{self.seq_max_h} on {self.name}")
             why = seq_launch_refusal(G, B, bt)
-            if why:
-                return f"{why} on {self.name}"
-        used = self.seq_footprint(bt, B, H, gates=gates,
-                                  bytes_per_el=bytes_per_el,
-                                  precision=precision, density=density)
-        bound = self.budget if budget is None else budget
-        if used <= bound:
-            return None
-        if not self.on_card:
-            return f"footprint {used}B exceeds budget {bound}B"
-        return (f"shared memory {used}B a CTA exceeds the {bound}B a block "
-                f"may take on {self.name}")
+            return f"{why} on {self.name}" if why else None
+        used = seq_block_footprint(bt, B, H, gates=gates,
+                                   bytes_per_el=bytes_per_el,
+                                   precision=precision, density=density)
+        return (None if used <= bound
+                else f"footprint {used}B exceeds budget {bound}B")
 
     def seq_fits(self, bt: int, B: int, H: int, **kw) -> bool:
         return self.seq_refusal(bt, B, H, **kw) is None
@@ -271,17 +259,15 @@ class DeviceModel:
         """Why this device refuses a chained decode slot of B rows at width
         H, or None.  ``budget`` overrides the reference's VMEM bound; a
         card holds the slot to its decode kernels' limit on H."""
+        bound = self._bound(budget)
         if self.on_card:
-            if H > self.decode_max_h:
-                return (f"H={H} is past the decode kernels' H <= "
-                        f"{self.decode_max_h} on {self.name}")
-            return None
+            return (f"H={H} is past the decode kernels' H <= "
+                    f"{self.decode_max_h} on {self.name}"
+                    if H > self.decode_max_h else None)
         used = decode_block_footprint(B, H, gates=gates,
                                       bytes_per_el=bytes_per_el)
-        bound = self.budget if budget is None else budget
-        if used <= bound:
-            return None
-        return f"footprint {used}B exceeds budget {bound}B"
+        return (None if used <= bound
+                else f"footprint {used}B exceeds budget {bound}B")
 
 
 #: the reference's TPU model: every plan equals the reference's
@@ -305,7 +291,8 @@ def card_model(props) -> DeviceModel:
             f"{name} offers {optin} B of shared memory a block; the "
             f"sequence kernels take up to {SEQ_MAX_SMEM} B")
     return DeviceModel(
-        name=name, budget=optin, sms=int(props.multi_processor_count),
+        name=name, budget=optin, on_card=True,
+        sms=int(props.multi_processor_count),
         seq_max_h=min(MAX_H["lstm_seq"], MAX_H["gru_seq"]),
         decode_max_h=min(MAX_H["lstm_decode"], MAX_H["gru_decode"]))
 

@@ -996,7 +996,8 @@ def _align_group_stripes(items: Sequence[WorkItem],
         return out
 
     def group_cost(trial):
-        naive = sum(len(_pack([t], 0, cross_b=cross_b)) for t in trial)
+        naive = sum(len(_pack([t], 0, cross_b=cross_b,
+                              device_model=device_model)) for t in trial)
         packed = len(_pack(trial, 0, cross_b=cross_b,
                            device_model=device_model))
         return (sum(t.est_cycles for t in trial)

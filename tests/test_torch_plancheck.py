@@ -296,8 +296,9 @@ def test_mutation_wrong_chunk_len_is_chunk_tiling():
 def test_mutation_vmem_overflow_is_vmem_budget():
     """Under the reference's model, as in the reference (same message);
     under a card's model, a slot wider than the sequence launch's rows
-    (SEQ_MAX_B, a C int of its grid) and a bound overridden below a CTA's
-    shared memory, each message naming the card's limit."""
+    (SEQ_MAX_B, a C int of its grid), its message naming the card's
+    limit.  A card holds slots to no footprint, so a budget override is
+    refused there rather than read."""
     msgs = []
     for pkg in BOTH:
         p = _share_plan(pkg)
@@ -320,9 +321,9 @@ def test_mutation_vmem_overflow_is_vmem_budget():
                   device_model=CARD)
     assert err.slot == s0.index
     assert f"B <= {SEQ_MAX_B}" in str(err) and CARD.name in str(err)
-    err = _expect(PORT, "vmem-budget", p, vmem_budget=1024,
-                  device_model=CARD)
-    assert "exceeds the 1024B a block may take on " + CARD.name in str(err)
+    with pytest.raises(ValueError, match="applies to the reference's "
+                                         "model only"):
+        plancheck.check_plan(p, vmem_budget=1024, device_model=CARD)
 
 
 def test_mutation_scrambled_chain_is_decode_chain():
