@@ -28,8 +28,10 @@ deprecations:
 # bare assert/RuntimeError on the serving path, one fenced clock
 # (runtime/obs.py), no Slot-internals coupling outside planner/executor/
 # analysis.  Pure AST walk — no test execution, fails CI before pytest.
+# The second line lints the PyTorch port (repro_torch.analysis.repolint).
 lint-repro:
 	$(PY) -m repro.analysis.repolint src/repro
+	$(PY) -m repro_torch.analysis.repolint src/repro_torch
 
 # The static-analysis suite by name: the plan-invariant mutation tests
 # (every seeded corruption rejected with its rule, pristine plans clean)

@@ -183,7 +183,32 @@ Phases, one line (or a few) of output each:
                flips BYSDNE's decode tick to 5 lstm_seq launches (no
                lstm_decode), within TOL_FP32 of the chained tick; and
                `python -m repro_torch.calib --grid smoke --check 25` exits 0
- 13 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 13 figures    the rows of benchmarks/paper_tables.py from the port's
+               core.perfmodel (the paper's ASIC cycle model, host
+               arithmetic): Fig. 9's best K per MAC budget, Fig. 10's max
+               and at-512 speedups, Fig. 11's model speedups, Fig. 12's
+               latency and utilization per budget, Table 4 and Table 6
+               "ours" beside the paper's values, Fig. 14's energy
+               reduction and GFLOPS/W; then Fig. 11's measured half on the
+               card (fig11/measured_card/h256/<schedule>): the five
+               core.schedules.LAYER_FNS at H=256, T=25, B=1, fp32, from
+               seeded generators, fused one lstm_seq launch and the four
+               research schedules none, each output held against the same
+               function on the CPU, timed by runtime.obs.measure_us in
+               turns (3 rounds of 10 calls), with each schedule's speedup
+               against sequential
+ 14 chaos      the chaos suite's isolation scenarios at BYSDNE's width
+               (L=5, H=X=340, bf16 weights) through RecurrentServingEngine(
+               device="cuda", on_fault="fallback"): a prefill fault that
+               bisects a 3-request wave, a poisoned prefill state, a
+               poison at decode tick 2 with max_batch 2, a max-ticks
+               deadline; each scenario's statuses and counters equal a
+               device="cpu" engine's given the same scenario, lstm_seq /
+               lstm_decode launches equal the engine's packed_launches /
+               decode_launches and no plain version runs; each co-batched
+               request (and a faulted request's kept frames) against the
+               fault-free card run: max |diff| printed, held bit for bit
+ 15 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -211,7 +236,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
           "serve_gru", "offpath", "rglru", "precision", "serve_lm", "calib",
-          "summary")
+          "figures", "chaos", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -3894,6 +3919,327 @@ def _calib_planted(ctx, path, planted, backend, params):
           f"and no lstm_decode; vs the chained ticks max_abs_err {err:.3e} "
           f"(tol {TOL_FP32:g})")
     check(err <= TOL_FP32, "the flipped tick disagrees with the chained one")
+
+
+# ---------------------------------------------------------------------------
+# figures: the paper's figures and tables (benchmarks/paper_tables.py's rows)
+
+#: Fig. 11's measured half at benchmarks/paper_tables.py's shape: H, T, B
+FIG11_SHAPE = (256, 25, 1)
+#: the five schedules are timed in turns, FIG11_ROUNDS rounds of
+#: FIG11_REPEATS calls each (host-bound times drift within a call)
+FIG11_ROUNDS = 3
+FIG11_REPEATS = 10
+#: Table 6's published E-PUR speedups per MAC budget (1K, 4K, 16K, 64K),
+#: as benchmarks/paper_tables.py prints them beside the model's
+TABLE6_PAPER = {"EESEN": (1.07, 1.25, 1.68, 1.9),
+                "GMAT": (1.01, 1.51, 1.53, 1.66),
+                "BYSDNE": (1.05, 1.24, 1.8, 2.22),
+                "RLDRADSPR": (1.03, 1.11, 1.45, 2.3)}
+
+
+def phase_figures(ctx):
+    """The rows of benchmarks/paper_tables.py from the port's perfmodel
+    (the paper's ASIC cycle model: host arithmetic), then Fig. 11's five
+    schedules run on the card."""
+    from repro_torch.configs.sharp_lstm import MAC_BUDGETS, SWEEP_HIDDEN_DIMS
+    from repro_torch.core import perfmodel as pm
+
+    rows = {}
+
+    def emit(name, derived):
+        rows[name] = derived
+        print(f"figures: {name} {derived}")
+
+    for m in MAC_BUDGETS:
+        emit(f"fig9/best_k/macs{m}", ";".join(
+            f"h{h}:K{k}" for h, k in pm.fig9_best_k(m).items()))
+    pad = pm.fig10_padding_speedup()
+    emit("fig10/max_speedup", f"{max(pad.values()):.3f}")
+    emit("fig10/at_512",
+         f"{statistics.mean(pad[(m, 512)] for m in MAC_BUDGETS):.3f}")
+    sp = pm.fig11_schedule_speedups()
+    for m in MAC_BUDGETS:
+        for h in SWEEP_HIDDEN_DIMS:
+            emit(f"fig11/model/macs{m}/h{h}", ";".join(
+                f"{s}={sp[(m, h, s)]:.3f}" for s in
+                ("sequential", "batch", "intergate", "unfolded")))
+    f12 = pm.fig12_latency_utilization()
+    for m in MAC_BUDGETS:
+        avg = {k: statistics.mean(f12[(m, h)][k] for h in SWEEP_HIDDEN_DIMS)
+               for k in ("latency_us", "utilization", "epur_utilization")}
+        emit(f"fig12/macs{m}", f"latency_us={avg['latency_us']:.3f};"
+             f"util={avg['utilization']:.2f};"
+             f"epur_util={avg['epur_utilization']:.2f}")
+    k_bw, penalty, eff = pm.fit_brainwave()
+    emit("table4/bw_model_fit", f"k{k_bw};penalty{penalty};eff{eff}")
+    t4 = pm.table4_vs_brainwave(k_bw, penalty, eff)
+    for (h, steps), v in sorted(t4.items()):
+        paper = pm.TABLE4_PAPER[(h, steps)]
+        emit(f"table4/h{h}_t{steps}", f"ours={v:.2f};paper={paper};"
+             f"relerr={abs(v - paper) / paper:.2f}")
+    t6 = pm.table6_vs_epur()
+    for name, paper in TABLE6_PAPER.items():
+        for m, p in zip(MAC_BUDGETS, paper):
+            emit(f"table6/{name}/macs{m}", f"ours={t6[(name, m)]:.2f};"
+                 f"paper={p}")
+    e = pm.fig14_energy()
+    for m in MAC_BUDGETS:
+        red = statistics.mean(e[(m, h)]["reduction"]
+                              for h in SWEEP_HIDDEN_DIMS)
+        emit(f"fig14/macs{m}", f"energy_reduction={red:.3f}")
+    emit("fig14/gflops_per_watt_64k", f"{pm.gflops_per_watt():.0f}")
+    emit("fig14/gflops_per_watt_paper_util",
+         f"{pm.PEAK_TFLOPS[65536] * 0.5 / pm.POWER_W[65536] / 1e9:.0f}")
+    # the model's own claims, as tests/core/test_perfmodel.py gates them
+    check(all(sp[(m, h, "unfolded")] >= sp[(m, h, "intergate")] - 1e-9
+              and sp[(m, h, "intergate")] >= sp[(m, h, "sequential")] - 1e-9
+              for m in MAC_BUDGETS for h in SWEEP_HIDDEN_DIMS),
+          "Fig. 11 model: unfolded >= intergate >= sequential fails")
+    check(all(abs(v - pm.TABLE4_PAPER[k]) / pm.TABLE4_PAPER[k] < 0.35
+              for k, v in t4.items()),
+          "Table 4: the fitted BrainWave model is 35% off a paper entry")
+    ctx["figures"] = {"model": rows, "measured_card": _fig11_measured(ctx)}
+
+
+def _fig11_measured(ctx):
+    """Fig. 11's functional schedules on the card: core.schedules.LAYER_FNS
+    at FIG11_SHAPE, fp32, from seeded generators; fused makes one lstm_seq
+    launch, the four research schedules none; each output against the
+    same function on the CPU; times from runtime.obs.measure_us, the
+    median of FIG11_ROUNDS rounds taken in turns."""
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.core import schedules as sch
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.lstm_cell.ops import lstm_seq
+    from repro_torch.models.layers.lstm import init_lstm_layer
+    from repro_torch.runtime.obs import measure_us
+
+    H, T, B = FIG11_SHAPE
+    dev = rnn.resolve_device("cuda")
+    params = init_lstm_layer(torch.Generator().manual_seed(0), H, H,
+                             torch.float32)
+    xs = torch.randn((B, T, H), generator=torch.Generator().manual_seed(1))
+    dparams = {k: v.to(dev) for k, v in params.items()}
+    dxs = xs.to(dev)
+    everything = entries()
+    out = {}
+    for s in sch.SCHEDULES:
+        fn = sch.LAYER_FNS[s]
+        reset_counts(*everything)
+        ys = fn(dparams, dxs)
+        torch.cuda.synchronize()
+        want = 1 if s == "fused" else 0
+        others = sum(f.calls for f in everything if f is not lstm_seq)
+        check(lstm_seq.kernel_launches == lstm_seq.calls == want
+              and others == 0,
+              f"figures: {s} made {lstm_seq.kernel_launches} lstm_seq "
+              f"launches ({lstm_seq.calls} calls, {others} other kernel "
+              f"calls); expected {want} and none")
+        tally(ctx, lstm_seq)
+        ref = fn(params, xs)
+        err = float((ys.cpu() - ref).abs().max())
+        check(tuple(ys.shape) == (B, T, H) and bool(torch.isfinite(ys).all()),
+              f"figures: {s} output has the wrong shape or is not finite")
+        check(err <= TOL_FP32, f"figures: {s} disagrees with the CPU path")
+        out[s] = {"rounds_us": [], "launches": want, "max_abs_err": err}
+    for _ in range(FIG11_ROUNDS):
+        for s in sch.SCHEDULES:
+            out[s]["rounds_us"].append(measure_us(
+                sch.LAYER_FNS[s], dparams, dxs, repeats=FIG11_REPEATS,
+                warmup=1))
+    for row in out.values():
+        row["us"] = statistics.median(row["rounds_us"])
+    for s, row in out.items():
+        row["speedup_vs_sequential"] = out["sequential"]["us"] / row["us"]
+        print(f"figures: fig11/measured_card/h{H}/{s} {row['us']:.1f} us "
+              f"(median of {FIG11_ROUNDS} rounds in turns, each the median "
+              f"of {FIG11_REPEATS} calls by obs.measure_us: "
+              f"{', '.join(f'{u:.1f}' for u in row['rounds_us'])}), "
+              f"{row['speedup_vs_sequential']:.3f}x_vs_seq; lstm_seq "
+              f"launches {row['launches']}; max_abs_err vs CPU "
+              f"{row['max_abs_err']:.3e} (tol {TOL_FP32:g})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# chaos: fault isolation in the serving engine at BYSDNE's width
+
+#: each scenario: the engine's pool, the requests (prompt length,
+#: max_new_frames, max_ticks), the faults, the uid(s) expected to fail and
+#: the word their error carries, and how many leading generated frames of
+#: a faulted request still match the clean run
+CHAOS_SCENARIOS = {
+    "prefill_fault": dict(
+        max_batch=3, requests=((30, 8, None), (30, 8, None), (17, 8, None)),
+        fail_prefill_of={1}, poison={},
+        faulted={1: ("failed", "launch fault")}, prefix=0),
+    "poison_prefill": dict(
+        max_batch=3, requests=((30, 8, None), (17, 8, None), (45, 8, None)),
+        fail_prefill_of=set(), poison={2: -1},
+        faulted={2: ("failed", "prefill state")}, prefix=0),
+    "poison_decode": dict(
+        max_batch=2, requests=((17, 8, None), (30, 8, None)),
+        fail_prefill_of=set(), poison={0: 2},
+        faulted={0: ("failed", "decode")}, prefix=2),
+    "max_ticks": dict(
+        max_batch=2, requests=((30, 16, 3), (30, 2, None)),
+        fail_prefill_of=set(), poison={},
+        faulted={0: ("timeout", "max_ticks=3")}, prefix=3),
+}
+#: a co-batched request in a faulted run against the fault-free run on
+#: the card: bit for bit (the kernels split by shape alone, and a one-row
+#: input product runs as two rows, dispatch.executor._hoist)
+TOL_CHAOS = 0.0
+
+
+def _chaos_frames(sc, seed):
+    import numpy as np
+
+    from repro_torch.configs.sharp_lstm import BYSDNE
+
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((t, BYSDNE.lstm_input)) * 0.5)
+            .astype(np.float32) for t, _, _ in sc["requests"]]
+
+
+def _chaos_run(device, params, sc, frames, faulted: bool):
+    """Serve a scenario's requests on ``device``; with ``faulted``, with
+    its faults planted (a fault-free run keeps no max_ticks either)."""
+    from repro_torch.configs.sharp_lstm import BYSDNE
+    from repro_torch.serving import RecurrentRequest, RecurrentServingEngine
+
+    eng = RecurrentServingEngine(BYSDNE, params, max_batch=sc["max_batch"],
+                                 device=device, on_fault="fallback")
+    if faulted:
+        eng.fail_prefill_of = set(sc["fail_prefill_of"])
+        eng.poison_slot_at = dict(sc["poison"])
+    for uid, ((_, new, ticks), fr) in enumerate(zip(sc["requests"], frames)):
+        eng.submit(RecurrentRequest(uid=uid, frames=fr, max_new_frames=new,
+                                    max_ticks=ticks if faulted else None))
+    return eng, {c.uid: c for c in eng.run_to_completion()}
+
+
+def _chaos_counters(eng, done):
+    st = eng.compiled.stats
+    return {"completions": [(u, c.status, c.outputs.shape,
+                             c.generated.shape, c.error is None)
+                            for u, c in sorted(done.items())],
+            "prefill_waves": eng.prefill_waves,
+            "packed_launches": eng.packed_launches,
+            "naive_launches": eng.naive_launches,
+            "decode_ticks": eng.decode_ticks,
+            "decode_launches": eng.decode_launches,
+            "quarantined": eng.quarantined,
+            "prefill_retries": eng.prefill_retries,
+            "dropped": eng.dropped,
+            "degraded_launches": st.degraded_launches,
+            "fallback_level": st.fallback_level}
+
+
+def _frames_diff(a, b):
+    """(max |a - b|, bit-equal) of two frame arrays of one shape."""
+    import numpy as np
+
+    if a.shape != b.shape:
+        return float("inf"), False
+    d = float(np.abs(a - b).max()) if a.size else 0.0
+    return d, bool(np.array_equal(a, b))
+
+
+def phase_chaos(ctx):
+    """The chaos suite's isolation scenarios (tests/test_torch_faults.py)
+    on the card at BYSDNE's width: statuses and counters against a
+    device="cpu" engine given the same scenario, kernel launches against
+    the engine's counts, co-batched requests against the fault-free card
+    run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
+
+    params = _bysdne("lstm")
+    everything = entries()
+    record = {}
+    for i, (name, sc) in enumerate(CHAOS_SCENARIOS.items()):
+        frames = _chaos_frames(sc, seed=10 + i)
+        _, clean = _chaos_run("cuda", params, sc, frames, faulted=False)
+        reset_counts(*everything)
+        eng, done = _chaos_run("cuda", params, sc, frames, faulted=True)
+        torch.cuda.synchronize()
+        seq_n, dec_n = lstm_seq.kernel_launches, lstm_decode.kernel_launches
+        seq_c, dec_c = lstm_seq.calls, lstm_decode.calls
+        others = sum(f.calls for f in everything
+                     if f not in (lstm_seq, lstm_decode))
+        tally(ctx, lstm_seq, lstm_decode)
+        card = _chaos_counters(eng, done)
+        cpu_eng, cpu_done = _chaos_run("cpu", params, sc, frames,
+                                       faulted=True)
+        cpu = _chaos_counters(cpu_eng, cpu_done)
+        print(f"chaos: {name}: statuses "
+              f"{[done[u].status for u in sorted(done)]}; waves "
+              f"{card['prefill_waves']} ({card['packed_launches']} planned "
+              f"launches), ticks {card['decode_ticks']} "
+              f"({card['decode_launches']}); quarantined "
+              f"{card['quarantined']}, prefill_retries "
+              f"{card['prefill_retries']}, dropped {card['dropped']}; kernel "
+              f"launches lstm_seq {seq_n}, lstm_decode {dec_n}")
+        check(card == cpu, f"chaos: {name}: the card's statuses and "
+                           f"counters {card} != the CPU engine's {cpu}")
+        check(seq_n == seq_c == eng.packed_launches
+              and dec_n == dec_c == eng.decode_launches and others == 0,
+              f"chaos: {name}: kernel launches (lstm_seq {seq_n} of {seq_c} "
+              f"calls, lstm_decode {dec_n} of {dec_c}, {others} other "
+              f"kernel calls) != the "
+              f"engine's ({eng.packed_launches}, {eng.decode_launches})")
+        for uid, (status, word) in sc["faulted"].items():
+            c = done[uid]
+            check(c.status == status and word in (c.error or ""),
+                  f"chaos: {name}: uid {uid} ended {c.status!r} "
+                  f"({c.error!r}); expected {status!r} naming {word!r}")
+        rows = {}
+        for uid in sorted(done):
+            c = done[uid]
+            if uid in sc["faulted"]:
+                k = sc["prefix"]
+                check(c.generated.shape[0] == k,
+                      f"chaos: {name}: uid {uid} kept "
+                      f"{c.generated.shape[0]} frames; expected {k}")
+                pairs = [("generated", clean[uid].generated[:k],
+                          c.generated)]
+            else:
+                check(c.status == "ok", f"chaos: {name}: co-batched uid "
+                                        f"{uid} ended {c.status!r}")
+                pairs = [("outputs", clean[uid].outputs, c.outputs),
+                         ("generated", clean[uid].generated, c.generated)]
+                e2e = max(float(np.abs(c.outputs
+                                       - cpu_done[uid].outputs).max()),
+                          float(np.abs(c.generated
+                                       - cpu_done[uid].generated).max()))
+                check(e2e <= TOL_E2E, f"chaos: {name}: uid {uid} disagrees "
+                                      "with the CPU engine")
+            kept = "(the faulted request's kept frames) " \
+                if uid in sc["faulted"] else ""
+            for what, a, b in pairs:
+                d, same = _frames_diff(a, b)
+                rows[f"uid{uid}/{what}"] = {"max_abs_diff": d,
+                                            "bit_equal": same}
+                print(f"chaos: {name}: uid {uid} {what} {kept}"
+                      f"vs the fault-free card run: max |diff| {d:.3e}, "
+                      f"{'bit-equal' if same else 'NOT bit-equal'} (tol "
+                      f"{TOL_CHAOS:g})")
+                check(d <= TOL_CHAOS, f"chaos: {name}: uid {uid}'s {what} "
+                                      "departs from the fault-free run")
+        record[name] = {"counters": {k: v for k, v in card.items()
+                                     if k != "completions"},
+                        "statuses": {u: done[u].status for u in done},
+                        "kernel_launches": {"lstm_seq": seq_n,
+                                            "lstm_decode": dec_n},
+                        "isolation": rows}
+    ctx["chaos"] = record
 
 
 def phase_summary(ctx):

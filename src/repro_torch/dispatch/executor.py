@@ -88,13 +88,23 @@ from repro_torch.runtime.obs import NULL_TRACER, as_tracer
 
 def _hoist(layer_params, src, gates: int):
     """One cell's input half: (B, bt, X) @ (X, gates·H) + b -> (B,bt,g,H),
-    in the dtype JAX's einsum would promote to."""
+    in the dtype JAX's einsum would promote to.
+
+    On the card a one-row product runs as two rows (the row twice):
+    cuBLAS takes another kernel for one row, whose sums differ in the last
+    bit from the one every larger row count takes, and a request's rows
+    must not depend on how many rows share its launch — a decode tick
+    whose other slots were quarantined or retired runs one row."""
     B, bt, _ = src.shape
     W, b = layer_params["W"], layer_params["b"]
     H = layer_params["U"].shape[0]
     dt = torch.promote_types(torch.promote_types(src.dtype, W.dtype),
                              b.dtype)
-    xw = torch.matmul(src.to(dt), W.to(dt)) + b.to(dt)
+    x = src.to(dt)
+    if B * bt == 1 and _on_card(x):
+        xw = torch.matmul(torch.cat([x, x]), W.to(dt))[:1] + b.to(dt)
+    else:
+        xw = torch.matmul(x, W.to(dt)) + b.to(dt)
     return xw.reshape(B, bt, gates, H)
 
 
@@ -448,7 +458,7 @@ def _guarded_launch(slot_index: int, uids, ladder, *, on_fault: str,
     for level, attempt in enumerate(ladder):
         try:
             if inject is not None:
-                inject.maybe_fail(slot_index, level, uids)
+                inject.maybe_fail(slot_index, level, uids, last_level=last)
             if level == 0:
                 result = attempt()
             else:

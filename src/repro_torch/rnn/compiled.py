@@ -57,7 +57,8 @@ from repro_torch.kernels.common import (KernelLaunchRefused, dtype_name,
                                         torch_dtype)
 from repro_torch.kernels.quant import fake_quant_stack, stack_tile_maps
 from repro_torch.rnn.policy import ExecutionPolicy
-from repro_torch.runtime.errors import ExecutionReport, FaultInjector
+from repro_torch.runtime.errors import (DeviceUnavailable, ExecutionReport,
+                                        FaultInjector)
 from repro_torch.runtime.obs import NULL_TRACER, Tracer
 
 
@@ -75,7 +76,7 @@ def resolve_device(device) -> torch.device:
     set here, once per compiled stack or engine, not on each call."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             f"device={str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device=\"cpu\" to run the plain PyTorch versions "
             "of the kernels on the CPU")

@@ -1,7 +1,7 @@
 from repro_torch.runtime.errors import (  # noqa: F401
-    FALLBACK_LEVELS, ExecutionReport, FaultInjector, LaunchError,
-    NonFiniteStateError, PlanInvariantError, PlanRejected, QueueFull,
-    RequestTimeout, ServingFault, not_ported)
+    FALLBACK_LEVELS, DeviceUnavailable, ExecutionReport, FaultInjector,
+    LaunchError, NonFiniteStateError, PlanInvariantError, PlanRejected,
+    QueueFull, RequestTimeout, ServingFault, not_ported)
 from repro_torch.runtime.ft import StragglerWatchdog  # noqa: F401
 from repro_torch.runtime.obs import (  # noqa: F401
     LAUNCH_COSTS_PATH, Counter, Histogram, LaunchCostTable, MetricsRegistry,

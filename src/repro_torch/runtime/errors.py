@@ -1,7 +1,9 @@
 """Structured error taxonomy + fault-injection hooks for the serving path.
 
 A copy of ``repro.runtime.errors``, plus ``not_ported`` (the one error
-every feature of the JAX package that the port does not carry yet raises).
+every feature of the JAX package that the port does not carry yet raises)
+and ``DeviceUnavailable`` (an entry point asked for a card the process
+cannot see).
 
 A production RNN service is a low-latency datacenter workload where many
 requests share one packed launch — which must NOT mean they share one
@@ -130,6 +132,12 @@ class QueueFull(ServingFault):
     """Bounded admission queue at capacity under backpressure="reject"."""
 
 
+class DeviceUnavailable(ServingFault):
+    """An entry point was asked for a CUDA device the process cannot
+    reach.  The port never moves to the CPU on its own: the message names
+    ``device="cpu"``, which the caller passes to run the plain versions."""
+
+
 # ---------------------------------------------------------------------------
 # fault injection + degradation accounting
 # ---------------------------------------------------------------------------
@@ -146,8 +154,10 @@ class FaultInjector:
     card; 2 = every rung fails on either device, and the error escapes
     even under ``on_fault="fallback"``).  With ``once``
     (the ``ft.failure_at_steps`` semantics) an armed index is discarded
-    after its final failing rung fires, so a retry succeeds; bench/soak
-    callers set ``once=False`` to degrade every call.
+    after its final failing rung fires — ``fail_through_level``, or the
+    ladder's last rung where the ladder is shorter (per_step on the card)
+    — so a retry succeeds; bench/soak callers set ``once=False`` to
+    degrade every call.
     """
 
     fail_launch_at: Set[int] = field(default_factory=set)
@@ -168,15 +178,16 @@ class FaultInjector:
     def disarm(self) -> None:
         self.fail_launch_at = set()
 
-    def maybe_fail(self, slot_index: int, level: int,
-                   uids: Sequence[int]) -> None:
-        """Called by the executor before each launch attempt."""
+    def maybe_fail(self, slot_index: int, level: int, uids: Sequence[int],
+                   *, last_level: int) -> None:
+        """Called by the executor before each launch attempt;
+        ``last_level`` is the deepest rung of the slot's ladder."""
         if slot_index not in self.fail_launch_at:
             return
         if level > self.fail_through_level:
             return
         self.fired.append((slot_index, level))
-        if self.once and level >= self.fail_through_level:
+        if self.once and level >= min(self.fail_through_level, last_level):
             self.fail_launch_at.discard(slot_index)
         raise LaunchError(
             f"injected launch fault: slot {slot_index} at ladder level "
@@ -217,5 +228,5 @@ class ExecutionReport:
 
 __all__ = ["ServingFault", "LaunchError", "NonFiniteStateError",
            "PlanRejected", "PlanInvariantError", "RequestTimeout",
-           "QueueFull", "FaultInjector", "ExecutionReport",
-           "FALLBACK_LEVELS", "not_ported"]
+           "QueueFull", "DeviceUnavailable", "FaultInjector",
+           "ExecutionReport", "FALLBACK_LEVELS", "not_ported"]
