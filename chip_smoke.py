@@ -71,7 +71,17 @@ Phases, one line (or a few) of output each:
                to run, across B and between a graph replay and the eager
                call, then timed cold in CUDA graphs on distinct rings from
                HBM (kernel, plain version and SDPA alike; B = 4 and 1;
-               full, mixed and ~70-slot rings) and warm and eager
+               full, mixed and ~70-slot rings) and warm and eager; then
+               both at the dense decoders' full-width shapes (serve_dense's
+               archs): mvm at every (X, N) of their decode steps up to
+               29568 x 8192 (B = 4 and 2, bit-equal run to run and across
+               B) and decode_attention at every (Hk, G, D) on 4096-slot
+               rings (D = 120's CUDA-core by_heads branch, D = 160, G = 12,
+               G = 1) and on the rings serve_dense decodes on (512 slots
+               at B = 4 and 1, 72 at B = 2; full rings and the tiles' edge
+               valid counts), each against its plain version, then timed
+               cold in CUDA graphs on distinct weights / rings beside
+               torch.matmul / SDPA, with each arch's mvm step summed
   4 serve      RecurrentServingEngine serves the paper's BYSDNE LSTM (L=5,
                H=X=340, bf16 weights from a seeded torch.Generator): 6
                requests in two admission waves, then decode ticks; every
@@ -163,7 +173,33 @@ Phases, one line (or a few) of output each:
                --profile, also 8 batched ticks and the 64- and 2048-token
                prefills under torch.profiler, each prefill's rglru_scan
                device ms and launches (18, one a rglru layer)
- 12 calib      the measured cost model (repro_torch.calib) on the card:
+ 12 serve_dense the reference's six dense decoders at full width, one on
+               the card at a time (bf16 weights drawn on the card from a
+               seeded torch.Generator): stablelm-12b, starcoder2-3b and
+               h2o-danube-3-4b whole, deepseek-67b cut to 24 of its 95
+               layers (DENSE_RUNS: a depth chosen to keep the phase
+               short; each arch's peak device memory is printed) through
+               serving.ServingEngine(max_batch=4): four prompts of 5-300
+               tokens, 8 new each (512-slot full-length rings), and for
+               h2o-danube first an 8,200-token prompt (its 8192 bucket
+               through local_attention and the roll into the 4096-slot
+               window ring; the first wave's batched ticks on the wrapped
+               ring); every decode step 6 L mvm and L decode_attention
+               launches, no plain version; every step after the first at
+               a batch size a graph replay; each request's logits within
+               TOL_LM of a teacher-forced forward on the card; for
+               stablelm-12b and h2o-danube each attention layer of the
+               decode step against the forward (F3, over stacked views);
+               the first 2 layers against a device="cpu" engine; each
+               arch's wall, median replayed tick (host wall, device span)
+               and device busy share in one profiled replay.  Then
+               musicgen-large whole and qwen2-vl-72b cut to 16 of 80
+               layers: transformer.prefill on seeded embeddings (B=2, 64
+               positions; qwen2-vl's with three distinct (t, h, w) M-RoPE
+               position streams), 8 decode_steps (6 L mvm and L
+               decode_attention launches each) against one forward over
+               the whole sequence (TOL_EMBEDS)
+ 13 calib      the measured cost model (repro_torch.calib) on the card:
                replays what EESEN (B=4, T=300) and BYSDNE as an LSTM and a
                GRU launch (prefill slots; the decode tick's chained and
                per-layer sides at B = 4, 2, 1), EESEN's G=2 and G=1 slots
@@ -183,7 +219,7 @@ Phases, one line (or a few) of output each:
                flips BYSDNE's decode tick to 5 lstm_seq launches (no
                lstm_decode), within TOL_FP32 of the chained tick; and
                `python -m repro_torch.calib --grid smoke --check 25` exits 0
- 13 figures    the rows of benchmarks/paper_tables.py from the port's
+ 14 figures    the rows of benchmarks/paper_tables.py from the port's
                core.perfmodel (the paper's ASIC cycle model, host
                arithmetic): Fig. 9's best K per MAC budget, Fig. 10's max
                and at-512 speedups, Fig. 11's model speedups, Fig. 12's
@@ -197,7 +233,7 @@ Phases, one line (or a few) of output each:
                function on the CPU, timed by runtime.obs.measure_us in
                turns (3 rounds of 10 calls), with each schedule's speedup
                against sequential
- 14 chaos      the chaos suite's isolation scenarios at BYSDNE's width
+ 15 chaos      the chaos suite's isolation scenarios at BYSDNE's width
                (L=5, H=X=340, bf16 weights) through RecurrentServingEngine(
                device="cuda", on_fault="fallback"): a prefill fault that
                bisects a 3-request wave, a poisoned prefill state, a
@@ -208,7 +244,7 @@ Phases, one line (or a few) of output each:
                decode_launches and no plain version runs; each co-batched
                request (and a faulted request's kept frames) against the
                fault-free card run: max |diff| printed, held bit for bit
- 15 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 16 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -235,8 +271,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
-          "serve_gru", "offpath", "rglru", "precision", "serve_lm", "calib",
-          "figures", "chaos", "summary")
+          "serve_gru", "offpath", "rglru", "precision", "serve_lm",
+          "serve_dense", "calib", "figures", "chaos", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -637,6 +673,7 @@ def phase_kernels(ctx):
     _kernels_rglru(ctx, dev)
     _kernels_mvm(ctx, dev)
     _kernels_decode_attention(ctx, dev)
+    _kernels_dense(ctx, dev)
 
 
 def _kernels_gru(ctx, dev):
@@ -2015,6 +2052,273 @@ def _kernels_decode_attention(ctx, dev):
                   "rings, from HBM), warm_ms warm and eager")
 
 
+#: the reference's six dense decoders at full width, as serve_dense runs
+#: them: (arch, layers run or None for all, why the depth is cut)
+DENSE_RUNS = (
+    ("stablelm-12b", None, ""),
+    ("starcoder2-3b", None, ""),
+    ("h2o-danube-3-4b", None, ""),
+    ("deepseek-67b", 24, "95 layers are 135 GB of bf16 weights, more than "
+                         "one 80 GB card; 24 layers (36.6 GB) is a depth "
+                         "chosen to keep the phase short, not the most "
+                         "the card holds (its peak memory is printed)"),
+    ("musicgen-large", None, ""),
+    ("qwen2-vl-72b", 16, "80 layers are 145 GB of bf16 weights, more than "
+                         "one 80 GB card; 16 layers (30.6 GB) is a depth "
+                         "chosen to keep the phase short, not the most "
+                         "the card holds (its peak memory is printed)"),
+)
+#: decode_attention's dense shapes are held and timed at this ring length
+#: (h2o-danube's 4096-slot window; a 4096-position context of the others),
+#: and held at the rings serve_dense decodes on (_dense_served)
+DENSE_ATTN_T = 4096
+
+
+def _dense_max_seq(cfg):
+    """serve_dense's ServingEngine max_seq for a token arch: room for
+    DENSE_LONG with a window, else DENSE_MAX_SEQ."""
+    return DENSE_LONG_MAX_SEQ if cfg.window else DENSE_MAX_SEQ
+
+
+def _dense_served(cfg):
+    """The (B, T) of every decode step serve_dense runs for ``cfg``: the
+    engine's ticks and batch-1 steps on its rings, or the embeds archs'
+    DENSE_EMBEDS rows on their prefill's rings."""
+    from repro_torch.models import transformer as tf
+
+    if cfg.embed_stub:
+        B, S, N = DENSE_EMBEDS
+        return [(B, tf.cache_len(cfg, S + N))]
+    T = tf.cache_len(cfg, _dense_max_seq(cfg))
+    return [(4, T), (1, T)]
+
+
+def _dense_config(arch, layers=None):
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _dense_mvm_shapes(cfg):
+    """The (X, N) of a dense decode step's six projections, in its order:
+    w_q, w_kv, w_o, then the MLP's w_gate, w_up, w_down."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return [(d, cfg.q_dim), (d, 2 * cfg.kv_dim), (cfg.q_dim, d), (d, ff),
+            (d, ff), (ff, d)]
+
+
+def _attn_branch(D):
+    """The instance of csrc/decode_attention.cu that bf16 q and rings of
+    head dim D take (its by_vec / by_heads dispatch)."""
+    if D % 16 == 0:
+        return "tensor cores (MMA)"
+    return ("CUDA cores, by_heads, 16-byte loads" if D % 8 == 0
+            else "CUDA cores, by_heads, scalar loads")
+
+
+def _kernels_dense(ctx, dev):
+    """mvm and decode_attention at the dense decoders' full-width shapes
+    (serve_dense's archs): mvm at every (X, N) of their decode steps (bf16,
+    B = 4 and 2) against its plain version, bit-equal run to run and the
+    rows of B = 4 equal to their B = 1 and B = 2 calls, then timed cold
+    in a CUDA graph on distinct weights beside torch.matmul (B = 4 and
+    1); decode_attention at every (Hk, G, D) on DENSE_ATTN_T-slot rings
+    (bf16, B = 4 mixed valid and a full ring, B = 1) and at every (B, T)
+    serve_dense decodes it on (_dense_served: a full ring and the edge
+    valid counts of the kernel's tiles) against its plain version under
+    the per-head bf16 limit, bit-equal run to run, then timed cold at
+    DENSE_ATTN_T in CUDA graphs on distinct rings (more than L2 holds at
+    each B) beside its plain version and F.scaled_dot_product_attention.
+    Each arch's mvm step (6 L launches) is summed from the per-shape
+    times."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.mvm_tile import ops as mops
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(120)
+    gen = torch.Generator(device=dev).manual_seed(121)
+    shapes = {}
+    for arch, layers, _ in DENSE_RUNS:
+        cfg = _dense_config(arch, layers)
+        for X, N in _dense_mvm_shapes(cfg):
+            archs = shapes.setdefault((X, N), [])
+            if arch not in archs:
+                archs.append(arch)
+    mvm_rec, mvm_err = {}, 0.0
+    for (X, N), archs in shapes.items():
+        x = torch.randn((4, X), generator=g).to(dev, bf16)
+        W = (torch.randn((X, N), generator=gen, device=dev)
+             * X ** -0.5).to(bf16)
+        ref = mops.mvm_plain(x, W)
+        out, again = mops.mvm(x, W), mops.mvm(x, W)
+        row0 = mops.mvm(x[:1].contiguous(), W)
+        # B = 2: the embeds archs' decode steps
+        x2 = x[:2].contiguous()
+        ref2 = mops.mvm_plain(x2, W)
+        two, two_again = mops.mvm(x2, W), mops.mvm(x2, W)
+        torch.cuda.synchronize()
+        err = max(max_err((out,), (ref,)), max_err((two,), (ref2,)))
+        tol = ULP_BF16 * float(ref.float().abs().max())
+        same = bool(torch.equal(out, again) and torch.equal(two, two_again))
+        batch = bool(torch.equal(out[:1], row0) and torch.equal(out[:2], two))
+        check(err <= tol, f"mvm X={X} N={N} disagrees with its plain "
+                          f"version at B=4 or B=2: {err:.3e} > {tol:g}")
+        check(same and batch, f"mvm X={X} N={N}: not bit-equal run to run, "
+                              "or rows differ from their B=1 / B=2 calls")
+        mvm_err = max(mvm_err, err)
+        # cold: distinct weights, together more than L2 holds
+        n = max(2, math.ceil(1.25 * L2_BYTES / (2 * X * N)))
+        Ws = [torch.randn((X, N), generator=gen, device=dev, dtype=bf16)
+              for _ in range(n)]
+        rec = {"archs": archs, "max_abs_err": err, "S": mops.splits(X, N)}
+        for B in (4, 1):
+            xb = x[:B].contiguous()
+            k_ms = graph_ms(lambda: [mops.mvm(xb, w) for w in Ws]) / n
+            l_ms = graph_ms(lambda: [torch.matmul(xb, w) for w in Ws]) / n
+            b_ms, b_by = bound(2 * (X * N + B * X + B * N), 2 * B * X * N,
+                               PEAK_BF16_FLOPS)
+            rec[f"B{B}"] = dict(ms=k_ms, library_ms=l_ms, bound_ms=b_ms,
+                                bound_by=b_by)
+        del Ws
+        print(f"kernels: mvm dense X={X} N={N} bf16 ({', '.join(archs)}; "
+              f"S={rec['S']}): max_abs_err {err:.3e} over B=4 and B=2 (tol "
+              f"{tol:g}); two runs bit-equal {same}; rows 0 and 0-1 == their "
+              f"B=1 and B=2 calls {batch}; cold in a "
+              f"graph ({n} distinct weights), ms a launch: B=4 kernel "
+              f"{rec['B4']['ms']:.4f}, torch.matmul "
+              f"{rec['B4']['library_ms']:.4f}, bound "
+              f"{rec['B4']['bound_ms']:.6f} ({rec['B4']['bound_by']}); "
+              f"B=1 kernel {rec['B1']['ms']:.4f}, torch.matmul "
+              f"{rec['B1']['library_ms']:.4f}, bound "
+              f"{rec['B1']['bound_ms']:.6f}")
+        mvm_rec[f"{X}x{N}"] = rec
+    torch.cuda.empty_cache()
+    for arch, layers, _ in DENSE_RUNS:
+        cfg = _dense_config(arch, layers)
+        mix = _dense_mvm_shapes(cfg)
+        for B in (4, 1):
+            k = sum(mvm_rec[f"{X}x{N}"][f"B{B}"]["ms"] for X, N in mix)
+            lib = sum(mvm_rec[f"{X}x{N}"][f"B{B}"]["library_ms"]
+                      for X, N in mix)
+            b = sum(mvm_rec[f"{X}x{N}"][f"B{B}"]["bound_ms"] for X, N in mix)
+            print(f"kernels: mvm {cfg.name} (L={cfg.n_layers}) decode step, "
+                  f"{6 * cfg.n_layers} launches summed from the cold "
+                  f"per-shape times at B={B}: kernel {cfg.n_layers * k:.3f} "
+                  f"ms, torch.matmul {cfg.n_layers * lib:.3f} ms, bound "
+                  f"{cfg.n_layers * b:.3f} ms; kernel / bound {k / b:.2f}")
+            mvm_rec.setdefault("steps", {})[f"{arch} B{B}"] = dict(
+                ms=cfg.n_layers * k, library_ms=cfg.n_layers * lib,
+                bound_ms=cfg.n_layers * b)
+    ctx["mvm_dense"] = mvm_rec
+    ctx.setdefault("mvm", {})["max_abs_err"] = max(
+        ctx.get("mvm", {}).get("max_abs_err", 0.0), mvm_err)
+
+    attn, served = {}, {}
+    for arch, layers, _ in DENSE_RUNS:
+        cfg = _dense_config(arch, layers)
+        key = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+        attn.setdefault(key, []).append(arch)
+        for bt in _dense_served(cfg):
+            served.setdefault(key, [])
+            if bt not in served[key]:
+                served[key].append(bt)
+    T = DENSE_ATTN_T
+    attn_rec, attn_err = {}, 0.0
+    for (Hk, G, D), archs in attn.items():
+        Hq = Hk * G
+        # at DENSE_ATTN_T: B = 4 mixed and full, B = 1 full and 33 live;
+        # at each (B, Tb) serve_dense decodes on: a full ring and the edge
+        # valid counts of the kernel's tiles there (1, a tile +- 1, the end
+        # of the cluster's first round of tiles +- 1, Tb - 1), B rows a call
+        cases = [(4, T, [1, 700, 2900, T]), (4, T, [T] * 4), (1, T, [T]),
+                 (1, T, [33])]
+        for B, Tb in served[(Hk, G, D)]:
+            R = aops.splits(Tb) * aops.TILE
+            edges = sorted({v for v in (1, aops.TILE, aops.TILE + 1, R - 1,
+                                        R, R + 1, Tb - 1) if 1 <= v <= Tb})
+            edges += [Tb] * (-len(edges) % B)
+            cases.append((B, Tb, [Tb] * B))
+            cases += [(B, Tb, edges[i:i + B])
+                      for i in range(0, len(edges), B)]
+        worst = 0.0
+        for i, (B, Tb, valid) in enumerate(cases):
+            args = _attn_case(B, Tb, Hq, Hk, D, bf16, valid, 130 + i, dev)
+            ref = aops.decode_attention_plain(
+                *args, block_t=aops.default_block_t(Tb))
+            out, again = aops.decode_attention(*args), \
+                aops.decode_attention(*args)
+            torch.cuda.synchronize()
+            share = _attn_share(out, ref)
+            check(share <= 1.0, f"decode_attention Hk={Hk} G={G} D={D} B={B} "
+                                f"T={Tb} valid={valid} disagrees with its "
+                                f"plain version: {share:.3f} of the limit")
+            check(bool(torch.equal(out, again)), f"decode_attention Hk={Hk} "
+                  f"G={G} D={D} B={B} T={Tb}: two runs differ")
+            worst = max(worst, share)
+            attn_err = max(attn_err, max_err((out,), (ref,)))
+        n_cl = aops.max_clusters(4, T, Hk, G, D)
+        rec = {"archs": archs, "worst_share": worst, "branch": _attn_branch(D),
+               "clusters": n_cl, "served": served[(Hk, G, D)],
+               "cases": len(cases)}
+        for B in (4, 1):
+            # distinct ring pairs, together more than L2 holds at this B
+            n = max(8, math.ceil(1.25 * L2_BYTES / (2 * B * T * Hk * D * 2)))
+            sets = [[torch.randn(shape, generator=gen, device=dev,
+                                 dtype=bf16)
+                     for shape in ((B, Hq, D), (B, T, Hk, D), (B, T, Hk, D))]
+                    for _ in range(n)]
+            sdpa = [(qq[:, :, None], kk.transpose(1, 2).contiguous(),
+                     vv.transpose(1, 2).contiguous()) for qq, kk, vv in sets]
+            vl = torch.full((B,), T, dtype=torch.int32, device=dev)
+            mask = torch.ones((B, 1, 1, T), dtype=torch.bool, device=dev)
+            k_ms = graph_ms(lambda: [aops.decode_attention(qq, kk, vv, vl)
+                                     for qq, kk, vv in sets]) / n
+            p_ms = graph_ms(lambda: [aops.decode_attention_plain(
+                qq, kk, vv, vl, block_t=aops.default_block_t(T))
+                for qq, kk, vv in sets], trials=3) / n
+            l_ms = graph_ms(lambda: [F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+                for qs, ks, vs in sdpa]) / n
+            live = B * T
+            nbytes = 2 * (2 * live * Hk * D + 2 * B * Hq * D) + 4 * B
+            b_ms, b_by = bound(nbytes, 4 * live * Hq * D, PEAK_BF16_FLOPS)
+            rec[f"B{B}"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                bound_ms=b_ms, bound_by=b_by, rings=n)
+            del sets, sdpa
+        print(f"kernels: decode_attention dense Hq={Hq} Hk={Hk} G={G} D={D} "
+              f"bf16 T={T} ({', '.join(archs)}; {rec['branch']}; S="
+              f"{aops.splits(T)}; cudaOccupancyMaxActiveClusters {n_cl} at "
+              f"B=4): worst head at {worst:.3f} of its limit over "
+              f"{len(cases)} calls (at T={T}: B=4 mixed / full, B=1 full / "
+              f"33 live; served (B, T) {served[(Hk, G, D)]} with S="
+              f"{[aops.splits(t) for _, t in served[(Hk, G, D)]]}: full "
+              f"rings and the tiles' edge valid counts); cold in a graph on "
+              f"{rec['B4']['rings']} (B=4) / {rec['B1']['rings']} (B=1) "
+              f"distinct rings, full ring, ms a launch: B=4 kernel "
+              f"{rec['B4']['ms']:.4f}, plain {rec['B4']['plain_ms']:.4f}, "
+              f"F.scaled_dot_product_attention {rec['B4']['library_ms']:.4f}, "
+              f"bound {rec['B4']['bound_ms']:.6f} ({rec['B4']['bound_by']}), "
+              f"kernel / bound {rec['B4']['ms'] / rec['B4']['bound_ms']:.2f}; "
+              f"B=1 kernel {rec['B1']['ms']:.4f}, plain "
+              f"{rec['B1']['plain_ms']:.4f}, SDPA "
+              f"{rec['B1']['library_ms']:.4f}, bound "
+              f"{rec['B1']['bound_ms']:.6f}")
+        attn_rec[f"Hk{Hk} G{G} D{D}"] = rec
+    torch.cuda.empty_cache()
+    ctx["decode_attention_dense"] = attn_rec
+    ctx.setdefault("decode_attention", {})["max_abs_err"] = max(
+        ctx.get("decode_attention", {}).get("max_abs_err", 0.0), attn_err)
+
+
 REQUESTS = (30, 30, 17, 45, 8, 30)
 
 
@@ -3038,6 +3342,157 @@ def _margin(logits):
     return top[:, 0] - top[:, 1]
 
 
+def _serve_checks(ctx, label, cfg, params, prompts, max_new, max_seq,
+                  per_step, per_prefill, watch=None):
+    """Serve ``prompts`` once through ServingEngine(max_batch=4) on the
+    card, every kernel count set to 0 just before, and hold the run to
+    what both serve phases check: every request completes with all its
+    ``max_new`` tokens; every decode step launches ``per_step`` and every
+    prefill ``per_prefill`` kernels (mvm, decode_attention, rglru_scan),
+    and no entry point runs its plain version or another family's kernel
+    on the card; the prefill buckets and remainder steps follow the
+    engine's rule; every decode step after the first at its batch size
+    is a graph replay; each request's sampled logits are within TOL_LM of
+    a teacher-forced forward on the card, its greedy tokens that
+    forward's argmax wherever the top-2 margin exceeds TOL_LM.  The run's
+    launches are tallied.  ``watch(kind, n, graph, tokens)`` sees each
+    call before it runs; each decode step is timed (host wall around a
+    synchronize, and CUDA events).  Returns (engine, completions by uid,
+    the decode steps [(B, wall ms, device ms, replayed)], the largest
+    logit error, the run's wall seconds)."""
+    import torch
+
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.rglru.ops import rglru_scan
+
+    everything = entries()
+    lm = (mvm, decode_attention, rglru_scan)
+    calls, steps = [], []  # (kind, rows or tokens, launches of lm)
+
+    def count_call(kind, n, fn, graph=None, tokens=None):
+        if watch is not None:
+            watch(kind, n, graph, tokens)
+        replay = graph is not None and graph.graph is not None
+        before = [f.kernel_launches for f in lm]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        if kind == "decode":
+            steps.append((n, (time.perf_counter() - t) * 1e3,
+                          start.elapsed_time(end), replay))
+        calls.append((kind, n, tuple(f.kernel_launches - b
+                                     for f, b in zip(lm, before))))
+        return out
+
+    lengths = [len(p) for p in prompts]
+    reset_counts(*everything)
+    t0 = time.perf_counter()
+    eng, done, logits = _lm_serve(cfg, params, prompts, max_new, "cuda",
+                                  max_seq=max_seq, hook=count_call)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ticks = [c for c in calls if c[0] == "decode" and c[1] == 4]
+    rem = [c for c in calls if c[0] == "decode" and c[1] == 1]
+    pre = [c for c in calls if c[0] == "prefill"]
+    others = sum(f.calls for f in everything if f not in lm)
+    print(f"{label}: {len(done)} requests (prompts {lengths}) in "
+          f"{wall_s:.2f} s; {len(pre)} prefills (buckets "
+          f"{sorted(eng.prefill_lengths)}), {len(rem)} batch-1 remainder "
+          f"decode steps, {len(ticks)} batched ticks; kernel launches mvm "
+          f"{mvm.kernel_launches}, decode_attention "
+          f"{decode_attention.kernel_launches}, rglru_scan "
+          f"{rglru_scan.kernel_launches}; other kernels called {others} "
+          f"times")
+    check(sorted(done) == list(range(len(prompts)))
+          and all(len(c.tokens) == max_new for c in done.values()),
+          f"{label}: a request did not complete with all its tokens")
+    check(all(c[2] == tuple(per_step) for c in ticks + rem),
+          f"{label}: a decode step did not launch {tuple(per_step)} "
+          f"kernels (mvm, decode_attention, rglru_scan): "
+          f"{sorted(set(c[2] for c in ticks + rem))}")
+    check(all(c[2] == tuple(per_prefill) for c in pre),
+          f"{label}: a prefill did not launch {tuple(per_prefill)} kernels: "
+          f"{sorted(set(c[2] for c in pre))}")
+    check(all(f.calls == f.kernel_launches for f in lm) and others == 0,
+          f"{label}: an entry point ran its plain version on the card, or "
+          "another family's kernel was called")
+    check(len(pre) == len(prompts) and len(rem) == sum(
+        n - (1 << (n.bit_length() - 1)) for n in lengths),
+        f"{label}: prefill buckets or remainder steps differ from the "
+        "engine's rule")
+    replays = (eng.tick_graph.replays, eng.single_graph.replays)
+    print(f"{label}: graph replays {replays[0]} of {len(ticks)} batched "
+          f"ticks and {replays[1]} of {len(rem)} batch-1 steps (the first "
+          f"step at each batch size eager, then captured); launches a "
+          f"replay adds: "
+          + "; ".join(f"{name} " + ", ".join(
+              f"{fn.__name__} {launches}"
+              for fn, (_, launches) in graph.captured.items())
+              for name, graph in (("tick", eng.tick_graph),
+                                  ("batch-1", eng.single_graph))))
+    check(replays == (len(ticks) - 1, len(rem) - 1),
+          f"{label}: a decode step after the first at its batch size was "
+          "not a graph replay")
+    tally(ctx, *lm)
+
+    # every generated token's logits against a teacher-forced forward on
+    # the card (torch.matmul, the prefill attention paths, rglru_scan)
+    err, flips, held = 0.0, 0, 0
+    for uid, c in sorted(done.items()):
+        ref = _teacher_forced(cfg, params, prompts[uid], c)
+        e = float((logits[uid] - ref).abs().max())
+        margin = _margin(ref)
+        sure = margin > TOL_LM
+        agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
+        held += int(sure.sum())
+        flips += int((~agree).sum())
+        print(f"{label}: request {uid} (prompt {len(prompts[uid])}): "
+              f"logits vs the teacher-forced forward max_abs_err {e:.3e} "
+              f"(tol {TOL_LM:g}; |logit| <= "
+              f"{float(ref.abs().max()):.2f}); greedy tokens == argmax at "
+              f"{int(agree.sum())}/{len(agree)} positions, smallest top-2 "
+              f"margin {float(margin.min()):.3e}")
+        check(bool(torch.isfinite(logits[uid]).all()),
+              f"{label}: request {uid} has non-finite logits")
+        check(e <= TOL_LM, f"{label}: request {uid}'s logits disagree with "
+                           f"the forward: {e:.3e} > {TOL_LM:g}")
+        check(bool(agree[sure.cpu()].all()),
+              f"{label}: request {uid}: a greedy token differs from the "
+              f"forward's argmax where the top-2 margin exceeds {TOL_LM:g}")
+        err = max(err, e)
+        del ref
+    print(f"{label}: tokens held at {held} positions with a top-2 margin "
+          f"above {TOL_LM:g}; {flips} near-tie positions differ")
+    return eng, done, steps, err, wall_s
+
+
+def _f3_layers(label, cfg, params, prompts, done, max_seq):
+    """Each attention layer of the decode step against the forward (F3,
+    _attn_layers_vs_forward), for every request served; returns the worst
+    share of TOL_LAYER."""
+    worst = 0.0
+    for uid, c in sorted(done.items()):
+        shares = _attn_layers_vs_forward(cfg, params, prompts[uid], c,
+                                         max_seq=max_seq)
+        worst = max(worst, max(shares))
+        print(f"{label}: request {uid}: each attention layer's output at "
+              f"the decoded positions vs the teacher-forced forward on the "
+              f"same input, worst position over its limit (TOL_LAYER "
+              f"{TOL_LAYER:g} of its largest |output|) by layer: "
+              + ", ".join(f"{x:.3f}" for x in shares))
+        check(max(shares) <= 1.0, f"{label}: request {uid}: an attention "
+              f"layer of the decode step disagrees with the forward: "
+              f"{max(shares):.3f} of TOL_LAYER")
+    return worst
+
+
 def phase_serve_lm(ctx):
     """RecurrentGemma-2B at full width through serving.ServingEngine: the
     decode steps on mvm + decode_attention, the prefills on rglru_scan."""
@@ -3047,7 +3502,6 @@ def phase_serve_lm(ctx):
 
     from repro_torch import rnn
     from repro_torch.configs import recurrentgemma_2b
-    from repro_torch.kernels.common import reset_counts
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.mvm_tile.ops import mvm
     from repro_torch.kernels.rglru.ops import rglru_scan
@@ -3074,123 +3528,28 @@ def phase_serve_lm(ctx):
           f"{ctx['serve_lm_init_s']:.2f} s")
 
     prompts = _lm_prompts(cfg.vocab_size, LM_PROMPTS, seed=8)
-    everything = entries()
     lm = (mvm, decode_attention, rglru_scan)
-    calls = []  # (kind, rows or tokens, launches of mvm / dattn / scan)
     wrapped = []  # the first batched tick with a wrapped ring, before it
 
-    def count_call(kind, n, fn, graph=None, tokens=None):
+    def watch(kind, n, graph, tokens):
         if (kind == "decode" and n == 4 and not wrapped
                 and int(graph.cache["idx"].max()) >= cfg.window):
             wrapped.append((graph, _clone_cache(graph.cache),
                             tokens.clone()))
-        before = [f.kernel_launches for f in lm]
-        out = fn()
-        calls.append((kind, n, tuple(f.kernel_launches - b
-                                     for f, b in zip(lm, before))))
-        return out
 
-    reset_counts(*everything)
-    t0 = time.perf_counter()
-    eng, done, logits = _lm_serve(cfg, params, prompts, LM_NEW, "cuda",
-                                  hook=count_call)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    ticks = [c for c in calls if c[0] == "decode" and c[1] == 4]
-    rem = [c for c in calls if c[0] == "decode" and c[1] == 1]
-    pre = [c for c in calls if c[0] == "prefill"]
-    others = sum(f.calls for f in everything if f not in lm)
-    print(f"serve_lm: {len(done)} requests in {first_s:.2f} s (first run); "
-          f"{len(pre)} prefills (buckets {sorted(eng.prefill_lengths)}), "
-          f"{len(rem)} batch-1 remainder decode steps, {len(ticks)} batched "
-          f"ticks; kernel launches mvm {mvm.kernel_launches}, "
-          f"decode_attention {decode_attention.kernel_launches}, rglru_scan "
-          f"{rglru_scan.kernel_launches}; other kernels called {others} "
-          f"times")
-    check(sorted(done) == list(range(len(prompts)))
-          and all(len(c.tokens) == LM_NEW for c in done.values()),
-          "serve_lm: a request did not complete with all its tokens")
-    check(all(c[2] == (6 * cfg.n_layers, n_attn, 0)
-              for c in ticks + rem),
-          f"serve_lm: a decode step did not launch {6 * cfg.n_layers} mvm "
-          f"and {n_attn} decode_attention kernels (and no scan): "
-          f"{sorted(set(c[2] for c in ticks + rem))}")
-    check(all(c[2] == (0, 0, n_rglru) for c in pre),
-          f"serve_lm: a prefill did not launch exactly {n_rglru} rglru_scan "
-          f"kernels: {sorted(set(c[2] for c in pre))}")
-    check(all(f.calls == f.kernel_launches for f in lm) and others == 0,
-          "serve_lm: an entry point ran its plain version on the card, or "
-          "another family's kernel was called")
-    check(len(pre) == len(prompts) and len(rem) == sum(
-        n - (1 << (n.bit_length() - 1)) for n in LM_PROMPTS),
-        "serve_lm: prefill buckets or remainder steps differ from the "
-        "engine's rule")
-    replays = (eng.tick_graph.replays, eng.single_graph.replays)
-    print(f"serve_lm: graph replays {replays[0]} of {len(ticks)} batched "
-          f"ticks and {replays[1]} of {len(rem)} batch-1 steps (the first "
-          f"step at each batch size eager, then captured); launches a "
-          f"replay adds: "
-          + "; ".join(f"{name} " + ", ".join(
-              f"{fn.__name__} {launches}"
-              for fn, (_, launches) in graph.captured.items())
-              for name, graph in (("tick", eng.tick_graph),
-                                  ("batch-1", eng.single_graph))))
-    check(replays == (len(ticks) - 1, len(rem) - 1),
-          "serve_lm: a decode step after the first at its batch size was "
-          "not a graph replay")
-    tally(ctx, *lm)
+    _, done, _, ctx["serve_lm_err"], _ = _serve_checks(
+        ctx, "serve_lm", cfg, params, prompts, LM_NEW, 4096,
+        (6 * cfg.n_layers, n_attn, 0), (0, 0, n_rglru), watch)
     check(len(wrapped) == 1, "serve_lm: no batched tick ran on a wrapped "
                              "ring")
     ctx["serve_lm_engine_rings_share"] = _attn_on_engine_rings(
         cfg, *wrapped[0])
     del wrapped[:]
-
-    # every generated token's logits against a teacher-forced forward on
-    # the card (torch.matmul, the prefill attention paths, rglru_scan)
-    err, flips, held = 0.0, 0, 0
-    for uid, c in sorted(done.items()):
-        ref = _teacher_forced(cfg, params, prompts[uid], c)
-        e = float((logits[uid] - ref).abs().max())
-        margin = _margin(ref)
-        sure = margin > TOL_LM
-        agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
-        held += int(sure.sum())
-        flips += int((~agree).sum())
-        print(f"serve_lm: request {uid} (prompt {len(prompts[uid])}): "
-              f"logits vs the teacher-forced forward max_abs_err {e:.3e} "
-              f"(tol {TOL_LM:g}; |logit| <= "
-              f"{float(ref.abs().max()):.2f}); greedy tokens == argmax at "
-              f"{int(agree.sum())}/{len(agree)} positions, smallest top-2 "
-              f"margin {float(margin.min()):.3e}")
-        check(bool(torch.isfinite(logits[uid]).all()),
-              f"serve_lm: request {uid} has non-finite logits")
-        check(e <= TOL_LM, f"serve_lm: request {uid}'s logits disagree with "
-                           f"the forward: {e:.3e} > {TOL_LM:g}")
-        check(bool(agree[sure.cpu()].all()),
-              f"serve_lm: request {uid}: a greedy token differs from the "
-              f"forward's argmax where the top-2 margin exceeds {TOL_LM:g}")
-        err = max(err, e)
-        del ref
-    ctx["serve_lm_err"] = err
-    print(f"serve_lm: tokens held at {held} positions with a top-2 margin "
-          f"above {TOL_LM:g}; {flips} near-tie positions differ")
-    # each attention layer of the decode step against the forward (F3)
-    layer_share = 0.0
-    for uid, c in sorted(done.items()):
-        shares = _attn_layers_vs_forward(cfg, params, prompts[uid], c)
-        layer_share = max(layer_share, max(shares))
-        print(f"serve_lm: request {uid}: each attention layer's output at "
-              f"the decoded positions vs the teacher-forced forward on the "
-              f"same input, worst position over its limit (TOL_LAYER "
-              f"{TOL_LAYER:g} of its largest |output|) by layer: "
-              + ", ".join(f"{x:.3f}" for x in shares))
-        check(max(shares) <= 1.0, f"serve_lm: request {uid}: an attention "
-              f"layer of the decode step disagrees with the forward: "
-              f"{max(shares):.3f} of TOL_LAYER")
-    ctx["serve_lm_layer_share"] = layer_share
+    ctx["serve_lm_layer_share"] = _f3_layers("serve_lm", cfg, params,
+                                             prompts, done, 4096)
 
     _planted_faults(cfg, params, prompts)
-    _depth3_vs_cpu(cfg, params)
+    _depth_vs_cpu(cfg, params, 3, "serve_lm")
 
     # a warm run, each decode step and prefill timed on the host clock
     # around a synchronize, and on the device by CUDA events around the
@@ -3304,7 +3663,7 @@ def is_kernel(kernel: str, name: str) -> bool:
     return all(part in name for part in DEVICE_NAMES[kernel])
 
 
-def _profiled_replay(graph, B, lm, per_step):
+def _profiled_replay(graph, B, lm, per_step, label="serve_lm"):
     """One more replay of ``graph`` (the engine has drained, so its state
     is no longer read) under torch.profiler.  A replay's launch counts are
     bookkeeping (``DecodeGraph.replay`` adds what the capture counted), so
@@ -3341,7 +3700,7 @@ def _profiled_replay(graph, B, lm, per_step):
     kernel_ms = tuple(
         sum(us for name, us in by_name.items()
             if is_kernel(fn.__name__, name)) / 1e3 for fn in lm)
-    print(f"serve_lm: one replay at B={B} under the profiler: device events "
+    print(f"{label}: one replay at B={B} under the profiler: device events "
           f"{sum(count.values())}, by kernel (mvm, decode_attention, "
           f"rglru_scan) on the device {on_device}, counted by the replay "
           f"{booked}, recorded at capture {captured}; their device ms "
@@ -3349,15 +3708,16 @@ def _profiled_replay(graph, B, lm, per_step):
           + f"; device busy {busy:.3f} ms in a span of "
           f"{span_us / 1e3:.3f} ms under the profiler")
     check(on_device == booked == captured == tuple(per_step),
-          f"serve_lm: a replay at B={B} ran {on_device} kernels on the "
+          f"{label}: a replay at B={B} ran {on_device} kernels on the "
           f"device but counted {booked} (captured {captured}, expected "
           f"{tuple(per_step)})")
     return busy, kernel_ms
 
 
 def _clone_cache(cache):
-    return {"layers": [{k: t.clone() for k, t in layer.items()}
-                       for layer in cache["layers"]],
+    from repro_torch.models import transformer as tf
+
+    return {"layers": tf.map_layers(lambda t: t.clone(), cache["layers"]),
             "idx": cache["idx"].clone()}
 
 
@@ -3494,7 +3854,7 @@ def _attn_on_engine_rings(cfg, graph, cache, tokens):
     return worst
 
 
-def _attn_layers_vs_forward(cfg, params, prompt, completion):
+def _attn_layers_vs_forward(cfg, params, prompt, completion, max_seq=4096):
     """Each attention layer of the decode step against the teacher-forced
     forward, on the same input (F3).  The forward is run layer by layer
     with the model's own functions (``transformer._layer_apply``, the
@@ -3505,17 +3865,20 @@ def _attn_layers_vs_forward(cfg, params, prompt, completion):
     projections, the new slot written into the ring, the decode_attention
     kernel) then takes the forward's normed input at every position the
     engine decoded (the remainder prompt tokens and the generated ones),
-    one row each, over a 2048-slot ring that holds the forward's keys and
-    values of the positions before it at slot pos % 2048, as the engine's
-    ring does.  Returns, per attention layer, the worst position's
-    max |decode - forward| over TOL_LAYER x its largest |output|."""
+    one row each, over the engine's ring (``tf.cache_len(cfg, max_seq)``
+    slots: a window's ring, or the full length) holding the forward's keys
+    and values of the positions before it where the engine's ring holds
+    them (slot pos % T on a ring).  Layer i's parameters are
+    ``tf.layer_view(params["layers"], i)``: an unrolled stack's entry or
+    the stacked leaves' views.  Returns, per attention
+    layer, the worst position's max |decode - forward| over TOL_LAYER x
+    its largest |output|."""
     import torch
 
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers.common import param_dtype
     from repro_torch.models.layers.embedding import embed
     from repro_torch.models.layers.norm import rms_norm
-    from repro_torch.models.layers.rope import rope_angles
 
     seq = list(prompt) + completion.tokens[:-1]
     S, L = len(seq), len(prompt)
@@ -3523,7 +3886,7 @@ def _attn_layers_vs_forward(cfg, params, prompt, completion):
     if tf.NAIVE_ATTN_MAX_SEQ < S < cfg.window:
         seq = seq + [0] * (cfg.window - S)
     Sp = len(seq)
-    T = tf.cache_len(cfg, 4096)  # serve_lm's rings (max_seq 4096)
+    T = tf.cache_len(cfg, max_seq)  # the engine's rings
     dev = torch.device("cuda")
     pos = torch.tensor(rows, device=dev)
     idx = pos.to(torch.int32)
@@ -3531,17 +3894,17 @@ def _attn_layers_vs_forward(cfg, params, prompt, completion):
     with torch.inference_mode():
         x = embed(params["head"], torch.tensor(seq, device=dev)[None],
                   param_dtype(cfg))
-        rope = rope_angles(torch.arange(Sp, dtype=torch.int32,
-                                        device=dev)[None],
-                           cfg.head_dim, cfg.rope_theta)
-        rope_dec = rope_angles(idx[:, None], cfg.head_dim, cfg.rope_theta)
+        rope = tf._rope_for(cfg, torch.arange(Sp, dtype=torch.int32,
+                                              device=dev)[None])
+        rope_dec = tf._rope_for(cfg, idx[:, None])
         for i, kind in enumerate(cfg.layer_kinds()):
-            p = params["layers"][i]
+            p = tf.layer_view(params["layers"], i)
             if kind == "attn":
                 h = rms_norm(x, p["norm1"], cfg.norm_eps)
                 o_fwd, kv = tf._attn_block(
                     cfg, p["attn"], h, rope,
-                    {"k": h.new_empty((1, Sp, cfg.kv_dim))}, None, "prefill")
+                    {key: h.new_empty((1, Sp, cfg.kv_dim))
+                     for key in ("k", "v")}, None, "prefill")
                 ring = {key: h.new_zeros((len(rows), T, cfg.kv_dim))
                         for key in ("k", "v")}
                 for r, t in enumerate(rows):
@@ -3571,21 +3934,22 @@ def _leaves(tree):
         yield tree
 
 
-def _depth3_vs_cpu(cfg, params):
-    """The first three layers (rglru, rglru, attn) at full width serve two
-    short prompts on the card and in a device="cpu" engine: equal tokens
-    (up to a near-tie, after which the two continue from other tokens)
-    and logits within TOL_LM_DEPTH3."""
+def _depth_vs_cpu(cfg, params, n, label):
+    """The first ``n`` layers at full width serve two short prompts on
+    the card and in a device="cpu" engine: equal tokens (up to a near-tie,
+    after which the two continue from other tokens) and logits within
+    TOL_LM_DEPTH3."""
     import dataclasses
 
-    cfg3 = dataclasses.replace(cfg, n_layers=3)
-    p3 = {"final_norm": params["final_norm"], "head": params["head"],
-          "layers": params["layers"][:3]}
+    from repro_torch.models import transformer as tf
+
+    cfg_n = dataclasses.replace(cfg, n_layers=n)
+    p_n = dict(params, layers=tf.layer_view(params["layers"], slice(0, n)))
     prompts = _lm_prompts(cfg.vocab_size, (16, 40), seed=10)
-    _, gpu, gpu_logits = _lm_serve(cfg3, p3, prompts, 4, "cuda",
+    _, gpu, gpu_logits = _lm_serve(cfg_n, p_n, prompts, 4, "cuda",
                                    max_batch=2, max_seq=256)
     t0 = time.perf_counter()
-    _, cpu, cpu_logits = _lm_serve(cfg3, p3, prompts, 4, "cpu", max_batch=2,
+    _, cpu, cpu_logits = _lm_serve(cfg_n, p_n, prompts, 4, "cpu", max_batch=2,
                                    max_seq=256)
     cpu_s = time.perf_counter() - t0
     err, compared = 0.0, 0
@@ -3597,22 +3961,281 @@ def _depth3_vs_cpu(cfg, params):
             err = max(err, e)
             compared += 1
             check(e <= TOL_LM_DEPTH3,
-                  f"serve_lm depth 3: request {uid} token {i}: logits on "
+                  f"{label} depth {n}: request {uid} token {i}: logits on "
                   f"the card and the CPU differ by {e:.3e} > "
                   f"{TOL_LM_DEPTH3:g}")
             if tg != tc:
                 m = float(_margin(cpu_logits[uid][i:i + 1])[0])
-                print(f"serve_lm depth 3: request {uid} token {i} differs "
+                print(f"{label} depth {n}: request {uid} token {i} differs "
                       f"at a top-2 margin of {m:.3e}; compared up to here")
-                check(m <= TOL_LM_DEPTH3, "serve_lm depth 3: a token "
+                check(m <= TOL_LM_DEPTH3, f"{label} depth {n}: a token "
                       "differs between the card and the CPU")
                 break
     on_card = [gpu[u].tokens for u in sorted(gpu)]
     on_cpu = [cpu[u].tokens for u in sorted(cpu)]
-    print(f"serve_lm: depth 3 at full width, card vs device=\"cpu\" engine "
+    print(f"{label}: depth {n} at full width, card vs device=\"cpu\" engine "
           f"({cpu_s:.1f} s on the CPU): tokens {on_card} vs {on_cpu}; "
           f"logits max_abs_err {err:.3e} over {compared} tokens (tol "
           f"{TOL_LM_DEPTH3:g})")
+    return err
+
+
+#: serve_dense: the token archs' four prompts (5-300 tokens, DENSE_NEW new
+#: each; prefill buckets 4, 32, 128 and 256 with 1, 5, 12 and 44
+#: remainder steps) in ServingEngine(max_batch=4), full-length rings of
+#: DENSE_MAX_SEQ slots
+DENSE_PROMPTS = (5, 37, 140, 300)
+DENSE_NEW = 8
+DENSE_MAX_SEQ = 512
+#: h2o-danube's fifth prompt, served first: its 8192 bucket runs
+#: local_attention and the roll into the 4096-slot window ring, and its 8
+#: remainder steps and every batched tick run on a wrapped ring
+DENSE_LONG = 8200
+DENSE_LONG_MAX_SEQ = 8216
+#: the archs whose decode step is held layer by layer against the forward
+#: (F3, _attn_layers_vs_forward)
+DENSE_F3 = ("stablelm-12b", "h2o-danube-3-4b")
+#: the first layers served on the card and by a device="cpu" engine
+DENSE_DEPTH = 2
+#: the embeds archs: B rows, a prefill of S positions, then N decode steps
+DENSE_EMBEDS = (2, 64, 8)
+# the embeds archs' decode steps against the forward over the whole
+# sequence.  The reference's atol for this check
+# (tests/models/test_decode_equivalence.py) is 2e-3, on fp32 logits of a
+# 2-layer model; at bf16 and full depth the decode step and the forward
+# round the hidden state at other points, as TOL_LM sets out for
+# serve_lm's 26 layers, so this check takes TOL_LM too
+TOL_EMBEDS = TOL_LM
+
+
+def phase_serve_dense(ctx):
+    """The reference's six dense decoders at full width (DENSE_RUNS), one
+    on the card at a time: the token archs through serving.ServingEngine
+    (_dense_serve), the embeds archs through transformer.prefill /
+    decode_step (_dense_embeds)."""
+    import gc
+
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.models import transformer as tf
+
+    dev = rnn.resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx["serve_dense"] = {}
+    for arch, layers, why in DENSE_RUNS:
+        cfg = _dense_config(arch, layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg,
+                                torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        cut = (f"depth cut {_dense_config(arch).n_layers} -> {cfg.n_layers}: "
+               f"{why}" if layers else "whole (full width and depth)")
+        print(f"serve_dense: {arch} L={cfg.n_layers} d_model={cfg.d_model} "
+              f"heads {cfg.n_heads} on {cfg.n_kv_heads} kv of {cfg.head_dim} "
+              f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} window={cfg.window} "
+              f"{cfg.dtype}: {n_params:,} parameters "
+              f"({2 * n_params / 1e9:.1f} GB) drawn on the card in "
+              f"{init_s:.2f} s; {cut}")
+        t0 = time.perf_counter()
+        run = (_dense_embeds if cfg.embed_stub else _dense_serve)
+        rec = run(ctx, cfg, params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"serve_dense: {arch} peak device memory allocated "
+              f"{peak / 1e9:.1f} GB of the card's {total / 1e9:.1f} GB "
+              f"(weights {2 * n_params / 1e9:.1f} GB)")
+        rec.update(layers=cfg.n_layers, params=n_params, cut=cut,
+                   wall_s=time.perf_counter() - t0, card=ctx.get("card"),
+                   peak_gb=peak / 1e9)
+        ctx["serve_dense"][arch] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _dense_serve(ctx, cfg, params):
+    """A token arch through ServingEngine(max_batch=4): DENSE_PROMPTS (and
+    DENSE_LONG first for a windowed arch), DENSE_NEW new tokens each,
+    held to serve_lm's checks (_serve_checks) with every decode step at
+    6 L mvm and L decode_attention launches and no prefill launching
+    either; a windowed arch's first-wave ticks on a wrapped ring; for
+    DENSE_F3 each attention layer of the decode step against the forward
+    (_f3_layers); the first DENSE_DEPTH layers on the card against a
+    device="cpu" engine.  One replayed tick runs under the profiler for
+    the device's busy share."""
+    import statistics as stats
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.rglru.ops import rglru_scan
+
+    label = f"serve_dense {cfg.name}"
+    L = cfg.n_layers
+    lengths = ((DENSE_LONG,) if cfg.window else ()) + DENSE_PROMPTS
+    max_seq = _dense_max_seq(cfg)
+    prompts = _lm_prompts(cfg.vocab_size, lengths, seed=12)
+    lm = (mvm, decode_attention, rglru_scan)
+    per_step = (6 * L, L, 0)
+    wrapped = []
+
+    def watch(kind, n, graph, tokens):
+        if kind == "decode" and n == 4 and cfg.window:
+            # the long prompt, served first, holds slot 0 for the first
+            # wave's DENSE_NEW - 1 ticks
+            wrapped.append(int(graph.cache["idx"][0]) >= cfg.window)
+
+    eng, done, steps, err, serve_s = _serve_checks(
+        ctx, label, cfg, params, prompts, DENSE_NEW, max_seq, per_step,
+        (0, 0, 0), watch)
+    if cfg.window:
+        first = wrapped[:DENSE_NEW - 1]
+        print(f"{label}: the first wave's {len(first)} batched ticks ran "
+              f"with the {DENSE_LONG}-token request's {cfg.window}-slot ring "
+              f"wrapped in slot 0: {sum(first)} of {len(first)}")
+        check(len(first) == DENSE_NEW - 1 and all(first),
+              f"{label}: a batched tick of the first wave ran without the "
+              "long prompt's wrapped ring")
+    rec = {"err": err, "prompts": list(lengths),
+           "ticks": sum(n == 4 for n, *_ in steps),
+           "remainder_steps": sum(n == 1 for n, *_ in steps),
+           "replays": [eng.tick_graph.replays, eng.single_graph.replays]}
+    if cfg.name in DENSE_F3:
+        rec["layer_share"] = _f3_layers(label, cfg, params, prompts, done,
+                                        max_seq)
+    rec["depth_err"] = _depth_vs_cpu(cfg, params, DENSE_DEPTH, label)
+
+    busy_ms, kernel_ms = _profiled_replay(eng.tick_graph, 4, lm, per_step,
+                                          label)
+    for B in (4, 1):
+        rows = [(w, d) for n, w, d, r in steps if n == B and r]
+        wall = stats.median(w for w, _ in rows)
+        span = stats.median(d for _, d in rows)
+        rec[f"B{B}"] = dict(replays=len(rows), wall_ms=wall, device_ms=span)
+        if B == 4:
+            rec["busy"] = busy_ms / span
+            rec["tick_kernel_ms"] = dict(zip(("mvm", "decode_attention"),
+                                             kernel_ms[:2]))
+    print(f"{label}: wall {serve_s:.2f} s for {len(prompts)} requests "
+          f"({sum(lengths)} prompt + {len(prompts) * DENSE_NEW} generated "
+          f"tokens); replayed batched tick (B=4) median host wall "
+          f"{rec['B4']['wall_ms']:.3f} ms, device span "
+          f"{rec['B4']['device_ms']:.3f} ms over {rec['B4']['replays']} "
+          f"replays; device busy {busy_ms:.3f} ms = "
+          f"{100 * rec['busy']:.1f}% of the median span (mvm "
+          f"{kernel_ms[0]:.3f} ms, decode_attention {kernel_ms[1]:.3f} ms); "
+          f"batch-1 step median {rec['B1']['wall_ms']:.3f} ms wall, "
+          f"{rec['B1']['device_ms']:.3f} ms span; card {ctx.get('card')}")
+    del eng
+    return rec
+
+
+def _dense_embeds(ctx, cfg, params):
+    """An embeds arch through transformer.prefill on seeded embeddings
+    (B rows of S positions; qwen2-vl's with three distinct (t, h, w)
+    position streams, an 8-wide patch grid at t = 0), then N decode_steps,
+    held against one forward over the whole sequence (TOL_EMBEDS; greedy
+    argmax where the top-2 margin exceeds it): every decode step 6 L mvm
+    and L decode_attention launches, the prefill none, no plain version
+    on the card.  For M-RoPE the prefill's logits must also move when the
+    streams are made equal (the sections are used)."""
+    import statistics as stats
+
+    import torch
+
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.models import transformer as tf
+
+    label = f"serve_dense {cfg.name}"
+    B, S, N = DENSE_EMBEDS
+    L = cfg.n_layers
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    embeds = torch.randn((B, S + N, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    pre = {"embeds": embeds[:, :S]}
+    full_pos = None
+    if cfg.mrope_sections:
+        i = torch.arange(S, device=dev)
+        pos3 = torch.stack([torch.zeros_like(i), i // 8, i % 8])
+        pos3 = pos3[:, None].expand(3, B, S).to(torch.int32)
+        tail = torch.arange(S, S + N, dtype=torch.int32,
+                            device=dev)[None, None].expand(3, B, N)
+        pre["positions"] = pos3
+        full_pos = torch.cat([pos3, tail], dim=-1)
+    everything = entries()
+    lm = (mvm, decode_attention, rglru_scan)
+    reset_counts(*everything)
+    walls = []
+    with torch.inference_mode():
+        lg, cache = tf.prefill(cfg, params, pre, seq_len=S + N)
+        torch.cuda.synchronize()
+        pre_launches = tuple(f.kernel_launches for f in lm)
+        outs, per = [lg], []
+        for t in range(S, S + N):
+            before = [f.kernel_launches for f in lm]
+            t0 = time.perf_counter()
+            lg, cache = tf.decode_step(cfg, params, cache,
+                                       {"embeds": embeds[:, t:t + 1]})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            per.append(tuple(f.kernel_launches - b
+                             for f, b in zip(lm, before)))
+            outs.append(lg)
+        others = sum(f.calls for f in everything if f not in lm)
+        check(pre_launches == (0, 0, 0) and all(
+            p == (6 * L, L, 0) for p in per),
+            f"{label}: the prefill launched {pre_launches} or a decode step "
+            f"did not launch {6 * L} mvm and {L} decode_attention: "
+            f"{sorted(set(per))}")
+        check(all(f.calls == f.kernel_launches for f in lm) and others == 0,
+              f"{label}: an entry point ran its plain version on the card, "
+              "or another family's kernel was called")
+        tally(ctx, *lm)
+        inc = torch.cat(outs, dim=1)
+        full, _, _ = tf.forward(cfg, params, embeds=embeds,
+                                positions=full_pos)
+        moved = None
+        if cfg.mrope_sections:
+            text, _, _ = tf.forward(cfg, params, embeds=embeds[:, :S])
+            moved = float((text - full[:, :S]).abs().max())
+        torch.cuda.synchronize()
+    err = float((inc - full).abs().max())
+    dec = full[:, S:].reshape(-1, full.shape[-1])
+    margin = _margin(dec)
+    sure = (margin > TOL_EMBEDS).cpu()
+    agree = (inc[:, S:].argmax(-1) == full[:, S:].argmax(-1)).reshape(-1).cpu()
+    print(f"{label}: prefill of {S} positions x {B} rows on seeded embeds"
+          + (" with three distinct (t, h, w) position streams" if full_pos
+             is not None else "")
+          + f", then {N} decode steps (mvm {6 * L}, decode_attention {L} "
+          f"launches each; eager, median {stats.median(walls):.3f} ms host "
+          f"wall a step): logits vs the forward over the whole sequence "
+          f"max_abs_err {err:.3e} (tol {TOL_EMBEDS:g}; |logit| <= "
+          f"{float(full.abs().max()):.2f}); decoded argmax equal at "
+          f"{int(agree.sum())}/{len(agree)}, smallest top-2 margin "
+          f"{float(margin.min()):.3e}"
+          + (f"; the prefill's logits move by {moved:.3e} when the three "
+             f"streams are made equal" if moved is not None else ""))
+    check(bool(torch.isfinite(inc).all()), f"{label}: non-finite logits")
+    check(err <= TOL_EMBEDS, f"{label}: the decode steps disagree with the "
+                             f"forward: {err:.3e} > {TOL_EMBEDS:g}")
+    check(bool(agree[sure].all()), f"{label}: a decoded argmax differs where "
+                                   f"the top-2 margin exceeds {TOL_EMBEDS:g}")
+    if moved is not None:
+        check(moved > TOL_EMBEDS, f"{label}: M-RoPE's streams change nothing "
+                                  f"({moved:.3e})")
+    return {"err": err, "decode_ms": stats.median(walls), "rows": B,
+            "prefill": S, "steps": N, "mrope_moved": moved}
 
 
 #: the calib phase: BYSDNE's prefill shapes (B, T) and, from their B's,

@@ -1,12 +1,14 @@
 """Architecture registry: ``--arch <id>`` resolution (the port of
 ``repro.configs``, for the architectures the port carries).
 
-``recurrentgemma-2b`` is served by the transformer side
-(``models.transformer``, ``serving.ServingEngine``); ``sharp-lstm`` is the
-paper's own LSTM family (``rnn.compile``, ``serving.RecurrentServingEngine``).
-The reference's other architectures raise ``NotImplementedError`` naming
-what they need from ROADMAP.md's 'Queued in the port' list; an unknown
-name raises ``KeyError``.
+The decoders are served by the transformer side (``models.transformer``,
+``serving.ServingEngine``; the ``embed_stub`` archs musicgen-large and
+qwen2-vl-72b through ``transformer.prefill`` / ``decode_step`` with
+``embeds``); ``sharp-lstm`` is the paper's own LSTM family
+(``rnn.compile``, ``serving.RecurrentServingEngine``).  The reference's
+other architectures raise ``NotImplementedError`` naming what they need
+from ROADMAP.md's 'Queued in the port' list; an unknown name raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,15 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig  # noqa: F401 (re-export)
 from repro_torch.runtime.errors import not_ported
 
+#: the reference's order (``repro.configs._ARCH_MODULES``), less what
+#: ``_NOT_PORTED`` holds
 _ARCH_MODULES: Dict[str, str] = {
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "sharp-lstm": "repro_torch.configs.sharp_lstm",
 }
@@ -24,16 +34,9 @@ _ARCH_MODULES: Dict[str, str] = {
 #: the reference's architectures the port does not carry yet -> (what they
 #: need, their items in ROADMAP.md's 'Queued in the port' list)
 _NOT_PORTED: Dict[str, tuple] = {
-    "arctic-480b": ("stacked layers and the MoE FFN", "P6, P7"),
-    "olmoe-1b-7b": ("stacked layers and the MoE FFN", "P6, P7"),
-    "starcoder2-3b": ("stacked layers", "P6"),
-    "deepseek-67b": ("stacked layers", "P6"),
-    "h2o-danube-3-4b": ("stacked layers", "P6"),
-    "stablelm-12b": ("stacked layers", "P6"),
-    "musicgen-large": ("stacked layers and a stub frontend", "P6, P10"),
+    "arctic-480b": ("the MoE FFN", "P7"),
+    "olmoe-1b-7b": ("the MoE FFN", "P7"),
     "xlstm-125m": ("mLSTM/sLSTM blocks", "P8"),
-    "qwen2-vl-72b": ("stacked layers, M-RoPE and a stub frontend",
-                     "P6, P9, P10"),
 }
 
 

@@ -4,8 +4,14 @@ the token engine (the port of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --reduced --requests 12 --max-new 24 [--device cpu]
 
-Runs on the card by default (``--device cuda``); the weights are drawn
-from a ``torch.Generator`` on that device, seeded with ``--seed``.
+``--arch`` takes each token arch of ``repro_torch.configs.list_archs()``
+(starcoder2-3b, deepseek-67b, h2o-danube-3-4b, stablelm-12b,
+recurrentgemma-2b); the ``embed_stub`` archs (musicgen-large,
+qwen2-vl-72b) take embeddings, not tokens, and serve through
+``transformer.prefill`` / ``decode_step`` (the engine refuses them with
+``PlanRejected``).  Runs on the card by default (``--device cuda``); the
+weights are drawn from a ``torch.Generator`` on that device, seeded with
+``--seed``.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from repro_torch.serving import Request, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="recurrentgemma-2b",
+                    help="a token arch of repro_torch.configs.list_archs()")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)

@@ -1,7 +1,14 @@
-"""Rotary position embeddings — the port of ``repro.models.layers.rope``
-(standard RoPE; M-RoPE is not ported yet, ROADMAP.md 'Queued in the port'
-item P9)."""
+"""Rotary position embeddings, including Qwen2-VL style M-RoPE — the port
+of ``repro.models.layers.rope``.
+
+M-RoPE splits the head_dim/2 rotary frequency bands into (temporal,
+height, width) sections, each driven by its own position-id stream.
+Text-only positions degenerate to all three streams equal, which reduces
+M-RoPE to standard RoPE.
+"""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -12,6 +19,26 @@ def rope_angles(positions, head_dim: int, theta: float):
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                           device=positions.device) / half))
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions3, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]):
+    """positions3 (3, B, S) -> cos/sin (B, S, head_dim//2) in fp32.
+
+    Section i of the frequency bands takes its positions from stream i."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope_angles: sections {tuple(sections)} must sum "
+                         f"to head_dim // 2 = {half}")
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions3.device) / half))
+    pos = positions3.float()
+    bands, lo = [], 0
+    for i, n in enumerate(sections):  # stream i drives bands lo .. lo + n
+        bands.append(pos[i][..., None] * freqs[lo:lo + n])
+        lo += n
+    ang = torch.cat(bands, dim=-1)  # (B, S, half)
     return torch.cos(ang), torch.sin(ang)
 
 

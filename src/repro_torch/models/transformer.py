@@ -1,30 +1,41 @@
 """Decoder assembly — the port of ``repro.models.transformer`` for the
-architectures the port carries: unrolled (``scan_layers=False``) stacks of
-local-attention and RG-LRU blocks with a gated MLP, i.e. RecurrentGemma.
+architectures the port carries: dense GQA transformers (optional SWA) over
+stacked (``scan_layers=True``) layer params, their M-RoPE (Qwen2-VL) and
+``embed_stub`` (precomputed embeddings: MusicGen, Qwen2-VL) variants, and
+unrolled (``scan_layers=False``) stacks of local-attention and RG-LRU
+blocks (RecurrentGemma), each with a gated MLP.
 
 What the reference also covers raises ``NotImplementedError`` naming its
-entry in ROADMAP.md's 'Queued in the port' list: stacked
-(``scan_layers=True``) layer params (P6), the MoE FFN (P7), mLSTM/sLSTM
-blocks (P8), M-RoPE (P9), the ``embed_stub`` frontends (P10), and
-``loss_fn`` with everything else of training (P11).  The remat policy
-only matters when gradients are taken: it is accepted and ignored.
+entry in ROADMAP.md's 'Queued in the port' list: the MoE FFN (P7),
+mLSTM/sLSTM blocks (P8), and ``loss_fn`` with everything else of training
+(P11).  The remat policy and ``remat_group`` only matter when gradients
+are taken: they are accepted and ignored (the reference's grouped branch
+runs only without a cache, and gives the same values).
 
-Caches (per layer, a list over the stack, plus a global cursor):
+Layer params: with ``scan_layers`` the reference's layout, one dict whose
+leaves are (L, ...) tensors; the port has no scan to trace, so the layers
+are walked in order over views ``leaf[l]`` (``layer_view``), which copy
+nothing.  Without it, a list of per-layer dicts.
+
+Caches (plus a global ``idx`` (B,) int32 cursor):
   attn   -> {"k","v"} (B, T_cache, Hk*D) flattened kv, ring-buffered at
             ``window`` when the sliding window bounds it
   rglru  -> {"state" (B,W) fp32, "conv" (B,k-1,W)}
-  idx    -> (B,) int32
+a list over the layers, or with ``scan_layers`` one dict of (L, B, ...)
+tensors, as in the reference.
 
 Which products run the ``mvm`` kernel and which run ``torch.matmul``:
 ``models.layers.common.project``.  On CUDA tensors the decode step runs
 the ``mvm`` and ``decode_attention`` kernels and a prefill the
 ``rglru_scan`` kernel; on the CPU their plain versions.  Functions are
 functional, as in the reference, with one exception that saves a copy of
-every ring per layer and step: a decode step writes the new token's k/v
-slot into the attention rings of the cache it is given, in place, and
-returns those same ring tensors (the RG-LRU state, the conv state and the
-cursor come back as new tensors).  A caller that needs the cache as it was
-clones it first.
+every ring per layer and step: a prefill writes the prompt's keys and
+values, and a decode step the new token's k/v slot, into the attention
+rings of the cache it is given, in place, and returns those same ring
+tensors — with stacked caches the (L, B, T, KV) tensors themselves, each
+layer written through its view (the RG-LRU state, the conv state and the
+cursor come back as new tensors).  A caller that needs the cache as it
+was clones it first.
 """
 from __future__ import annotations
 
@@ -40,7 +51,8 @@ from repro_torch.models.layers.common import dense_init, param_dtype, project
 from repro_torch.models.layers.embedding import embed, init_embedding, unembed
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
 from repro_torch.models.layers.norm import init_norm, rms_norm
-from repro_torch.models.layers.rope import apply_rope, rope_angles
+from repro_torch.models.layers.rope import (apply_rope, mrope_angles,
+                                            rope_angles)
 from repro_torch.runtime.errors import not_ported
 
 NAIVE_ATTN_MAX_SEQ = 1024  # above this, blockwise/local paths engage
@@ -53,20 +65,42 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name!r} is an rnn stack, not a decoder: run it through "
             "repro_torch.rnn.compile or serving.RecurrentServingEngine")
-    if cfg.scan_layers:
-        raise not_ported("stacked layer params (scan_layers=True)", "P6")
     if cfg.n_experts:
         raise not_ported("the MoE FFN", "P7")
     if any(k in ("mlstm", "slstm") for k in cfg.layer_kinds()):
         raise not_ported("mLSTM/sLSTM blocks", "P8")
-    if cfg.mrope_sections:
-        raise not_ported("M-RoPE", "P9")
-    if cfg.embed_stub:
-        raise not_ported("stub frontends (embed_stub)", "P10")
     bad = sorted(set(cfg.layer_kinds()) - set(KINDS))
     if bad:
         raise ValueError(f"unknown layer kinds {bad}; allowed: "
                          f"{', '.join(KINDS)}")
+    if cfg.scan_layers and set(cfg.layer_kinds()) != {"attn"}:
+        raise ValueError(f"{cfg.name!r}: stacked layers (scan_layers=True) "
+                         "take one block kind, attention; other patterns "
+                         "are unrolled")
+
+
+def map_layers(fn, layers, *others):
+    """``fn`` over the tensors of layer trees of one layout (a list of
+    per-layer dicts, or a stacked dict of (L, ...) leaves), ``others``
+    walked key by key beside ``layers``.  Returns the results in
+    ``layers``' layout."""
+    if isinstance(layers, dict):
+        return {k: map_layers(fn, v, *(o[k] for o in others))
+                for k, v in layers.items()}
+    if isinstance(layers, list):
+        return [map_layers(fn, v, *(o[i] for o in others))
+                for i, v in enumerate(layers)]
+    return fn(layers, *others)
+
+
+def layer_view(layers, i):
+    """Layer ``i`` (an int, or a slice of layers) of a parameter or cache
+    tree: the list's entry, or of a stacked dict the same dict with every
+    leaf's view ``leaf[i]`` (no copy: a write into the view is a write
+    into the stacked tensor)."""
+    if isinstance(layers, list):
+        return layers[i]
+    return map_layers(lambda t: t[i], layers)
 
 
 # ===========================================================================
@@ -104,23 +138,52 @@ def _init_layer(cfg: ModelConfig, gen, kind: str, dtype, device):
     return p
 
 
+def _stack_into(out, tree, i: int, n: int):
+    """Copy ``tree``'s leaves into slice ``[i]`` of ``out``'s (n, ...)
+    leaves, allocating them at the first layer; returns ``out``."""
+    if isinstance(tree, dict):
+        out = {} if out is None else out
+        for k, v in tree.items():
+            out[k] = _stack_into(out.get(k), v, i, n)
+        return out
+    if out is None:
+        out = tree.new_empty((n,) + tuple(tree.shape))
+    out[i].copy_(tree)
+    return out
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random parameters drawn from ``gen`` (a seeded ``torch.Generator``)
     on the generator's device, stored on ``device`` (the generator's by
     default).  The reference's tree layout: {"final_norm", "head",
-    "layers": [per-layer dicts]}, so ``convert.from_jax`` carries a JAX
-    ``init_params`` tree over one to one."""
+    "layers"}, the layers a list of per-layer dicts or, with
+    ``scan_layers``, one dict of (L, ...) leaves; an ``embed_stub`` head is
+    {"unembed"} alone.  So ``convert.from_jax`` carries a JAX
+    ``init_params`` tree over one to one.  Stacked leaves are allocated
+    once and layer l is drawn into slice [l], so the peak is the model and
+    one layer, not two models."""
     check_supported(cfg)
     device = gen.device if device is None else torch.device(device)
     dtype = param_dtype(cfg)
     params: Dict[str, Any] = {
-        "final_norm": init_norm(cfg.d_model, dtype, device),
-        "head": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
-                               cfg.tie_embeddings, device),
-    }
-    params["layers"] = [_init_layer(cfg, gen, kind, dtype, device)
-                        for kind in cfg.layer_kinds()]
+        "final_norm": init_norm(cfg.d_model, dtype, device)}
+    if cfg.embed_stub:
+        params["head"] = {"unembed": dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype, device=device)}
+    else:
+        params["head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype, cfg.tie_embeddings, device)
+    kinds = cfg.layer_kinds()
+    if not cfg.scan_layers:
+        params["layers"] = [_init_layer(cfg, gen, kind, dtype, device)
+                            for kind in kinds]
+        return params
+    stacked = None
+    for i, kind in enumerate(kinds):
+        stacked = _stack_into(stacked, _init_layer(cfg, gen, kind, dtype,
+                                                   device), i, len(kinds))
+    params["layers"] = stacked
     return params
 
 
@@ -152,11 +215,20 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, T: int, dtype,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device="cpu") -> Dict[str, Any]:
+    """Zeroed caches for ``batch`` rows of up to ``seq_len`` positions:
+    per-layer dicts in a list, or with ``scan_layers`` one dict of
+    (L, B, ...) tensors (the attention rings (L, B, T, KV))."""
     check_supported(cfg)
     dtype = param_dtype(cfg)
     T = cache_len(cfg, seq_len)
-    layers = [_init_layer_cache(cfg, k, batch, T, dtype, device)
-              for k in cfg.layer_kinds()]
+    kinds = cfg.layer_kinds()
+    if cfg.scan_layers:
+        one = _init_layer_cache(cfg, kinds[0], batch, T, dtype, device)
+        layers = {k: t.new_zeros((len(kinds),) + tuple(t.shape))
+                  for k, t in one.items()}
+    else:
+        layers = [_init_layer_cache(cfg, k, batch, T, dtype, device)
+                  for k in kinds]
     return {"layers": layers,
             "idx": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -164,6 +236,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 # ===========================================================================
 # blocks
 # ===========================================================================
+
+
+def _rope_for(cfg: ModelConfig, positions):
+    """cos/sin of ``positions``: (B, S), or with M-RoPE (3, B, S) — a
+    (B, S) input (decode's ``idx[:, None]`` among them) is three equal
+    streams."""
+    if cfg.mrope_sections:
+        if positions.dim() == 2:
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
@@ -201,15 +285,15 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
             o = attn_lib.blockwise_attention(q, k4, v4)
         else:
             o = attn_lib.naive_attention(q, k4, v4, window=cfg.window)
-        if mode == "prefill":
+        if mode == "prefill":  # into the given rings, as decode does
             T = cache["k"].shape[1]
-            if T >= S:
-                new_cache = {"k": F.pad(k, (0, 0, 0, T - S)),
-                             "v": F.pad(v, (0, 0, 0, T - S))}
-            else:  # ring: keep the last T positions at slot = pos % T
-                shift = (S - T) % T
-                new_cache = {"k": torch.roll(k[:, S - T:], shift, dims=1),
-                             "v": torch.roll(v[:, S - T:], shift, dims=1)}
+            for key, t in (("k", k), ("v", v)):
+                if T >= S:
+                    cache[key][:, :S].copy_(t)
+                    cache[key][:, S:].zero_()
+                else:  # ring: keep the last T positions at slot = pos % T
+                    cache[key].copy_(torch.roll(t[:, S - T:], (S - T) % T,
+                                                dims=1))
     o = o.reshape(B, S, Hq * D)
     return project(o, p["w_o"], decode=decode), new_cache
 
@@ -289,14 +373,18 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
         else:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=x.device)[None].expand(B, S)
-    rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    rope_cs = _rope_for(cfg, positions)
 
-    new_layer_caches = []
+    # a stacked cache's layers are written through their views, in place
+    caches = cache["layers"] if cache is not None else None
+    new_layer_caches = caches if cfg.scan_layers else []
     for i, kind in enumerate(cfg.layer_kinds()):
-        cache_l = cache["layers"][i] if cache is not None else None
-        x, new_cache_l = _layer_apply(cfg, kind, params["layers"][i], x,
+        cache_l = layer_view(caches, i) if cache is not None else None
+        x, new_cache_l = _layer_apply(cfg, kind,
+                                      layer_view(params["layers"], i), x,
                                       rope_cs, cache_l, idx, mode)
-        new_layer_caches.append(new_cache_l)
+        if not cfg.scan_layers:
+            new_layer_caches.append(new_cache_l)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["head"], x)
@@ -344,6 +432,6 @@ def decode_step(cfg: ModelConfig, params, cache, batch):
     return logits, new_cache
 
 
-__all__ = ["NAIVE_ATTN_MAX_SEQ", "check_supported", "init_params",
-           "cache_len", "init_cache", "forward", "loss_fn", "prefill",
-           "decode_step"]
+__all__ = ["NAIVE_ATTN_MAX_SEQ", "check_supported", "map_layers",
+           "layer_view", "init_params", "cache_len", "init_cache", "forward",
+           "loss_fn", "prefill", "decode_step"]

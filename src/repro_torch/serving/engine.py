@@ -5,8 +5,8 @@ Mechanics (as in the reference):
   * ``max_batch`` slots share one batched cache (allocated once).
   * Admission: a free slot gets the next queued request; its prompt runs as
     a single-request prefill whose cache rows are spliced into the batch
-    cache (slot-local positions via the per-slot ``idx`` cursor; the
-    per-layer caches keep the slot on axis 0).
+    cache (slot-local positions via the per-slot ``idx`` cursor; per-layer
+    caches keep the slot on axis 0, stacked (L, B, ...) caches on axis 1).
   * Prefill is *bucketed*: the prefill only ever sees power-of-two prompt
     lengths (the largest bucket <= the prompt); the remainder tokens run
     through batch-1 decode steps.  Chunked prefill + decode is positionally
@@ -50,17 +50,20 @@ from repro_torch.rnn.compiled import _to_device, resolve_device
 from repro_torch.runtime.errors import PlanRejected, RequestTimeout
 
 
+def _copy_new(old, t):
+    if t is not old:
+        old.copy_(t)
+
+
 def decode_into(cfg: ModelConfig, params, cache, tokens):
     """One decode step over static buffers: ``transformer.decode_step`` on
     ``cache`` with ``tokens`` (B, 1), then every tensor of the new cache
     that is not already ``cache``'s own (the RG-LRU ``state``, the ``conv``
-    state, ``idx``) copied into ``cache``'s.  Returns the fp32 logits
+    state, ``idx``) copied into ``cache``'s.  Stacked caches' rings are
+    ``cache``'s own, so only ``idx`` is copied.  Returns the fp32 logits
     (B, 1, vocab).  ``cache`` holds the advanced state afterwards."""
     logits, new = tf.decode_step(cfg, params, cache, {"tokens": tokens})
-    for old_l, new_l in zip(cache["layers"], new["layers"]):
-        for key, t in new_l.items():
-            if t is not old_l[key]:
-                old_l[key].copy_(t)
+    tf.map_layers(_copy_new, cache["layers"], new["layers"])
     cache["idx"].copy_(new["idx"])
     return logits
 
@@ -197,11 +200,12 @@ class ServingEngine:
         self.queue.append(req)
 
     def _splice_cache(self, slot: int, req_cache):
-        # per-layer caches are (B, ...): the slot lives on axis 0 (the
-        # reference's scan-stacked (L, B, ...) caches are not ported, P6)
-        for big, small in zip(self.cache["layers"], req_cache["layers"]):
-            for key, t in big.items():
-                t[slot:slot + 1] = small[key].to(t.dtype)
+        # per-layer caches are (B, ...): the slot lives on axis 0; stacked
+        # caches are (L, B, ...): axis 1, as in the reference
+        rows = slice(slot, slot + 1)
+        tf.map_layers(lambda big, small: (big[:, rows] if self.cfg.scan_layers
+                                          else big[rows]).copy_(small),
+                      self.cache["layers"], req_cache["layers"])
         self.cache["idx"][slot] = req_cache["idx"][0]
 
     def _prefill_bucketed(self, tokens):
@@ -217,9 +221,7 @@ class ServingEngine:
         # the remainder through the batch-1 step, on its static cache; the
         # logits are the graph's static output, sampled before its next run
         single = self.single_graph.cache
-        for small, big in zip(single["layers"], cache["layers"]):
-            for key, t in small.items():
-                t.copy_(big[key])
+        tf.map_layers(torch.Tensor.copy_, single["layers"], cache["layers"])
         single["idx"].copy_(cache["idx"])
         for t in range(bucket, L):
             last = self._decode(self.single_graph, tokens[:, t:t + 1])[:, -1]

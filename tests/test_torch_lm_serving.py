@@ -636,9 +636,7 @@ def test_cuda_unembed_without_the_fp32_table_copy(cuda):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("starcoder2-3b", "P6"), ("olmoe-1b-7b", "P6, P7"),
-    ("xlstm-125m", "P8"), ("qwen2-vl-72b", "P6, P9, P10"),
-    ("musicgen-large", "P6, P10")])
+    ("olmoe-1b-7b", "P7"), ("arctic-480b", "P7"), ("xlstm-125m", "P8")])
 def test_unported_archs_raise_with_their_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         configs.get_config(arch)
@@ -647,27 +645,40 @@ def test_unported_archs_raise_with_their_item(arch, item):
 
 
 def test_unported_options_raise_with_their_item(model):
-    """Stacked layers (P6), MoE (P7), mLSTM/sLSTM (P8), M-RoPE (P9),
-    embed_stub (P10) and training (P11) raise naming their item; an
-    unknown arch is a KeyError; the engine refuses a stub frontend and an
-    rnn stack; the engine's default device needs a card."""
+    """MoE (P7), mLSTM/sLSTM (P8) and training (P11) raise naming their
+    item; stacked layers (P6) over the hybrid's mixed pattern raise a
+    ValueError (a stacked stack takes one block kind); M-RoPE (P9) and
+    the embed_stub frontend (P10) run (tests/test_torch_dense.py holds
+    them against the reference); an unknown arch is a KeyError; the
+    engine refuses a stub frontend and an rnn stack; the engine's default
+    device needs a card."""
     _, cfg, _, tp = model
     gen = torch.Generator().manual_seed(0)
-    for change, item in ((dict(scan_layers=True), "P6"),
-                         (dict(n_experts=4, experts_per_token=2), "P7"),
-                         (dict(block_pattern=("mlstm", "slstm")), "P8"),
-                         (dict(mrope_sections=(4, 6, 6)), "P9"),
-                         (dict(embed_stub=True), "P10")):
+    for change, item in ((dict(n_experts=4, experts_per_token=2), "P7"),
+                         (dict(block_pattern=("mlstm", "slstm")), "P8")):
         bad = dataclasses.replace(cfg, **change)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tf.init_params(bad, gen)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tf.forward(bad, tp, tokens=torch.zeros((1, 2), dtype=torch.long))
+    with pytest.raises(ValueError, match="one block kind"):
+        tf.init_params(dataclasses.replace(cfg, scan_layers=True), gen)
+    mrope = dataclasses.replace(cfg, mrope_sections=(4, 6, 6))
+    logits, _, _ = tf.forward(mrope, tp,
+                              tokens=torch.zeros((1, 2), dtype=torch.long))
+    assert logits.shape == (1, 2, cfg.vocab_size)
+    stub = dataclasses.replace(cfg, embed_stub=True)
+    sp = tf.init_params(stub, gen)
+    assert list(sp["head"]) == ["unembed"]
+    logits, _, _ = tf.forward(stub, sp, embeds=torch.zeros((1, 2, 64)))
+    assert logits.shape == (1, 2, cfg.vocab_size)
     with pytest.raises(NotImplementedError, match="item P11"):
         tf.loss_fn(cfg, tp, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("bogus")
-    assert configs.list_archs() == ["recurrentgemma-2b"]
+    assert configs.list_archs() == [
+        "starcoder2-3b", "deepseek-67b", "h2o-danube-3-4b", "stablelm-12b",
+        "musicgen-large", "qwen2-vl-72b", "recurrentgemma-2b"]
     assert configs.list_archs(include_paper=True)[-1] == "sharp-lstm"
     from repro_torch.runtime.errors import PlanRejected
     with pytest.raises(PlanRejected, match="embeds"):
