@@ -72,12 +72,14 @@ Phases, one line (or a few) of output each:
                call, then timed cold in CUDA graphs on distinct rings from
                HBM (kernel, plain version and SDPA alike; B = 4 and 1;
                full, mixed and ~70-slot rings) and warm and eager; then
-               both at the dense decoders' full-width shapes (serve_dense's
-               archs): mvm at every (X, N) of their decode steps up to
-               29568 x 8192 (B = 4 and 2, bit-equal run to run and across
-               B) and decode_attention at every (Hk, G, D) on 4096-slot
-               rings (D = 120's CUDA-core by_heads branch, D = 160, G = 12,
-               G = 1) and on the rings serve_dense decodes on (512 slots
+               both at the decoders' full-width shapes (serve_dense's,
+               serve_moe's and serve_xlstm's archs): mvm at every (X, N)
+               of their decode steps up to 29568 x 8192 (arctic's 7168
+               x 7168, xLSTM's 768-wide shapes; B = 4 and 2, bit-equal run
+               to run and across B) and decode_attention at every (Hk, G,
+               D) on 4096-slot rings (D = 120's CUDA-core by_heads branch,
+               D = 160, G = 12, G = 1, arctic's G = 7) and on the rings
+               serve_dense and serve_moe decode on (512 slots
                at B = 4 and 1, 72 at B = 2; full rings and the tiles' edge
                valid counts), each against its plain version, then timed
                cold in CUDA graphs on distinct weights / rings beside
@@ -199,7 +201,52 @@ Phases, one line (or a few) of output each:
                position streams), 8 decode_steps (6 L mvm and L
                decode_attention launches each) against one forward over
                the whole sequence (TOL_EMBEDS)
- 13 calib      the measured cost model (repro_torch.calib) on the card:
+ 13 serve_moe  the MoE decoders at full width, one on the card at a time
+               (bf16 weights drawn on the card, the stacked expert leaves
+               expert by expert into their slices): olmoe-1b-7b whole
+               (16 layers, 64 experts top-8), arctic-480b cut to 2 of 35
+               layers (MOE_RUNS: 128 experts top-2 and the dense branch,
+               27.2 GB a layer); through serving.ServingEngine(max_batch=
+               4) with serve_dense's four prompts, 8 new each, twice.
+               Drop-free (capacity factor 64): serve_lm's checks, every
+               decode step 3 L mvm (6 L with arctic's dense branch) and L
+               decode_attention launches, every later step a replay; each
+               request's logits against a teacher-forced forward that
+               routes every token to the experts the engine picked (the
+               routing read back from each prefill, eager step and graph
+               replay, _RouteLog), within TOL_MOE (olmoe) or TOL_LM
+               (arctic); where that forward's own top-k would differ,
+               each such pick within FLIP_GAP of its k-th probability;
+               a control that both limits must see (the forward with a
+               wrong expert planted at one layer); olmoe's first 2 layers
+               against a device="cpu" engine; the replayed tick's medians
+               and busy share.  Then at the config's capacity factor
+               1.25: the routing invariants on the card for every routed
+               call (each (expert, slot) held once, loads min(demand, C),
+               weights summing to <= 1, to 1 without drops) and each
+               prefill's dropped picks printed; each model's peak memory
+ 14 serve_xlstm xlstm-125m whole (12 layers alternating mLSTM / sLSTM, d
+               768) through ServingEngine(max_batch=4): prompts of 5, 37,
+               140, 300 and 2100 tokens (buckets 4-128 through the
+               recurrent mLSTM prefill, 256 and 2048 the chunkwise one), 8
+               new each, twice; every decode step 48 mvm launches (6 an
+               mLSTM layer, 2 an sLSTM layer), every later step a replay.
+               As the reference's init draws it, sLSTM's R at 1/sqrt(H)
+               makes the recurrence chaotic: one bf16 ulp on the inputs
+               moves the forward's logits by their own size within a few
+               tokens (printed), so the logits are printed, not held, and
+               each layer of the decode step is held against the
+               forward's on the same input and state, one step at a time
+               at every decoded position, and for two requests against
+               the same step on the CPU (TOL_LAYER); the replayed tick's
+               medians and busy share.  Then with every R at 1/sqrt(dh),
+               where rounding does not grow along the sequence (the
+               one-ulp response and the fp32 forward printed): each
+               request's logits within TOL_XLSTM of the teacher-forced
+               forward, the first 2 layers against a device="cpu" engine,
+               and two planted faults (mvm loses a k-tile; the slot
+               splice drops the mLSTM memory) that check must see
+ 15 calib      the measured cost model (repro_torch.calib) on the card:
                replays what EESEN (B=4, T=300) and BYSDNE as an LSTM and a
                GRU launch (prefill slots; the decode tick's chained and
                per-layer sides at B = 4, 2, 1), EESEN's G=2 and G=1 slots
@@ -219,7 +266,7 @@ Phases, one line (or a few) of output each:
                flips BYSDNE's decode tick to 5 lstm_seq launches (no
                lstm_decode), within TOL_FP32 of the chained tick; and
                `python -m repro_torch.calib --grid smoke --check 25` exits 0
- 14 figures    the rows of benchmarks/paper_tables.py from the port's
+ 16 figures    the rows of benchmarks/paper_tables.py from the port's
                core.perfmodel (the paper's ASIC cycle model, host
                arithmetic): Fig. 9's best K per MAC budget, Fig. 10's max
                and at-512 speedups, Fig. 11's model speedups, Fig. 12's
@@ -233,7 +280,7 @@ Phases, one line (or a few) of output each:
                function on the CPU, timed by runtime.obs.measure_us in
                turns (3 rounds of 10 calls), with each schedule's speedup
                against sequential
- 15 chaos      the chaos suite's isolation scenarios at BYSDNE's width
+ 17 chaos      the chaos suite's isolation scenarios at BYSDNE's width
                (L=5, H=X=340, bf16 weights) through RecurrentServingEngine(
                device="cuda", on_fault="fallback"): a prefill fault that
                bisects a 3-request wave, a poisoned prefill state, a
@@ -244,7 +291,7 @@ Phases, one line (or a few) of output each:
                decode_launches and no plain version runs; each co-batched
                request (and a faulted request's kept frames) against the
                fault-free card run: max |diff| printed, held bit for bit
- 16 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 18 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -272,7 +319,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
           "serve_gru", "offpath", "rglru", "precision", "serve_lm",
-          "serve_dense", "calib", "figures", "chaos", "summary")
+          "serve_dense", "serve_moe", "serve_xlstm", "calib", "figures",
+          "chaos", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -338,6 +386,25 @@ TOL_E2E = 1e-3
 # implementations, over 3 residual layers: 0.1.
 TOL_LM = 0.25
 TOL_LM_DEPTH3 = 0.1
+# serve_moe, olmoe-1b-7b's drop-free logits against the forward routed as
+# served: its 16 layers of experts drawn at 1/sqrt(E) carry the decode
+# step's and the forward's other rounding points further than serve_lm's
+# 26 dense layers (on an H100 the sound runs' largest difference is
+# 0.256), and a wrong expert lands far beyond it: the heaviest pick of
+# every token at one layer sent to the expert its router ranks last is
+# planted against this limit in every run (_moe_flips), which must fail
+# it (1.95 on an H100).  The other MoE archs are held at TOL_LM.
+TOL_MOE = {"olmoe-1b-7b": 0.4}
+# serve_xlstm, xlstm-125m's served logits against the teacher-forced
+# forward, with sLSTM's R at 1/sqrt(dh) (_xlstm_serve): there, on an
+# H100, the bf16 forward itself lies up to 0.49 from the fp32 forward of
+# the same weights, and moves by up to 0.52 when its input embeddings
+# move by one bf16 ulp, at every prompt length alike (printed by
+# _xlstm_fp32 and _xlstm_horizon): the served path, which rounds at other
+# points, is held to that size of rounding (its largest difference is
+# 0.333); two planted faults must land beyond it in every run (4.4 and
+# 4.9, _xlstm_planted).
+TOL_XLSTM = 0.5
 # serve_lm, each attention layer of the decode step against the
 # teacher-forced forward on the same input (_attn_layers_vs_forward): the
 # attention block's bf16 output at a decoded position, within 2^-6 of
@@ -2068,9 +2135,23 @@ DENSE_RUNS = (
                          "chosen to keep the phase short, not the most "
                          "the card holds (its peak memory is printed)"),
 )
-#: decode_attention's dense shapes are held and timed at this ring length
+#: serve_moe: the MoE decoders at full width, one on the card at a time
+MOE_RUNS = (
+    ("olmoe-1b-7b", None, ""),
+    ("arctic-480b", 2, "35 layers are 952 GB of bf16 weights (27.2 GB a "
+                       "layer: 128 experts of 3 x 7168 x 4864, its dense "
+                       "branch, attention), twelve 80 GB cards; 2 layers "
+                       "(55.3 GB with the embeddings) are the most one card "
+                       "holds beside the serving buffers"),
+)
+#: serve_xlstm: xlstm-125m whole
+XLSTM_RUN = ("xlstm-125m", None, "")
+#: every arch the kernels phase takes decode shapes from (_kernels_dense)
+DECODER_RUNS = DENSE_RUNS + MOE_RUNS + (XLSTM_RUN,)
+#: decode_attention's decoder shapes are held and timed at this ring length
 #: (h2o-danube's 4096-slot window; a 4096-position context of the others),
-#: and held at the rings serve_dense decodes on (_dense_served)
+#: and held at the rings serve_dense and serve_moe decode on
+#: (_dense_served)
 DENSE_ATTN_T = 4096
 
 
@@ -2103,12 +2184,30 @@ def _dense_config(arch, layers=None):
                                                           n_layers=layers)
 
 
-def _dense_mvm_shapes(cfg):
-    """The (X, N) of a dense decode step's six projections, in its order:
-    w_q, w_kv, w_o, then the MLP's w_gate, w_up, w_down."""
-    d, ff = cfg.d_model, cfg.d_ff
-    return [(d, cfg.q_dim), (d, 2 * cfg.kv_dim), (cfg.q_dim, d), (d, ff),
-            (d, ff), (ff, d)]
+def _step_mvm_shapes(cfg):
+    """The (X, N) of every mvm launch of one decode step of ``cfg``, in
+    its order (``models.layers.common.project``): an attention layer's
+    w_q, w_kv, w_o; an RG-LRU layer's w_gate, w_in, w_out; an mLSTM
+    layer's w_up_v, w_up_g, w_q, w_k, w_v, w_down; an sLSTM layer's W,
+    w_out; then an attention or RG-LRU layer's MLP (w_gate, w_up, w_down),
+    or with MoE the dense branch's (arctic) and nothing else: the router
+    and the experts are no projection."""
+    d, out = cfg.d_model, []
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            out += [(d, cfg.q_dim), (d, 2 * cfg.kv_dim), (cfg.q_dim, d)]
+        elif kind == "rglru":
+            w = cfg.rglru_width
+            out += [(d, w), (d, w), (w, d)]
+        elif kind == "mlstm":
+            out += [(d, 2 * d), (d, 2 * d)] + [(2 * d, 2 * d)] * 3 + [
+                (2 * d, d)]
+        else:
+            out += [(d, 4 * d), (d, d)]
+        ff = cfg.moe_dense_ff if cfg.n_experts else cfg.d_ff
+        if kind in ("attn", "rglru") and ff:
+            out += [(d, ff), (d, ff), (ff, d)]
+    return out
 
 
 def _attn_branch(D):
@@ -2121,8 +2220,9 @@ def _attn_branch(D):
 
 
 def _kernels_dense(ctx, dev):
-    """mvm and decode_attention at the dense decoders' full-width shapes
-    (serve_dense's archs): mvm at every (X, N) of their decode steps (bf16,
+    """mvm and decode_attention at the decoders' full-width shapes
+    (serve_dense's, serve_moe's and serve_xlstm's archs, DECODER_RUNS):
+    mvm at every (X, N) of their decode steps (bf16,
     B = 4 and 2) against its plain version, bit-equal run to run and the
     rows of B = 4 equal to their B = 1 and B = 2 calls, then timed cold
     in a CUDA graph on distinct weights beside torch.matmul (B = 4 and
@@ -2133,7 +2233,7 @@ def _kernels_dense(ctx, dev):
     the per-head bf16 limit, bit-equal run to run, then timed cold at
     DENSE_ATTN_T in CUDA graphs on distinct rings (more than L2 holds at
     each B) beside its plain version and F.scaled_dot_product_attention.
-    Each arch's mvm step (6 L launches) is summed from the per-shape
+    Each arch's mvm step (_step_mvm_shapes) is summed from the per-shape
     times."""
     import math
 
@@ -2147,9 +2247,9 @@ def _kernels_dense(ctx, dev):
     g = torch.Generator().manual_seed(120)
     gen = torch.Generator(device=dev).manual_seed(121)
     shapes = {}
-    for arch, layers, _ in DENSE_RUNS:
+    for arch, layers, _ in DECODER_RUNS:
         cfg = _dense_config(arch, layers)
-        for X, N in _dense_mvm_shapes(cfg):
+        for X, N in _step_mvm_shapes(cfg):
             archs = shapes.setdefault((X, N), [])
             if arch not in archs:
                 archs.append(arch)
@@ -2189,7 +2289,7 @@ def _kernels_dense(ctx, dev):
             rec[f"B{B}"] = dict(ms=k_ms, library_ms=l_ms, bound_ms=b_ms,
                                 bound_by=b_by)
         del Ws
-        print(f"kernels: mvm dense X={X} N={N} bf16 ({', '.join(archs)}; "
+        print(f"kernels: mvm X={X} N={N} bf16 ({', '.join(archs)}; "
               f"S={rec['S']}): max_abs_err {err:.3e} over B=4 and B=2 (tol "
               f"{tol:g}); two runs bit-equal {same}; rows 0 and 0-1 == their "
               f"B=1 and B=2 calls {batch}; cold in a "
@@ -2202,29 +2302,30 @@ def _kernels_dense(ctx, dev):
               f"{rec['B1']['bound_ms']:.6f}")
         mvm_rec[f"{X}x{N}"] = rec
     torch.cuda.empty_cache()
-    for arch, layers, _ in DENSE_RUNS:
+    for arch, layers, _ in DECODER_RUNS:
         cfg = _dense_config(arch, layers)
-        mix = _dense_mvm_shapes(cfg)
+        mix = _step_mvm_shapes(cfg)
         for B in (4, 1):
             k = sum(mvm_rec[f"{X}x{N}"][f"B{B}"]["ms"] for X, N in mix)
             lib = sum(mvm_rec[f"{X}x{N}"][f"B{B}"]["library_ms"]
                       for X, N in mix)
             b = sum(mvm_rec[f"{X}x{N}"][f"B{B}"]["bound_ms"] for X, N in mix)
             print(f"kernels: mvm {cfg.name} (L={cfg.n_layers}) decode step, "
-                  f"{6 * cfg.n_layers} launches summed from the cold "
-                  f"per-shape times at B={B}: kernel {cfg.n_layers * k:.3f} "
-                  f"ms, torch.matmul {cfg.n_layers * lib:.3f} ms, bound "
-                  f"{cfg.n_layers * b:.3f} ms; kernel / bound {k / b:.2f}")
+                  f"{len(mix)} launches summed from the cold per-shape "
+                  f"times at B={B}: kernel {k:.3f} ms, torch.matmul "
+                  f"{lib:.3f} ms, bound {b:.3f} ms; kernel / bound "
+                  f"{k / b:.2f}")
             mvm_rec.setdefault("steps", {})[f"{arch} B{B}"] = dict(
-                ms=cfg.n_layers * k, library_ms=cfg.n_layers * lib,
-                bound_ms=cfg.n_layers * b)
+                ms=k, library_ms=lib, bound_ms=b)
     ctx["mvm_dense"] = mvm_rec
     ctx.setdefault("mvm", {})["max_abs_err"] = max(
         ctx.get("mvm", {}).get("max_abs_err", 0.0), mvm_err)
 
     attn, served = {}, {}
-    for arch, layers, _ in DENSE_RUNS:
+    for arch, layers, _ in DECODER_RUNS:
         cfg = _dense_config(arch, layers)
+        if "attn" not in cfg.layer_kinds():
+            continue
         key = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
         attn.setdefault(key, []).append(arch)
         for bt in _dense_served(cfg):
@@ -2294,7 +2395,7 @@ def _kernels_dense(ctx, dev):
             rec[f"B{B}"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                 bound_ms=b_ms, bound_by=b_by, rings=n)
             del sets, sdpa
-        print(f"kernels: decode_attention dense Hq={Hq} Hk={Hk} G={G} D={D} "
+        print(f"kernels: decode_attention Hq={Hq} Hk={Hk} G={G} D={D} "
               f"bf16 T={T} ({', '.join(archs)}; {rec['branch']}; S="
               f"{aops.splits(T)}; cudaOccupancyMaxActiveClusters {n_cl} at "
               f"B=4): worst head at {worst:.3f} of its limit over "
@@ -3289,12 +3390,13 @@ def _keep_sampled_logits(eng):
 
 
 def _lm_serve(cfg, params, prompts, max_new, device, max_batch=4,
-              max_seq=4096, hook=None):
+              max_seq=4096, hook=None, on_engine=None):
     """Serve ``prompts`` through a fresh ServingEngine; ``hook(kind, n,
     fn, graph=None, tokens=None)`` may wrap its decode steps (n = B; the
-    step's DecodeGraph and tokens given) and prefills (n = tokens).
-    Returns (engine, completions by uid, the sampled logits (tokens,
-    vocab) by uid)."""
+    step's DecodeGraph and tokens given) and prefills (n = tokens), and
+    ``on_engine(engine)`` sees the engine before it serves.  Returns
+    (engine, completions by uid, the sampled logits (tokens, vocab) by
+    uid)."""
     import torch
 
     from repro_torch.serving import Request, ServingEngine
@@ -3302,6 +3404,8 @@ def _lm_serve(cfg, params, prompts, max_new, device, max_batch=4,
     eng = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
                         device=device)
     kept = _keep_sampled_logits(eng)
+    if on_engine is not None:
+        on_engine(eng)
     if hook is not None:
         dec, pre = eng._decode, eng._prefill
         eng._decode = lambda g, t: hook("decode", t.shape[0],
@@ -3314,12 +3418,35 @@ def _lm_serve(cfg, params, prompts, max_new, device, max_batch=4,
     return eng, done, {uid: torch.stack(rows) for uid, rows in kept.items()}
 
 
-def _teacher_forced(cfg, params, prompt, completion):
+def _route_as(make):
+    """A context in which ``models.layers.moe.route`` is ``make(route)``:
+    ``make`` gets the real route and returns what stands in for it (a
+    recorder that calls it, or a pinned route, _RouteLog)."""
+    import contextlib
+
+    from repro_torch.models.layers import moe
+
+    @contextlib.contextmanager
+    def routed():
+        orig = moe.route
+        moe.route = make(orig)
+        try:
+            yield
+        finally:
+            moe.route = orig
+
+    return routed()
+
+
+def _teacher_forced(cfg, params, prompt, completion, nudge=False):
     """The logits a full-sequence forward on the card gives at the
     positions the engine sampled from (prompt + generated tokens but the
-    last).  Causal: tokens appended after them change nothing, so a length
-    in (1024, 2048], where the blockwise path needs whole chunks, is padded
-    to 2048 (local attention pads itself above the window)."""
+    last); with ``nudge`` every input embedding value is moved to about
+    its neighbouring bf16 value (x (1 + 2^-8), rounded), for the forward's
+    own response to rounding (_xlstm_horizon).  Causal: tokens appended
+    after them change nothing, so a length in (1024, 2048], where the
+    blockwise path needs whole chunks, is padded to 2048 (local attention
+    pads itself above the window)."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -3330,7 +3457,14 @@ def _teacher_forced(cfg, params, prompt, completion):
         seq = seq + [0] * (cfg.window - S)
     tokens = torch.tensor(seq, dtype=torch.long, device="cuda")[None]
     with torch.inference_mode():
-        logits, _, _ = tf.forward(cfg, params, tokens=tokens)
+        if nudge:
+            from repro_torch.models.layers.embedding import embed
+
+            e = embed(params["head"], tokens, torch.bfloat16)
+            e = (e.float() * (1 + 2.0 ** -8)).to(torch.bfloat16)
+            logits, _, _ = tf.forward(cfg, params, embeds=e)
+        else:
+            logits, _, _ = tf.forward(cfg, params, tokens=tokens)
     out = logits[0, L - 1:L - 1 + len(completion.tokens)].clone()
     del logits
     return out
@@ -3343,7 +3477,8 @@ def _margin(logits):
 
 
 def _serve_checks(ctx, label, cfg, params, prompts, max_new, max_seq,
-                  per_step, per_prefill, watch=None):
+                  per_step, per_prefill, watch=None, on_engine=None,
+                  reference=None, tol=TOL_LM):
     """Serve ``prompts`` once through ServingEngine(max_batch=4) on the
     card, every kernel count set to 0 just before, and hold the run to
     what both serve phases check: every request completes with all its
@@ -3352,12 +3487,17 @@ def _serve_checks(ctx, label, cfg, params, prompts, max_new, max_seq,
     and no entry point runs its plain version or another family's kernel
     on the card; the prefill buckets and remainder steps follow the
     engine's rule; every decode step after the first at its batch size
-    is a graph replay; each request's sampled logits are within TOL_LM of
-    a teacher-forced forward on the card, its greedy tokens that
-    forward's argmax wherever the top-2 margin exceeds TOL_LM.  The run's
-    launches are tallied.  ``watch(kind, n, graph, tokens)`` sees each
-    call before it runs; each decode step is timed (host wall around a
-    synchronize, and CUDA events).  Returns (engine, completions by uid,
+    is a graph replay; each request's sampled logits are within ``tol``
+    (TOL_LM by default) of a teacher-forced forward on the card, its
+    greedy tokens that forward's argmax wherever the top-2 margin exceeds
+    ``tol`` (``tol`` None: the logits' difference is printed, not held).
+    The run's launches are tallied.  ``watch(kind, n, graph, tokens)``
+    sees each call before it runs, and what it returns, if not None, is
+    called after it; ``on_engine`` as ``_lm_serve`` takes it;
+    ``reference(uid, prompt, completion)`` gives the logits each request
+    is held against (_teacher_forced by default).  Each decode step is
+    timed (host wall around a synchronize, and CUDA events).  Returns
+    (engine, completions by uid, the sampled logits by uid,
     the decode steps [(B, wall ms, device ms, replayed)], the largest
     logit error, the run's wall seconds)."""
     import torch
@@ -3372,8 +3512,7 @@ def _serve_checks(ctx, label, cfg, params, prompts, max_new, max_seq,
     calls, steps = [], []  # (kind, rows or tokens, launches of lm)
 
     def count_call(kind, n, fn, graph=None, tokens=None):
-        if watch is not None:
-            watch(kind, n, graph, tokens)
+        after = watch(kind, n, graph, tokens) if watch is not None else None
         replay = graph is not None and graph.graph is not None
         before = [f.kernel_launches for f in lm]
         start = torch.cuda.Event(enable_timing=True)
@@ -3389,13 +3528,16 @@ def _serve_checks(ctx, label, cfg, params, prompts, max_new, max_seq,
                           start.elapsed_time(end), replay))
         calls.append((kind, n, tuple(f.kernel_launches - b
                                      for f, b in zip(lm, before))))
+        if after is not None:
+            after()
         return out
 
     lengths = [len(p) for p in prompts]
     reset_counts(*everything)
     t0 = time.perf_counter()
     eng, done, logits = _lm_serve(cfg, params, prompts, max_new, "cuda",
-                                  max_seq=max_seq, hook=count_call)
+                                  max_seq=max_seq, hook=count_call,
+                                  on_engine=on_engine)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     ticks = [c for c in calls if c[0] == "decode" and c[1] == 4]
@@ -3446,31 +3588,40 @@ def _serve_checks(ctx, label, cfg, params, prompts, max_new, max_seq,
     # the card (torch.matmul, the prefill attention paths, rglru_scan)
     err, flips, held = 0.0, 0, 0
     for uid, c in sorted(done.items()):
-        ref = _teacher_forced(cfg, params, prompts[uid], c)
+        ref = (reference(uid, prompts[uid], c) if reference is not None
+               else _teacher_forced(cfg, params, prompts[uid], c))
         e = float((logits[uid] - ref).abs().max())
+        err = max(err, e)
+        check(bool(torch.isfinite(logits[uid]).all()),
+              f"{label}: request {uid} has non-finite logits")
+        if tol is None:
+            print(f"{label}: request {uid} (prompt {len(prompts[uid])}): "
+                  f"logits vs the teacher-forced forward max_abs_err "
+                  f"{e:.3e}, not held (|logit| <= "
+                  f"{float(ref.abs().max()):.2f})")
+            continue
         margin = _margin(ref)
-        sure = margin > TOL_LM
+        sure = margin > tol
         agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
         held += int(sure.sum())
         flips += int((~agree).sum())
         print(f"{label}: request {uid} (prompt {len(prompts[uid])}): "
               f"logits vs the teacher-forced forward max_abs_err {e:.3e} "
-              f"(tol {TOL_LM:g}; |logit| <= "
+              f"(tol {tol:g}; |logit| <= "
               f"{float(ref.abs().max()):.2f}); greedy tokens == argmax at "
               f"{int(agree.sum())}/{len(agree)} positions, smallest top-2 "
               f"margin {float(margin.min()):.3e}")
-        check(bool(torch.isfinite(logits[uid]).all()),
-              f"{label}: request {uid} has non-finite logits")
-        check(e <= TOL_LM, f"{label}: request {uid}'s logits disagree with "
-                           f"the forward: {e:.3e} > {TOL_LM:g}")
+        check(e <= tol, f"{label}: request {uid}'s logits disagree with "
+                        f"the forward: {e:.3e} > {tol:g}")
         check(bool(agree[sure.cpu()].all()),
               f"{label}: request {uid}: a greedy token differs from the "
-              f"forward's argmax where the top-2 margin exceeds {TOL_LM:g}")
-        err = max(err, e)
+              f"forward's argmax where the top-2 margin exceeds {tol:g}")
         del ref
-    print(f"{label}: tokens held at {held} positions with a top-2 margin "
-          f"above {TOL_LM:g}; {flips} near-tie positions differ")
-    return eng, done, steps, err, wall_s
+    if tol is not None:
+        print(f"{label}: tokens held at {held} positions with a top-2 "
+              f"margin above the logits' limit; {flips} near-tie positions "
+              f"differ")
+    return eng, done, logits, steps, err, wall_s
 
 
 def _f3_layers(label, cfg, params, prompts, done, max_seq):
@@ -3537,7 +3688,7 @@ def phase_serve_lm(ctx):
             wrapped.append((graph, _clone_cache(graph.cache),
                             tokens.clone()))
 
-    _, done, _, ctx["serve_lm_err"], _ = _serve_checks(
+    _, done, _, _, ctx["serve_lm_err"], _ = _serve_checks(
         ctx, "serve_lm", cfg, params, prompts, LM_NEW, 4096,
         (6 * cfg.n_layers, n_attn, 0), (0, 0, n_rglru), watch)
     check(len(wrapped) == 1, "serve_lm: no batched tick ran on a wrapped "
@@ -3706,7 +3857,10 @@ def _profiled_replay(graph, B, lm, per_step, label="serve_lm"):
           f"{booked}, recorded at capture {captured}; their device ms "
           + ", ".join(f"{x:.4f}" for x in kernel_ms)
           + f"; device busy {busy:.3f} ms in a span of "
-          f"{span_us / 1e3:.3f} ms under the profiler")
+          f"{span_us / 1e3:.3f} ms under the profiler; the largest by "
+          f"device time (events): "
+          + "; ".join(f"{name[:40]} {us / 1e3:.3f} ms ({count[name]})"
+                      for name, us in by_name.most_common(4)))
     check(on_device == booked == captured == tuple(per_step),
           f"{label}: a replay at B={B} ran {on_device} kernels on the "
           f"device but counted {booked} (captured {captured}, expected "
@@ -3742,6 +3896,23 @@ def _replay_vs_eager(graph, cache, tokens, B):
     check(err <= TOL_REPLAY, f"serve_lm: the graph replay at B={B} "
                              f"disagrees with the eager step: {err:.3e}")
     return err
+
+
+def _off_the_forward(cfg, params, prompts, done, logits, tol):
+    """How far a served run lies from the teacher-forced forward: the
+    largest logit difference over its requests, and the count of greedy
+    tokens that differ from the forward's argmax where its top-2 margin
+    exceeds ``tol``."""
+    import torch
+
+    err, wrong = 0.0, 0
+    for uid, c in sorted(done.items()):
+        ref = _teacher_forced(cfg, params, prompts[uid], c)
+        err = max(err, float((logits[uid] - ref).abs().max()))
+        sure = (_margin(ref) > tol).cpu()
+        agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
+        wrong += int((sure & ~agree).sum())
+    return err, wrong
 
 
 def _planted_faults(cfg, params, prompts):
@@ -3784,13 +3955,8 @@ def _planted_faults(cfg, params, prompts):
                          for u, c in done.items())
         finally:
             setattr(module, attr, orig)
-        err, wrong = 0.0, 0
-        for uid, c in sorted(done.items()):
-            ref = _teacher_forced(cfg, params, chosen[uid], c)
-            err = max(err, float((logits[uid] - ref).abs().max()))
-            sure = (_margin(ref) > TOL_LM).cpu()
-            agree = ref.argmax(-1).cpu() == torch.tensor(c.tokens)
-            wrong += int((sure & ~agree).sum())
+        err, wrong = _off_the_forward(cfg, params, chosen, done, logits,
+                                      TOL_LM)
         print(f"serve_lm: planted fault, {name}: logits vs the forward "
               f"max_abs_err {err:.3e} (tol {TOL_LM:g}, margin "
               f"{err / TOL_LM:.2f}x); {wrong} tokens differ where the top-2 "
@@ -3918,8 +4084,8 @@ def _attn_layers_vs_forward(cfg, params, prompt, completion, max_seq=4096):
                 limit = TOL_LAYER * ref.abs().amax(-1)
                 shares.append(float((err / limit).max()))
                 del ring, kv
-            x, _ = tf._layer_apply(cfg, kind, p, x, rope, None, None,
-                                   "train")
+            x, _, _ = tf._layer_apply(cfg, kind, p, x, rope, None, None,
+                                      "train")
     return shares
 
 
@@ -4069,19 +4235,12 @@ def _dense_serve(ctx, cfg, params):
     DENSE_F3 each attention layer of the decode step against the forward
     (_f3_layers); the first DENSE_DEPTH layers on the card against a
     device="cpu" engine.  One replayed tick runs under the profiler for
-    the device's busy share."""
-    import statistics as stats
-
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.mvm_tile.ops import mvm
-    from repro_torch.kernels.rglru.ops import rglru_scan
-
+    the device's busy share (_tick_stats)."""
     label = f"serve_dense {cfg.name}"
     L = cfg.n_layers
     lengths = ((DENSE_LONG,) if cfg.window else ()) + DENSE_PROMPTS
     max_seq = _dense_max_seq(cfg)
     prompts = _lm_prompts(cfg.vocab_size, lengths, seed=12)
-    lm = (mvm, decode_attention, rglru_scan)
     per_step = (6 * L, L, 0)
     wrapped = []
 
@@ -4091,7 +4250,7 @@ def _dense_serve(ctx, cfg, params):
             # wave's DENSE_NEW - 1 ticks
             wrapped.append(int(graph.cache["idx"][0]) >= cfg.window)
 
-    eng, done, steps, err, serve_s = _serve_checks(
+    eng, done, _, steps, err, serve_s = _serve_checks(
         ctx, label, cfg, params, prompts, DENSE_NEW, max_seq, per_step,
         (0, 0, 0), watch)
     if cfg.window:
@@ -4110,9 +4269,31 @@ def _dense_serve(ctx, cfg, params):
         rec["layer_share"] = _f3_layers(label, cfg, params, prompts, done,
                                         max_seq)
     rec["depth_err"] = _depth_vs_cpu(cfg, params, DENSE_DEPTH, label)
+    _tick_stats(ctx, label, rec, eng, steps, per_step, serve_s,
+                lengths, DENSE_NEW)
+    del eng
+    return rec
 
-    busy_ms, kernel_ms = _profiled_replay(eng.tick_graph, 4, lm, per_step,
-                                          label)
+
+def _tick_stats(ctx, label, rec, eng, steps, per_step, serve_s, lengths,
+                new):
+    """The replayed ticks' medians (B=4 and the batch-1 steps: host wall
+    and device span) from ``steps`` (_serve_checks'), and one more B=4
+    replay under the profiler (_profiled_replay, ``per_step`` launches):
+    the device's busy share of the median span; into ``rec``, printed."""
+    import statistics as stats
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.rglru.ops import rglru_scan
+
+    # the caching allocator's free blocks back to the card first: CUPTI
+    # takes device memory for its activity buffers, and drops kernel
+    # records it cannot place (arctic's 55 GB of weights)
+    _free()
+    busy_ms, kernel_ms = _profiled_replay(
+        eng.tick_graph, 4, (mvm, decode_attention, rglru_scan), per_step,
+        label)
     for B in (4, 1):
         rows = [(w, d) for n, w, d, r in steps if n == B and r]
         wall = stats.median(w for w, _ in rows)
@@ -4122,8 +4303,8 @@ def _dense_serve(ctx, cfg, params):
             rec["busy"] = busy_ms / span
             rec["tick_kernel_ms"] = dict(zip(("mvm", "decode_attention"),
                                              kernel_ms[:2]))
-    print(f"{label}: wall {serve_s:.2f} s for {len(prompts)} requests "
-          f"({sum(lengths)} prompt + {len(prompts) * DENSE_NEW} generated "
+    print(f"{label}: wall {serve_s:.2f} s for {len(lengths)} requests "
+          f"({sum(lengths)} prompt + {len(lengths) * new} generated "
           f"tokens); replayed batched tick (B=4) median host wall "
           f"{rec['B4']['wall_ms']:.3f} ms, device span "
           f"{rec['B4']['device_ms']:.3f} ms over {rec['B4']['replays']} "
@@ -4132,8 +4313,6 @@ def _dense_serve(ctx, cfg, params):
           f"{kernel_ms[0]:.3f} ms, decode_attention {kernel_ms[1]:.3f} ms); "
           f"batch-1 step median {rec['B1']['wall_ms']:.3f} ms wall, "
           f"{rec['B1']['device_ms']:.3f} ms span; card {ctx.get('card')}")
-    del eng
-    return rec
 
 
 def _dense_embeds(ctx, cfg, params):
@@ -4236,6 +4415,713 @@ def _dense_embeds(ctx, cfg, params):
                                   f"({moved:.3e})")
     return {"err": err, "decode_ms": stats.median(walls), "rows": B,
             "prefill": S, "steps": N, "mrope_moved": moved}
+
+
+#: serve_moe: the drop-free run's capacity factor, the reference's own
+#: for its decode-equivalence check (tests/models/test_decode_equivalence.py);
+#: prefill capacities are then T, so every request's logits can be held
+#: against a teacher-forced forward
+MOE_DROP_FREE = 64.0
+#: serve_moe: the first layers served on the card and by a device="cpu"
+#: engine, by arch (arctic's 2 layers are 54.4 GB of bf16 weights: the
+#: CPU engine would upcast 17.8 GB expert leaves to fp32 for every step
+#: on the chip machine's host; olmoe runs the same MoE code)
+MOE_DEPTH = {"olmoe-1b-7b": 2}
+# serve_moe: a router probability moves under rounding by about the
+# relative error of the router logits, which the bf16 hidden state (the
+# decode step and the forward round it at other points) carries to a few
+# percent at depth; so the engine may pick an expert the forward ranks
+# just below its k-th, within 10% of that probability, and no further: a
+# wrong expert is one ranked far below.  Its two readings on an H100:
+# olmoe's sound runs pick within 7.9e-2 (388 of 8,160 routed pairs
+# differ), arctic's within 1.9e-3; the planted wrong expert of
+# _moe_flips, which must fail it, lands at ~0.99
+FLIP_GAP = 0.1
+#: serve_xlstm: prompts whose buckets (4, 32, 128; 256, 2048) take the
+#: recurrent mLSTM prefill and then the chunkwise one
+XLSTM_PROMPTS = (5, 37, 140, 300, 2100)
+XLSTM_MAX_SEQ = 2112
+#: serve_xlstm: the requests whose decode step also runs layer by layer on
+#: the CPU (_xlstm_layers_vs_forward)
+XLSTM_CPU_UIDS = (0, 1)
+
+
+def _load_model(ctx, label, arch, layers, why):
+    """Draw ``arch``'s bf16 weights (cut to ``layers``) on the card from a
+    seeded generator, print its size and cut; returns (cfg, params, cut)
+    with the peak-memory counter reset before the draw."""
+    import torch
+
+    from repro_torch import rnn
+    from repro_torch.models import transformer as tf
+
+    dev = rnn.resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _dense_config(arch, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    cut = (f"depth cut {_dense_config(arch).n_layers} -> {cfg.n_layers}: "
+           f"{why}" if layers else "whole (full width and depth)")
+    extra = (f" {cfg.n_experts} experts top-{cfg.experts_per_token} "
+             f"(d_ff {cfg.d_ff}, dense branch {cfg.moe_dense_ff}, capacity "
+             f"factor {cfg.capacity_factor})" if cfg.n_experts else
+             f" blocks {cfg.block_pattern}")
+    print(f"{label}: {arch} L={cfg.n_layers} d_model={cfg.d_model} heads "
+          f"{cfg.n_heads} on {cfg.n_kv_heads} kv of {cfg.head_dim}{extra} "
+          f"vocab={cfg.vocab_size} {cfg.dtype}: {n_params:,} parameters "
+          f"({2 * n_params / 1e9:.1f} GB) drawn on the card in "
+          f"{init_s:.2f} s; {cut}")
+    return cfg, params, dict(params=n_params, cut=cut, layers=cfg.n_layers,
+                             init_s=init_s)
+
+
+def _peak(ctx, label, rec, t0):
+    import torch
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{label}: peak device memory allocated {peak / 1e9:.1f} GB of "
+          f"the card's {total / 1e9:.1f} GB (weights "
+          f"{2 * rec['params'] / 1e9:.1f} GB)")
+    rec.update(peak_gb=peak / 1e9, wall_s=time.perf_counter() - t0,
+               card=ctx.get("card"))
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _RouteLog:
+    """The experts a serving run routes each token to, by request,
+    position and layer: a prefill's as its route calls return them; a
+    decode step's from the eager first step at its batch size, or, for a
+    replay, read back from the buffers its capture's route calls wrote
+    (held here, so nothing else is allocated in them, and each replay
+    overwrites them in place).  ``recorder`` makes, for _route_as, the
+    route that records; ``watch`` and ``on_engine`` plug into
+    _serve_checks.  ``pinned(uid)`` is a route that takes, layer by
+    layer, the experts the engine took at each of that request's
+    positions (their weights from the forward's own probabilities), for a
+    teacher-forced forward that routes as serving did; given a list, it
+    also records there where that forward's own top-k set, which it does
+    not use, differs from the engine's."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.table = {}  # uid -> layer -> position -> experts (k,)
+        self.eager, self.captured = [], {}
+        self.capturing = None
+        self.current = []  # the uid being prefilled
+        self.eng = None
+
+    def recorder(self, route):
+        def record(logits, k, capacity, n_experts):
+            import torch
+
+            out = route(logits, k, capacity, n_experts)
+            if torch.cuda.is_current_stream_capturing():
+                self.captured.setdefault(self.capturing, []).append(out[0])
+            else:
+                self.eager.append(out[0])
+            return out
+
+        return record
+
+    def on_engine(self, eng):
+        self.eng = eng
+        admit = eng._prefill_admitted
+
+        def tracked(pairs):
+            for slot, req in pairs:
+                self.current[:] = [req.uid]
+                admit([(slot, req)])
+            self.current.clear()
+
+        eng._prefill_admitted = tracked
+
+    def watch(self, kind, n, graph, tokens):
+        if kind == "prefill":
+            rows = [(self.current[0], p) for p in range(n)]
+        elif n == 1:
+            rows = [(self.current[0], int(graph.cache["idx"][0]))]
+        else:
+            rows = [(None if r is None else r.uid, int(graph.cache["idx"][i]))
+                    for i, r in enumerate(self.eng.slots)]
+        self.capturing = id(graph)
+        start = len(self.eager)
+        L = self.cfg.n_layers
+
+        def after():
+            outs = self.eager[start:] or self.captured[id(graph)]
+            check(len(outs) == L, f"_RouteLog: {len(outs)} routed layers "
+                                  f"for {L}")
+            for layer, e in enumerate(outs):
+                e = e.cpu()
+                for i, (uid, pos) in enumerate(rows):
+                    if uid is not None:
+                        self.table.setdefault(uid, {}).setdefault(
+                            layer, {})[pos] = e[i].clone()
+            del self.eager[start:]
+
+        return after
+
+    def experts(self, uid, layer, S, device):
+        rows = self.table[uid][layer]
+        check(sorted(rows) == list(range(S)), f"_RouteLog: request {uid} "
+              f"layer {layer} routed positions {sorted(rows)[:3]}... of {S}")
+        import torch
+
+        return torch.stack([rows[p] for p in range(S)]).to(device)
+
+    def pinned(self, uid, found=None, plant=None):
+        """The pinned route; ``found``, if a list, gets (layer, position,
+        relative gap) wherever the forward's own top-k set differs from
+        the engine's: the gap is the forward's own k-th probability less
+        its probability of the engine's least likely pick, over the
+        former.  With ``plant`` (a layer) that layer sends each token's
+        heaviest pick to the expert its router ranks last, at the
+        heaviest pick's weight: a wrong expert, for the controls
+        (_moe_flips)."""
+        import torch
+
+        from repro_torch.models.layers import moe
+
+        layer = [0]
+
+        def route(logits, k, capacity, n_experts):
+            top_e = self.experts(uid, layer[0], logits.shape[0],
+                                 logits.device)
+            probs = torch.softmax(logits, dim=-1)
+            top_w = probs.gather(1, top_e)
+            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
+                                            1e-9)
+            if layer[0] == plant:
+                heavy = top_w.argmax(-1, keepdim=True)
+                top_e = top_e.scatter(1, heavy, probs.argmin(-1,
+                                                             keepdim=True))
+            if found is not None:
+                own_w, own_e = moe._top_k(probs, k)
+                differ = (torch.sort(own_e, dim=-1).values
+                          != torch.sort(top_e, dim=-1).values).any(-1)
+                least = probs.gather(1, top_e).min(-1).values
+                gap = (own_w[:, -1] - least) / own_w[:, -1]
+                for pos in differ.nonzero()[:, 0].tolist():
+                    found.append((layer[0], pos, float(gap[pos])))
+            layer[0] += 1
+            slot, valid = moe.assign_slots(top_e, capacity, n_experts)
+            return top_e, slot, top_w, valid
+
+        return route
+
+
+def phase_serve_moe(ctx):
+    """The MoE decoders at full width (MOE_RUNS), one on the card at a
+    time, through serving.ServingEngine(max_batch=4) (_moe_serve)."""
+    ctx["serve_moe"] = {}
+    for arch, layers, why in MOE_RUNS:
+        label = f"serve_moe {arch}"
+        t0 = time.perf_counter()
+        cfg, params, rec = _load_model(ctx, label, arch, layers, why)
+        rec.update(_moe_serve(ctx, label, cfg, params))
+        _peak(ctx, label, rec, t0)
+        ctx["serve_moe"][arch] = rec
+        del params
+        _free()
+
+
+def _moe_serve(ctx, label, cfg, params):
+    """A MoE arch through ServingEngine(max_batch=4): DENSE_PROMPTS,
+    DENSE_NEW new tokens each, twice.  First drop-free (capacity factor
+    MOE_DROP_FREE), held to serve_lm's checks (_serve_checks): every
+    decode step 3 L mvm (attention) plus 3 L with arctic's dense branch
+    and L decode_attention launches, every later step a replay, no plain
+    version, each request's logits within TOL_MOE (TOL_LM where the arch
+    has none) of a teacher-forced forward at the same factor that routes
+    as served (_RouteLog), and the near-tie routing flips and a planted
+    wrong expert against it (_moe_flips); the first MOE_DEPTH layers
+    against a device="cpu" engine; the replayed tick's medians and busy
+    share (_tick_stats).  Then at the config's own capacity factor, as
+    users run it (_moe_routing): the routing invariants held on the card
+    for every routed call, and each prefill's dropped picks printed."""
+    import dataclasses
+
+    L = cfg.n_layers
+    per_layer = 6 if cfg.moe_dense_ff else 3
+    per_step = (per_layer * L, L, 0)
+    prompts = _lm_prompts(cfg.vocab_size, DENSE_PROMPTS, seed=12)
+    free = dataclasses.replace(cfg, capacity_factor=MOE_DROP_FREE)
+    tol = TOL_MOE.get(cfg.name, TOL_LM)
+    log = _RouteLog(free)
+
+    def pinned_forward(uid, prompt, completion):
+        with _route_as(lambda _: log.pinned(uid)):
+            return _teacher_forced(free, params, prompt, completion)
+
+    with _route_as(log.recorder):
+        eng, done, logits, steps, err, serve_s = _serve_checks(
+            ctx, f"{label} (capacity factor {MOE_DROP_FREE:g}, the "
+            f"forward routed as served)", free, params, prompts, DENSE_NEW,
+            DENSE_MAX_SEQ, per_step, (0, 0, 0), watch=log.watch,
+            on_engine=log.on_engine, reference=pinned_forward, tol=tol)
+    rec = {"err": err, "tol": tol, "prompts": list(DENSE_PROMPTS),
+           "ticks": sum(n == 4 for n, *_ in steps),
+           "remainder_steps": sum(n == 1 for n, *_ in steps),
+           "replays": [eng.tick_graph.replays, eng.single_graph.replays],
+           "per_step": list(per_step)}
+    rec.update(_moe_flips(label, free, params, prompts, done, logits, log,
+                          tol))
+    depth = MOE_DEPTH.get(cfg.name)
+    if depth:
+        rec["depth_err"] = _depth_vs_cpu(free, params, depth, label)
+    else:
+        print(f"{label}: no device=\"cpu\" depth check: its "
+              f"{L} layers are the whole cut model, "
+              f"{2 * sum(t.numel() for t in _leaves(params)) / 1e9:.1f} GB "
+              f"of bf16 weights, which the CPU engine would upcast to fp32 "
+              f"leaf by leaf at every step (MOE_DEPTH)")
+    _tick_stats(ctx, label, rec, eng, steps, per_step, serve_s,
+                DENSE_PROMPTS, DENSE_NEW)
+    del eng
+    _free()
+    rec["routing"] = _moe_routing(ctx, label, cfg, params, prompts, done)
+    return rec
+
+
+def _moe_flips(label, cfg, params, prompts, done, logits, log, tol):
+    """Why the drop-free run's logits are held against a forward that
+    routes as serving did: in bf16 the decode step and the forward round
+    the hidden state at other points, so a token whose router
+    probabilities nearly tie at the k-th place may pick another expert on
+    the two paths — a change of one of its top-k experts, which then
+    moves every later layer.  Here the forward routed as served records
+    where its own top-k set (unused) differs from the engine's: each such
+    difference must be a near-tie, within FLIP_GAP of the k-th
+    probability.  The forward routing on its own is held to nothing; its
+    largest logit difference from the pinned one is printed.  Then the
+    control that both limits must see: the pinned forward of the first
+    request with a wrong expert planted at layer L // 2 (_RouteLog.pinned
+    ``plant``) must differ from the served logits by more than ``tol``,
+    and its flips must reach past FLIP_GAP."""
+    err, found = 0.0, []
+    for uid, c in sorted(done.items()):
+        flips = []
+        with _route_as(lambda _: log.pinned(uid, flips)):
+            pinned = _teacher_forced(cfg, params, prompts[uid], c)
+        err = max(err, float((_teacher_forced(cfg, params, prompts[uid], c)
+                              - pinned).abs().max()))
+        found += [(uid,) + f for f in flips]
+    routed = sum(len(pos) for t in log.table.values() for pos in t.values())
+    worst = max((g for *_, g in found), default=0.0)
+    print(f"{label}: in the forward routed as served, its own top-k set "
+          f"would differ from the engine's at {len(found)} of {routed} "
+          f"routed (position, layer) pairs, largest relative gap between "
+          f"its k-th probability and its probability of the engine's pick "
+          f"{worst:.3e} (FLIP_GAP {FLIP_GAP:g}); the forward routing on "
+          f"its own departs from it by {err:.3e} in the logits")
+    check(worst <= FLIP_GAP, f"{label}: the engine picked an expert "
+          f"{worst:.3e} below the forward's k-th probability (FLIP_GAP "
+          f"{FLIP_GAP:g}): more than rounding moves a router probability")
+    layer, planted = cfg.n_layers // 2, []
+    with _route_as(lambda _: log.pinned(0, planted, plant=layer)):
+        ref = _teacher_forced(cfg, params, prompts[0], done[0])
+    planted_err = float((logits[0] - ref).abs().max())
+    planted_gap = max((g for *_, g in planted), default=0.0)
+    print(f"{label}: control, request 0 against its forward with a wrong "
+          f"expert planted at layer {layer} (each token's heaviest pick sent "
+          f"to the expert its router ranks last): logits max_abs_err "
+          f"{planted_err:.3e} (tol {tol:g}, margin {planted_err / tol:.2f}x)"
+          f", largest relative gap {planted_gap:.3e} (FLIP_GAP "
+          f"{FLIP_GAP:g}, margin {planted_gap / FLIP_GAP:.2f}x)")
+    check(planted_err > tol, f"{label}: the logit limit {tol:g} does not "
+          f"see a wrong expert at layer {layer}: {planted_err:.3e}")
+    check(planted_gap > FLIP_GAP, f"{label}: FLIP_GAP does not see a "
+          f"wrong expert at layer {layer}: {planted_gap:.3e}")
+    return {"unpinned_err": err, "flips": len(found), "routed": routed,
+            "flip_gap": worst, "planted_err": planted_err,
+            "planted_gap": planted_gap}
+
+
+def _moe_routing(ctx, label, cfg, params, prompts, free_done):
+    """The same prompts served at the config's capacity factor, with
+    every route call that runs eagerly (each prefill, the first step at
+    each batch size; a graph capture's is skipped) recorded and held on
+    the card: k distinct experts a token; each (expert, slot) held by at
+    most one valid pick, every valid slot below the capacity; each
+    expert's load min(its demand, C); the valid picks' combine weights
+    summing to <= 1 a token, and to 1 (within 1e-6) where none was
+    dropped.  Each prefill's dropped (token, choice) picks are printed;
+    the run's launches are tallied; the greedy tokens are compared with
+    the drop-free run's."""
+    import torch
+
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.rglru.ops import rglru_scan
+
+    k, E = cfg.experts_per_token, cfg.n_experts
+    seen, where = [], []
+
+    def recorder(route):
+        def record(logits, k_, capacity, n_experts):
+            out = route(logits, k_, capacity, n_experts)
+            if not torch.cuda.is_current_stream_capturing():
+                seen.append((where[-1] if where else "decode", capacity)
+                            + tuple(t.clone() for t in out))
+            return out
+
+        return record
+
+    def hook(kind, n, fn, graph=None, tokens=None):
+        where.append(f"prefill {n}" if kind == "prefill" else "decode")
+        try:
+            return fn()
+        finally:
+            where.pop()
+
+    lm = (mvm, decode_attention, rglru_scan)
+    reset_counts(*entries())
+    with _route_as(recorder):
+        _, done, logits = _lm_serve(cfg, params, prompts, DENSE_NEW, "cuda",
+                                    max_seq=DENSE_MAX_SEQ, hook=hook)
+    torch.cuda.synchronize()
+    tally(ctx, *lm)
+    check(sorted(done) == list(range(len(prompts)))
+          and all(len(c.tokens) == DENSE_NEW for c in done.values()),
+          f"{label}: a request did not complete at capacity factor "
+          f"{cfg.capacity_factor:g}")
+    check(all(bool(torch.isfinite(x).all()) for x in logits.values()),
+          f"{label}: non-finite logits at capacity factor "
+          f"{cfg.capacity_factor:g}")
+    drops = []
+    for name, C, e, s, w, v in seen:
+        T = e.shape[0]
+        key = (e * C + s)[v]
+        demand = torch.zeros(E, dtype=torch.int64, device=e.device
+                             ).index_add_(0, e.reshape(-1),
+                                          torch.ones_like(e.reshape(-1)))
+        load = torch.zeros(E, dtype=torch.int64, device=e.device
+                           ).index_add_(0, e[v], torch.ones_like(e[v]))
+        wsum = (w * v).sum(-1)
+        full = v.all(-1)
+        ok = (bool((torch.sort(e, dim=-1).values.diff(dim=-1) > 0).all())
+              and torch.unique(key).numel() == key.numel()
+              and bool((s[v] < C).all())
+              and torch.equal(load, torch.clamp_max(demand, C))
+              and bool((wsum <= 1 + 1e-6).all())
+              and bool(((wsum[full] - 1).abs() <= 1e-6).all()))
+        check(ok, f"{label}: a routing invariant fails at capacity factor "
+                  f"{cfg.capacity_factor:g} ({name}, T={T}, C={C})")
+        if name.startswith("prefill"):
+            drops.append((name.split()[1], C, int((~v).sum()), T * k))
+    check(len(drops) == len(prompts) * cfg.n_layers,
+          f"{label}: {len(drops)} routed prefill layers recorded for "
+          f"{len(prompts)} prefills of {cfg.n_layers} layers")
+    by_bucket = {}
+    for bucket, C, n, picks in drops:
+        by_bucket.setdefault((bucket, C, picks), []).append(n)
+    same = sum(done[u].tokens == free_done[u].tokens for u in done)
+    print(f"{label} (capacity factor {cfg.capacity_factor:g}): "
+          f"{len(done)} requests; routing invariants held on the card for "
+          f"{len(seen)} routed calls (each prefill's layers and the eager "
+          f"first step at each batch size); dropped (token, choice) picks "
+          f"by prefill bucket (capacity C of T x k picks), one count a "
+          f"layer: "
+          + "; ".join(f"T={b} C={C}: {ns} of {picks}"
+                      for (b, C, picks), ns in by_bucket.items())
+          + f"; {same} of {len(done)} requests' greedy tokens equal the "
+          f"drop-free run's")
+    return {"calls": len(seen), "drops": {f"T={b} C={C}": ns
+                                      for (b, C, _), ns in by_bucket.items()},
+            "same_tokens": same}
+
+
+def phase_serve_xlstm(ctx):
+    """xlstm-125m whole at full width through
+    serving.ServingEngine(max_batch=4), twice (_xlstm_serve): with the
+    weights as the reference's init draws them, and with every sLSTM R
+    scaled to the fan-in of the head it multiplies (_contract_slstm)."""
+    arch, layers, why = XLSTM_RUN
+    label = f"serve_xlstm {arch}"
+    t0 = time.perf_counter()
+    cfg, params, rec = _load_model(ctx, label, arch, layers, why)
+    rec.update(_xlstm_serve(ctx, label, cfg, params))
+    _peak(ctx, label, rec, t0)
+    ctx["serve_xlstm"] = rec
+    del params
+    _free()
+
+
+def _contract_slstm(cfg, params):
+    """Scale every sLSTM layer's recurrent R (H, dh, 4 dh) in place by
+    sqrt(H / dh): from the reference's draw at 1/sqrt(H) (dense_init takes
+    its fan-in from the leading axis, the heads) to 1/sqrt(dh), the fan-in
+    of the head state it multiplies."""
+    H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    for kind, p in zip(cfg.layer_kinds(), params["layers"]):
+        if kind == "slstm":
+            p["slstm"]["R"].mul_((H / dh) ** 0.5)
+
+
+def _xlstm_serve(ctx, label, cfg, params):
+    """XLSTM_PROMPTS (buckets 4, 32, 128 through the recurrent mLSTM
+    prefill, 256 and 2048 through the chunkwise one), DENSE_NEW new tokens
+    each, served twice under serve_lm's checks (_serve_checks): every
+    decode step 48 mvm launches (6 for each of the 6 mLSTM layers, 2 for
+    each of the 6 sLSTM layers) and no decode_attention, every later step
+    a replay, no plain version.  First with the reference's init: sLSTM's
+    R drawn at 1/sqrt(H) makes the recurrence chaotic, so that one bf16
+    ulp of rounding grows along the sequence to the logits' own size
+    (_xlstm_horizon, printed): no end-to-end comparison of two
+    computations that round differently holds there, and the logits are
+    printed, not held; each layer's decode step is held against the
+    forward's one step at a time (_xlstm_layers_vs_forward); the replayed
+    tick's medians and busy share (_tick_stats).  Then with R at 1/sqrt(dh)
+    (_contract_slstm; every shape, kernel and code path the same), where
+    rounding stays at a tenth of the logits' size and does not grow along
+    the sequence (_xlstm_horizon, and the fp32 forward, _xlstm_fp32):
+    each request's logits within TOL_XLSTM of the teacher-forced forward,
+    the first DENSE_DEPTH layers against a device="cpu" engine, and two
+    planted faults that this check must see (_xlstm_planted)."""
+    n_mvm = len(_step_mvm_shapes(cfg))
+    check(n_mvm == 48, f"{label}: {n_mvm} mvm a step, not 48")
+    per_step = (n_mvm, 0, 0)
+    prompts = _lm_prompts(cfg.vocab_size, XLSTM_PROMPTS, seed=14)
+    drawn = f"{label} (R at 1/sqrt(H), as drawn)"
+    eng, done, _, steps, err, serve_s = _serve_checks(
+        ctx, drawn, cfg, params, prompts, DENSE_NEW, XLSTM_MAX_SEQ,
+        per_step, (0, 0, 0), tol=None)
+    rec = dict(err_as_drawn=err, prompts=list(XLSTM_PROMPTS),
+               buckets=sorted(eng.prefill_lengths),
+               ticks=sum(n == 4 for n, *_ in steps),
+               remainder_steps=sum(n == 1 for n, *_ in steps),
+               replays=[eng.tick_graph.replays, eng.single_graph.replays])
+    rec["spread_as_drawn"] = _xlstm_horizon(drawn, cfg, params, prompts,
+                                            done)
+    rec["layer_share"], rec["cpu_share"] = _xlstm_layers_vs_forward(
+        drawn, cfg, params, prompts, done)
+    _tick_stats(ctx, label, rec, eng, steps, per_step, serve_s,
+                XLSTM_PROMPTS, DENSE_NEW)
+    del eng
+    _free()
+
+    _contract_slstm(cfg, params)
+    tamed = f"{label} (R at 1/sqrt(dh))"
+    _, done, logits, _, rec["err"], _ = _serve_checks(
+        ctx, tamed, cfg, params, prompts, DENSE_NEW, XLSTM_MAX_SEQ,
+        per_step, (0, 0, 0), tol=TOL_XLSTM)
+    rec["fp32"] = _xlstm_fp32(tamed, cfg, params, prompts, done, logits)
+    rec["spread"] = _xlstm_horizon(tamed, cfg, params, prompts, done)
+    rec["depth_err"] = _depth_vs_cpu(cfg, params, DENSE_DEPTH, tamed)
+    rec["planted"] = _xlstm_planted(tamed, cfg, params, prompts)
+    return rec
+
+
+def _xlstm_fp32(label, cfg, params, prompts, done, logits):
+    """The size of bf16 rounding in this model: the teacher-forced forward
+    of the same weights cast up to fp32 against the bf16 forward and
+    against the served logits, by request.  Printed; returns the largest
+    of each."""
+    import dataclasses
+
+    import torch
+
+    def up(tree):
+        if isinstance(tree, dict):
+            return {k: up(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(up(v) for v in tree)
+        return tree.float() if tree.is_floating_point() else tree
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = up(params)
+    fwd, served = [], []
+    for uid, c in sorted(done.items()):
+        ref = _teacher_forced(cfg32, p32, prompts[uid], c)
+        fwd.append(float((_teacher_forced(cfg, params, prompts[uid], c)
+                          - ref).abs().max()))
+        served.append(float((logits[uid] - ref).abs().max()))
+    del p32
+    torch.cuda.empty_cache()
+    print(f"{label}: against the fp32 forward of the same weights, the "
+          f"bf16 forward's logits differ by "
+          + ", ".join(f"{v:.3e}" for v in fwd) + " and the served ones by "
+          + ", ".join(f"{v:.3e}" for v in served) + " (by request)")
+    return {"forward": max(fwd), "served": max(served)}
+
+
+def _xlstm_horizon(label, cfg, params, prompts, done):
+    """How far the teacher-forced forward's logits move, at each request's
+    compared positions, when its input embeddings move by about one bf16
+    ulp (_teacher_forced's ``nudge``): the size rounding alone gives the
+    difference of two computations that round at other points.  Printed;
+    returns the largest by request."""
+    spread = []
+    for uid, c in sorted(done.items()):
+        ref = _teacher_forced(cfg, params, prompts[uid], c)
+        nudged = _teacher_forced(cfg, params, prompts[uid], c, nudge=True)
+        spread.append(float((nudged - ref).abs().max()))
+    print(f"{label}: the forward with its input embeddings moved by about "
+          f"one bf16 ulp: logits move by "
+          + ", ".join(f"{v:.3e}" for v in spread)
+          + " at the compared positions (by request; prompts "
+          + ", ".join(str(len(p)) for p in prompts) + ")")
+    return spread
+
+
+def _xlstm_planted(label, cfg, params, prompts):
+    """The end-to-end check must see a wrong served path: two requests
+    (37 and 140 prompt tokens, DENSE_NEW new) are served once with each
+    of two planted faults and held against the teacher-forced forward,
+    which runs neither: mvm drops the last 64 of the X rows of every
+    decode projection (a lost k-tile), and the engine's splice of a
+    prefilled request into its batch slot leaves every mLSTM layer's
+    matrix memory C at zero (a state not carried).  Each must give
+    logits beyond TOL_XLSTM, or a greedy token that differs from the
+    forward's argmax where its top-2 margin exceeds TOL_XLSTM.  Launches
+    here are outside the counted run; returns each fault's error."""
+    from repro_torch.models.layers import common
+
+    mvm = common.mvm
+    mlstm = [i for i, k in enumerate(cfg.layer_kinds()) if k == "mlstm"]
+
+    def lose_memory(eng):
+        splice = eng._splice_cache
+
+        def spliced(slot, req_cache):
+            splice(slot, req_cache)
+            for i in mlstm:
+                eng.cache["layers"][i]["C"][slot].zero_()
+
+        eng._splice_cache = spliced
+
+    faults = {"mvm drops the last 64 X rows": (
+                  lambda x, W: mvm(x[:, :-64].contiguous(), W[:-64]), None),
+              "the splice leaves the mLSTM memory C at zero": (
+                  mvm, lose_memory)}
+    chosen = [prompts[XLSTM_PROMPTS.index(n)] for n in (37, 140)]
+    out = {}
+    for name, (planted, on_engine) in faults.items():
+        common.mvm = planted
+        try:
+            _, done, logits = _lm_serve(cfg, params, chosen, DENSE_NEW,
+                                        "cuda", max_seq=XLSTM_MAX_SEQ,
+                                        on_engine=on_engine)
+        finally:
+            common.mvm = mvm
+        err, wrong = _off_the_forward(cfg, params, chosen, done, logits,
+                                      TOL_XLSTM)
+        print(f"{label}: planted fault, {name}: logits vs the forward "
+              f"max_abs_err {err:.3e} (tol {TOL_XLSTM:g}, margin "
+              f"{err / TOL_XLSTM:.2f}x); {wrong} tokens differ where the "
+              f"top-2 margin exceeds {TOL_XLSTM:g}")
+        check(err > TOL_XLSTM or wrong > 0, f"{label}: the logit check "
+              f"does not see the planted fault ({name})")
+        out[name] = err
+    return out
+
+
+def _xlstm_layers_vs_forward(label, cfg, params, prompts, done):
+    """Each xLSTM layer of the decode step against the forward, one step
+    at a time on the same input and the same state (as F3 holds the
+    attention layers): the forward is run layer by layer
+    (``transformer._layer_apply``); at each layer the state the engine's
+    prefill leaves at its bucket's end comes from the layer's prefill
+    form over the bucket (chunkwise mLSTM, recurrent sLSTM), then at every
+    position the engine decoded (the remainder prompt tokens and the
+    generated ones) the decode block (``decode=True``: mvm projections)
+    and the forward's block (torch.matmul) each take the forward's normed
+    input there and the forward-mode state before it; their outputs must
+    agree within TOL_LAYER of the position's largest |output|, and the
+    walk goes on from the forward-mode state.  For the requests in
+    XLSTM_CPU_UIDS the decode block also runs on the CPU (the plain mvm,
+    the cells' CPU forms) on copies of the same input and state, within
+    TOL_LAYER of the card's: one step, where at the reference's init a
+    whole-model comparison of the card and the CPU is past the horizon of
+    rounding within a few tokens (_xlstm_horizon).
+    Returns the worst shares of TOL_LAYER (decode vs forward, card vs
+    CPU), over every request, position and layer."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import xlstm
+    from repro_torch.models.layers.common import param_dtype
+    from repro_torch.models.layers.embedding import embed
+    from repro_torch.models.layers.norm import rms_norm
+
+    dev = torch.device("cuda")
+    H, dtype = cfg.n_heads, param_dtype(cfg)
+    worst_all, cpu_all = 0.0, 0.0
+
+    def share(out, ref):
+        return float((out.float() - ref.float()).abs().max()) / (
+            TOL_LAYER * float(ref.float().abs().max()))
+
+    for uid, c in sorted(done.items()):
+        seq = list(prompts[uid]) + c.tokens[:-1]
+        L = len(prompts[uid])
+        b = 1 << (L.bit_length() - 1)
+        shares, on_cpu = [], []
+        with torch.inference_mode():
+            x = embed(params["head"], torch.tensor(seq, device=dev)[None],
+                      dtype)
+            for i, kind in enumerate(cfg.layer_kinds()):
+                p = params["layers"][i]
+                h = rms_norm(x, p["norm1"], cfg.norm_eps)
+                blk = p[kind]
+                st = tf._init_layer_cache(cfg, kind, 1, 0, dtype, dev)
+                if kind == "mlstm":
+                    apply = xlstm.apply_mlstm
+                    _, st = xlstm.apply_mlstm_chunked(blk, h[:, :b], H, st)
+                else:
+                    apply = xlstm.apply_slstm
+                    _, st = xlstm.apply_slstm(blk, h[:, :b], H, st)
+                worst, cpu_worst = 0.0, 0.0
+                blk_cpu = ({k: v.cpu() for k, v in blk.items()}
+                           if uid in XLSTM_CPU_UIDS else None)
+                for t in range(b, len(seq)):
+                    o_dec, _ = apply(blk, h[:, t:t + 1], H, st, decode=True)
+                    if blk_cpu is not None:
+                        o_cpu, _ = apply(blk_cpu, h[:, t:t + 1].cpu(), H,
+                                         {k: v.cpu() for k, v in st.items()},
+                                         decode=True)
+                        cpu_worst = max(cpu_worst, share(o_cpu, o_dec.cpu()))
+                    o_fwd, st = apply(blk, h[:, t:t + 1], H, st)
+                    worst = max(worst, share(o_dec, o_fwd))
+                shares.append(worst)
+                on_cpu.append(cpu_worst)
+                x, _, _ = tf._layer_apply(cfg, kind, p, x, None, None, None,
+                                          "train")
+        print(f"{label}: request {uid} (prompt {L}, bucket {b}): each "
+              f"layer's decode step against the forward's on the same "
+              f"input and state at the {len(seq) - b} decoded positions, "
+              f"worst over its limit (TOL_LAYER {TOL_LAYER:g} of the "
+              f"largest |output|) by layer: "
+              + ", ".join(f"{v:.3f}" for v in shares)
+              + ("; the same decode step on the CPU against the card's: "
+                 + ", ".join(f"{v:.3f}" for v in on_cpu)
+                 if uid in XLSTM_CPU_UIDS else ""))
+        check(max(shares) <= 1.0, f"{label}: request {uid}: an xLSTM layer "
+              f"of the decode step disagrees with the forward's: "
+              f"{max(shares):.3f} of TOL_LAYER")
+        check(max(on_cpu) <= 1.0, f"{label}: request {uid}: an xLSTM layer "
+              f"of the decode step on the CPU disagrees with the card's: "
+              f"{max(on_cpu):.3f} of TOL_LAYER")
+        worst_all = max(worst_all, max(shares))
+        cpu_all = max(cpu_all, max(on_cpu))
+    return worst_all, cpu_all
 
 
 #: the calib phase: BYSDNE's prefill shapes (B, T) and, from their B's,

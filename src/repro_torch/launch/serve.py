@@ -5,8 +5,8 @@ the token engine (the port of ``repro.launch.serve``).
         --reduced --requests 12 --max-new 24 [--device cpu]
 
 ``--arch`` takes each token arch of ``repro_torch.configs.list_archs()``
-(starcoder2-3b, deepseek-67b, h2o-danube-3-4b, stablelm-12b,
-recurrentgemma-2b); the ``embed_stub`` archs (musicgen-large,
+(arctic-480b, olmoe-1b-7b, starcoder2-3b, deepseek-67b, h2o-danube-3-4b,
+stablelm-12b, xlstm-125m, recurrentgemma-2b); the ``embed_stub`` archs (musicgen-large,
 qwen2-vl-72b) take embeddings, not tokens, and serve through
 ``transformer.prefill`` / ``decode_step`` (the engine refuses them with
 ``PlanRejected``).  Runs on the card by default (``--device cuda``); the

@@ -1,5 +1,6 @@
 """Shared building blocks of the model layers: the dtype policy, parameter
-initialisers, and the products with fp32 accumulation."""
+initialisers, the products with fp32 accumulation, and the scan over
+time of the recurrent blocks."""
 from __future__ import annotations
 
 import math
@@ -66,3 +67,45 @@ def input_half(params, xs: torch.Tensor) -> torch.Tensor:
     """The hoisted input GEMM of every step of a recurrent layer:
     (B, T, X) @ W (X, gates·H) + b, in JAX's promoted dtype."""
     return promoted_matmul(xs, params["W"]) + params["b"]
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a (n, i, k) @ b (n, k, j) with an fp32 result, as the
+    reference's einsums with ``preferred_element_type=jnp.float32`` (the
+    MoE experts, sLSTM's recurrent product).  On CUDA, bf16 operands are
+    multiplied as they are and summed in fp32 into an fp32 result
+    (``torch.bmm(..., out_dtype=torch.float32)``, ``aten::bmm.dtype``): a
+    product of two bf16 values is exact in fp32, and no fp32 copy of the
+    weights is made (olmoe's experts are 12.9 GB).  On the CPU, where
+    ``aten::bmm.dtype`` has no kernel, and for fp32 operands, both are
+    upcast to fp32 and multiplied."""
+    if a.device.type != "cuda" or a.dtype == torch.float32:
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def _at(xs, t):
+    return (type(xs)(a[t] for a in xs) if isinstance(xs, (tuple, list))
+            else xs[t])
+
+
+def _stack(ys):
+    if isinstance(ys[0], (tuple, list)):
+        return type(ys[0])(torch.stack(col) for col in zip(*ys))
+    return torch.stack(ys)
+
+
+def chunked_scan(step, carry, xs, chunk: int = 128, remat: bool = True):
+    """``lax.scan`` over the leading (time) axis of ``xs`` (a tensor, or a
+    tuple or list of them): ``carry, y_t = step(carry, x_t)`` for
+    t = 0, 1, ..., returning (the last carry, the y_t stacked on a new
+    leading axis).  The reference scans in rematerialised chunks to save
+    memory for the backward pass; no gradients are taken here, so
+    ``chunk`` and ``remat`` are accepted and ignored (the reference's
+    chunked scan gives the plain scan's values, in the same order)."""
+    T = (xs[0] if isinstance(xs, (tuple, list)) else xs).shape[0]
+    ys = []
+    for t in range(T):
+        carry, y = step(carry, _at(xs, t))
+        ys.append(y)
+    return carry, _stack(ys)

@@ -1,16 +1,17 @@
-"""Decoder assembly — the port of ``repro.models.transformer`` for the
-architectures the port carries: dense GQA transformers (optional SWA) over
+"""Decoder assembly — the port of ``repro.models.transformer`` for every
+architecture of the reference: dense GQA transformers (optional SWA) over
 stacked (``scan_layers=True``) layer params, their M-RoPE (Qwen2-VL) and
-``embed_stub`` (precomputed embeddings: MusicGen, Qwen2-VL) variants, and
-unrolled (``scan_layers=False``) stacks of local-attention and RG-LRU
-blocks (RecurrentGemma), each with a gated MLP.
+``embed_stub`` (precomputed embeddings: MusicGen, Qwen2-VL) variants, the
+MoE FFN in place of the MLP (OLMoE; Arctic with its dense residual
+branch), unrolled (``scan_layers=False``) stacks of local-attention and
+RG-LRU blocks (RecurrentGemma), each with a gated MLP, and of mLSTM and
+sLSTM blocks (xLSTM).
 
-What the reference also covers raises ``NotImplementedError`` naming its
-entry in ROADMAP.md's 'Queued in the port' list: the MoE FFN (P7),
-mLSTM/sLSTM blocks (P8), and ``loss_fn`` with everything else of training
-(P11).  The remat policy and ``remat_group`` only matter when gradients
-are taken: they are accepted and ignored (the reference's grouped branch
-runs only without a cache, and gives the same values).
+``loss_fn``, with everything else of training, raises
+``NotImplementedError`` naming its entry in ROADMAP.md's 'Queued in the
+port' list (P11).  The remat policy and ``remat_group`` only matter when
+gradients are taken: they are accepted and ignored (the reference's
+grouped branch runs only without a cache, and gives the same values).
 
 Layer params: with ``scan_layers`` the reference's layout, one dict whose
 leaves are (L, ...) tensors; the port has no scan to trace, so the layers
@@ -21,24 +22,29 @@ Caches (plus a global ``idx`` (B,) int32 cursor):
   attn   -> {"k","v"} (B, T_cache, Hk*D) flattened kv, ring-buffered at
             ``window`` when the sliding window bounds it
   rglru  -> {"state" (B,W) fp32, "conv" (B,k-1,W)}
+  mlstm  -> {"C" (B,H,dh,dh), "n" (B,H,dh), "m" (B,H)} fp32, dh = 2 d / H
+  slstm  -> {"h","c","n","m"} (B,d) fp32
 a list over the layers, or with ``scan_layers`` one dict of (L, B, ...)
 tensors, as in the reference.
 
 Which products run the ``mvm`` kernel and which run ``torch.matmul``:
 ``models.layers.common.project``.  On CUDA tensors the decode step runs
 the ``mvm`` and ``decode_attention`` kernels and a prefill the
-``rglru_scan`` kernel; on the CPU their plain versions.  Functions are
-functional, as in the reference, with one exception that saves a copy of
-every ring per layer and step: a prefill writes the prompt's keys and
-values, and a decode step the new token's k/v slot, into the attention
-rings of the cache it is given, in place, and returns those same ring
-tensors — with stacked caches the (L, B, T, KV) tensors themselves, each
-layer written through its view (the RG-LRU state, the conv state and the
-cursor come back as new tensors).  A caller that needs the cache as it
+``rglru_scan`` kernel; on the CPU their plain versions.  The MoE router
+and experts and the xLSTM recurrences have no kernel in the reference and
+none here (``models.layers.moe``, ``models.layers.xlstm``).  Functions
+are functional, as in the reference, with one exception that saves a
+copy of every ring per layer and step: a prefill writes the prompt's keys
+and values, and a decode step the new token's k/v slot, into the
+attention rings of the cache it is given, in place, and returns those
+same ring tensors — with stacked caches the (L, B, T, KV) tensors
+themselves, each layer written through its view (the recurrent states
+and the cursor come back as new tensors).  A caller that needs the cache as it
 was clones it first.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -47,16 +53,18 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import rglru as rglru_lib
+from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.common import dense_init, param_dtype, project
 from repro_torch.models.layers.embedding import embed, init_embedding, unembed
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
+from repro_torch.models.layers.moe import apply_moe, init_moe
 from repro_torch.models.layers.norm import init_norm, rms_norm
 from repro_torch.models.layers.rope import (apply_rope, mrope_angles,
                                             rope_angles)
 from repro_torch.runtime.errors import not_ported
 
 NAIVE_ATTN_MAX_SEQ = 1024  # above this, blockwise/local paths engage
-KINDS = ("attn", "rglru")
+KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -65,10 +73,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name!r} is an rnn stack, not a decoder: run it through "
             "repro_torch.rnn.compile or serving.RecurrentServingEngine")
-    if cfg.n_experts:
-        raise not_ported("the MoE FFN", "P7")
-    if any(k in ("mlstm", "slstm") for k in cfg.layer_kinds()):
-        raise not_ported("mLSTM/sLSTM blocks", "P8")
     bad = sorted(set(cfg.layer_kinds()) - set(KINDS))
     if bad:
         raise ValueError(f"unknown layer kinds {bad}; allowed: "
@@ -117,11 +121,17 @@ def _init_attn(cfg: ModelConfig, gen, dtype, device):
     }
 
 
-def _init_layer(cfg: ModelConfig, gen, kind: str, dtype, device):
+def _init_layer(cfg: ModelConfig, gen, kind: str, dtype, device,
+                experts=None):
+    """One layer's tree; ``experts`` as ``moe.init_moe`` takes it."""
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": init_norm(d, dtype, device)}
     if kind == "attn":
         p["attn"] = _init_attn(cfg, gen, dtype, device)
+    elif kind == "mlstm":
+        p["mlstm"] = xlstm_lib.init_mlstm(gen, d, cfg.n_heads, dtype, device)
+    elif kind == "slstm":
+        p["slstm"] = xlstm_lib.init_slstm(gen, d, cfg.n_heads, dtype, device)
     else:
         w = cfg.rglru_width
         p["rec"] = {
@@ -132,15 +142,32 @@ def _init_layer(cfg: ModelConfig, gen, kind: str, dtype, device):
             "rglru": rglru_lib.init_rglru(gen, w, dtype, device),
             "w_out": dense_init(gen, (w, d), dtype, device=device),
         }
-    if cfg.d_ff:
+    if kind in ("attn", "rglru") and cfg.d_ff:
         p["norm2"] = init_norm(d, dtype, device)
-        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+        if cfg.n_experts:
+            p["moe"] = init_moe(gen, d, cfg.d_ff, cfg.n_experts, dtype,
+                                cfg.moe_dense_ff, device, experts)
+        else:
+            p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
     return p
+
+
+def _stacked_experts(cfg: ModelConfig, dtype, device):
+    """The stacked MoE expert leaves (L, E, d, ff) / (L, E, ff, d),
+    allocated once and drawn into layer by layer and expert by expert
+    (``moe.draw_experts``): an arctic layer's experts are 27 GB in bf16,
+    so no layer of them is drawn whole and then copied."""
+    L, E, d, ff = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff
+    shapes = {"w_gate": (L, E, d, ff), "w_up": (L, E, d, ff),
+              "w_down": (L, E, ff, d)}
+    return {k: torch.empty(s, dtype=dtype, device=device)
+            for k, s in shapes.items()}
 
 
 def _stack_into(out, tree, i: int, n: int):
     """Copy ``tree``'s leaves into slice ``[i]`` of ``out``'s (n, ...)
-    leaves, allocating them at the first layer; returns ``out``."""
+    leaves, allocating them at the first layer (a leaf drawn in place,
+    already ``out[i]`` itself, is left as it is); returns ``out``."""
     if isinstance(tree, dict):
         out = {} if out is None else out
         for k, v in tree.items():
@@ -148,7 +175,8 @@ def _stack_into(out, tree, i: int, n: int):
         return out
     if out is None:
         out = tree.new_empty((n,) + tuple(tree.shape))
-    out[i].copy_(tree)
+    if tree.data_ptr() != out[i].data_ptr():
+        out[i].copy_(tree)
     return out
 
 
@@ -162,7 +190,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     {"unembed"} alone.  So ``convert.from_jax`` carries a JAX
     ``init_params`` tree over one to one.  Stacked leaves are allocated
     once and layer l is drawn into slice [l], so the peak is the model and
-    one layer, not two models."""
+    one layer, not two models; a stacked MoE's expert leaves are drawn
+    straight into their slices, expert by expert (``_stacked_experts``)."""
     check_supported(cfg)
     device = gen.device if device is None else torch.device(device)
     dtype = param_dtype(cfg)
@@ -179,10 +208,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         params["layers"] = [_init_layer(cfg, gen, kind, dtype, device)
                             for kind in kinds]
         return params
-    stacked = None
+    stacked, experts = None, None
+    if cfg.n_experts and cfg.d_ff:
+        experts = _stacked_experts(cfg, dtype, device)
+        stacked = {"moe": dict(experts)}
     for i, kind in enumerate(kinds):
-        stacked = _stack_into(stacked, _init_layer(cfg, gen, kind, dtype,
-                                                   device), i, len(kinds))
+        layer = _init_layer(cfg, gen, kind, dtype, device,
+                            None if experts is None
+                            else layer_view(experts, i))
+        stacked = _stack_into(stacked, layer, i, len(kinds))
     params["layers"] = stacked
     return params
 
@@ -205,6 +239,11 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, T: int, dtype,
         kv = cfg.kv_dim
         return {"k": torch.zeros((batch, T, kv), dtype=dtype, device=device),
                 "v": torch.zeros((batch, T, kv), dtype=dtype, device=device)}
+    if kind == "mlstm":
+        dh = 2 * cfg.d_model // cfg.n_heads
+        return xlstm_lib.mlstm_state_init(batch, cfg.n_heads, dh, device)
+    if kind == "slstm":
+        return xlstm_lib.slstm_state_init(batch, cfg.d_model, device)
     w = cfg.rglru_width
     return {
         "state": torch.zeros((batch, w), dtype=torch.float32, device=device),
@@ -323,19 +362,47 @@ def _rglru_block(cfg: ModelConfig, p, x, cache, mode: str):
 
 def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
                  mode: str):
-    """Pre-norm residual block.  Returns (x, new_cache); the reference's
-    third value, the MoE aux loss, is 0 without MoE (P7)."""
+    """Pre-norm residual block.  Returns (x, new_cache, aux_loss): the MoE
+    load-balancing loss of the layer, fp32 0 without MoE."""
+    decode = mode == "decode"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
         o, new_cache = _attn_block(cfg, p["attn"], h, rope_cs, cache, idx,
                                    mode)
-    else:
+    elif kind == "rglru":
         o, new_cache = _rglru_block(cfg, p, h, cache, mode)
+    elif kind == "mlstm":
+        if decode:
+            o, state = xlstm_lib.apply_mlstm(p["mlstm"], h, cfg.n_heads,
+                                             cache, decode=True)
+        else:  # chunkwise-parallel: the state touched once a chunk
+            o, state = xlstm_lib.apply_mlstm_chunked(p["mlstm"], h,
+                                                     cfg.n_heads, cache)
+        new_cache = state if cache is not None else None
+    else:
+        o, state = xlstm_lib.apply_slstm(p["slstm"], h, cfg.n_heads, cache,
+                                         decode=decode)
+        new_cache = state if cache is not None else None
     x = x + o
     if "norm2" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], h, decode=mode == "decode")
-    return x, new_cache
+        if "moe" in p:
+            cap = 0
+            if decode:
+                # the reference's decode capacity: drop-free at T <= 8
+                # without sizing every expert's buffer at T
+                T = h.shape[0] * h.shape[1]
+                cf = max(4.0, cfg.capacity_factor)
+                cap = min(T, max(8, math.ceil(
+                    T * cfg.experts_per_token * cf / cfg.n_experts)))
+            o, aux = apply_moe(p["moe"], h, k=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor,
+                               deterministic_capacity=cap, decode=decode)
+        else:
+            o = apply_mlp(p["mlp"], h, decode=decode)
+        x = x + o
+    return x, new_cache, aux
 
 
 # ===========================================================================
@@ -346,7 +413,7 @@ def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
             positions=None, cache=None, mode: str = "train"):
     """Returns (logits fp32, new_cache, aux_loss); aux_loss is the MoE
-    load-balancing loss of the reference, 0 here (no MoE, P7).
+    load-balancing loss summed over the layers (fp32 0 without MoE).
 
     train/prefill: tokens (B,S) or embeds (B,S,d); "train" is the
     full-sequence forward without a cache (no gradients are taken here).
@@ -378,11 +445,13 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     # a stacked cache's layers are written through their views, in place
     caches = cache["layers"] if cache is not None else None
     new_layer_caches = caches if cfg.scan_layers else []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.layer_kinds()):
         cache_l = layer_view(caches, i) if cache is not None else None
-        x, new_cache_l = _layer_apply(cfg, kind,
-                                      layer_view(params["layers"], i), x,
-                                      rope_cs, cache_l, idx, mode)
+        x, new_cache_l, aux = _layer_apply(cfg, kind,
+                                           layer_view(params["layers"], i),
+                                           x, rope_cs, cache_l, idx, mode)
+        aux_total = aux_total + aux
         if not cfg.scan_layers:
             new_layer_caches.append(new_cache_l)
 
@@ -393,8 +462,7 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     if cache is not None:
         step = 1 if mode == "decode" else S
         new_cache = {"layers": new_layer_caches, "idx": idx + step}
-    return logits, new_cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+    return logits, new_cache, aux_total
 
 
 # ===========================================================================
@@ -423,8 +491,9 @@ def decode_step(cfg: ModelConfig, params, cache, batch):
     """One token for every sequence in the batch.  Returns (logits,
     new_cache).  The attention rings of ``cache`` are updated in place
     (the new slot is written into them, and new_cache holds the same ring
-    tensors); new_cache's RG-LRU ``state``, ``conv`` state and ``idx`` are
-    new tensors, and the ones in ``cache`` keep their values."""
+    tensors); new_cache's recurrent states (RG-LRU ``state`` and ``conv``,
+    the mLSTM and sLSTM states) and ``idx`` are new tensors, and the ones
+    in ``cache`` keep their values."""
     logits, new_cache, _ = forward(cfg, params, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"),
                                    positions=batch.get("positions"),

@@ -136,7 +136,8 @@ def _torch(batch):
 
 
 @pytest.mark.parametrize("which", ["config", "reduced"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("olmoe-1b-7b", "arctic-480b",
+                                          "xlstm-125m"))
 def test_config_equals_the_reference(arch, which):
     """The port's config() and reduced() equal the reference's field by
     field."""
@@ -148,16 +149,14 @@ def test_config_equals_the_reference(arch, which):
 
 
 def test_registry_lists_the_reference_order_less_what_is_queued():
-    """list_archs() is the reference's list in its order, less the MoE
-    (P7) and mLSTM/sLSTM (P8) archs, which raise naming their items."""
-    queued = {"olmoe-1b-7b": "P7", "arctic-480b": "P7", "xlstm-125m": "P8"}
-    assert configs.list_archs() == [a for a in jlist_archs()
-                                    if a not in queued]
-    assert configs.list_archs(include_paper=True) == [
-        a for a in jlist_archs(include_paper=True) if a not in queued]
-    for arch, item in queued.items():
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            configs.get_reduced(arch)
+    """list_archs() is the reference's list in its order, every arch of
+    it (nothing is queued since the MoE FFN, P7, and the mLSTM/sLSTM
+    blocks, P8), and each resolves to a config of its own name."""
+    assert configs.list_archs() == jlist_archs()
+    assert configs.list_archs(include_paper=True) == jlist_archs(
+        include_paper=True)
+    for arch in jlist_archs(include_paper=True):
+        assert configs.get_reduced(arch).name.startswith(arch)
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -94,3 +94,44 @@ def test_device_models_import_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+#: the MoE FFN (P7) and the xLSTM blocks (P8), with their configs
+MOE_XLSTM = ("models/layers/moe.py", "models/layers/xlstm.py",
+             "configs/olmoe_1b_7b.py", "configs/arctic_480b.py",
+             "configs/xlstm_125m.py")
+
+
+@pytest.mark.parametrize("rel", MOE_XLSTM)
+def test_moe_and_xlstm_modules_import_no_jax_repro_or_triton(rel):
+    """The new layers and configs name neither JAX, the JAX package nor
+    triton in any import statement (the expert and recurrent products
+    are plain PyTorch; the decode projections reach the mvm kernel
+    through models.layers.common)."""
+    bad = [(mod, line) for mod, line in _imported_roots(PORT / rel)
+           if mod in FORBIDDEN + ("triton",)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_moe_and_xlstm_models_load_neither_jax_nor_repro():
+    """Importing the new layers and building the three archs' reduced
+    models (init_params, one forward) loads neither JAX, the JAX package
+    nor triton."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import transformer as tf\n"
+        "from repro_torch.models.layers import moe, xlstm\n"
+        "for a in ('olmoe-1b-7b', 'arctic-480b', 'xlstm-125m'):\n"
+        "    cfg = configs.get_reduced(a)\n"
+        "    p = tf.init_params(cfg, torch.Generator().manual_seed(0))\n"
+        "    tf.forward(cfg, p, tokens=torch.zeros((1, 3), "
+        "dtype=torch.long))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -631,22 +631,26 @@ def test_cuda_unembed_without_the_fp32_table_copy(cuda):
 
 
 # ---------------------------------------------------------------------------
-# what the port does not carry yet
+# the registry and the options
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "P7"), ("arctic-480b", "P7"), ("xlstm-125m", "P8")])
-def test_unported_archs_raise_with_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        configs.get_reduced(arch)
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b",
+                                  "xlstm-125m"])
+def test_moe_and_xlstm_archs_equal_the_reference(arch):
+    """The MoE (P7) and xLSTM (P8) archs resolve, config() and reduced()
+    equal to the reference's field by field (tests/test_torch_moe.py and
+    tests/test_torch_xlstm.py hold the models against it)."""
+    from repro.configs import get_config as jget_config
+    for ours, ref in ((configs.get_config(arch), jget_config(arch)),
+                      (configs.get_reduced(arch), jget_reduced(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
 
 
 def test_unported_options_raise_with_their_item(model):
-    """MoE (P7), mLSTM/sLSTM (P8) and training (P11) raise naming their
-    item; stacked layers (P6) over the hybrid's mixed pattern raise a
+    """Training (P11) raises naming its item; the MoE FFN (P7) and the
+    mLSTM/sLSTM blocks (P8) run on the hybrid's reduced widths (init,
+    forward); stacked layers (P6) over the hybrid's mixed pattern raise a
     ValueError (a stacked stack takes one block kind); M-RoPE (P9) and
     the embed_stub frontend (P10) run (tests/test_torch_dense.py holds
     them against the reference); an unknown arch is a KeyError; the
@@ -654,13 +658,20 @@ def test_unported_options_raise_with_their_item(model):
     device needs a card."""
     _, cfg, _, tp = model
     gen = torch.Generator().manual_seed(0)
-    for change, item in ((dict(n_experts=4, experts_per_token=2), "P7"),
-                         (dict(block_pattern=("mlstm", "slstm")), "P8")):
-        bad = dataclasses.replace(cfg, **change)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tf.init_params(bad, gen)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tf.forward(bad, tp, tokens=torch.zeros((1, 2), dtype=torch.long))
+    for change in (dict(n_experts=4, experts_per_token=2),
+                   dict(block_pattern=("mlstm", "slstm"))):
+        opt = dataclasses.replace(cfg, **change)
+        op = tf.init_params(opt, gen)
+        logits, _, aux = tf.forward(opt, op, tokens=torch.zeros(
+            (1, 2), dtype=torch.long))
+        assert logits.shape == (1, 2, cfg.vocab_size)
+        assert torch.isfinite(logits).all() and aux.shape == ()
+        if "n_experts" in change:
+            assert all("moe" in layer for layer in op["layers"]
+                       if "norm2" in layer)
+        else:
+            assert [sorted(layer)[0] for layer in op["layers"]] == [
+                "mlstm", "norm1", "mlstm"]
     with pytest.raises(ValueError, match="one block kind"):
         tf.init_params(dataclasses.replace(cfg, scan_layers=True), gen)
     mrope = dataclasses.replace(cfg, mrope_sections=(4, 6, 6))
@@ -677,8 +688,9 @@ def test_unported_options_raise_with_their_item(model):
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("bogus")
     assert configs.list_archs() == [
-        "starcoder2-3b", "deepseek-67b", "h2o-danube-3-4b", "stablelm-12b",
-        "musicgen-large", "qwen2-vl-72b", "recurrentgemma-2b"]
+        "arctic-480b", "olmoe-1b-7b", "starcoder2-3b", "deepseek-67b",
+        "h2o-danube-3-4b", "stablelm-12b", "musicgen-large", "xlstm-125m",
+        "qwen2-vl-72b", "recurrentgemma-2b"]
     assert configs.list_archs(include_paper=True)[-1] == "sharp-lstm"
     from repro_torch.runtime.errors import PlanRejected
     with pytest.raises(PlanRejected, match="embeds"):
