@@ -8,7 +8,7 @@ Phases, one line (or a few) of output each:
 
   1 card       the card's name and power limit (nvidia-smi), torch and
                CUDA
-  2 build      nvcc builds all eight kernels from src/repro_torch/csrc
+  2 build      nvcc builds all nine kernels from src/repro_torch/csrc
                (sm_90a), one process per source, all started together
   3 kernels    each CUDA kernel against its plain PyTorch version on the
                card, at the main path's shapes; median times (CUDA events)
@@ -246,7 +246,38 @@ Phases, one line (or a few) of output each:
                forward, the first 2 layers against a device="cpu" engine,
                and two planted faults (mvm loses a k-tile; the slot
                splice drops the mLSTM memory) that check must see
- 15 calib      the measured cost model (repro_torch.calib) on the card:
+ 15 train      training (P11) on the card.  rglru_scan_bwd (the RG-LRU
+               scan's backward: a CTA per strip of 8-32 channels walking
+               T backwards in tiles) against its plain version at the
+               train step's shape (B = 1, T = 1024, W = 2560), B = 4 T =
+               2048 and each strip width's tile edges at ragged widths:
+               within 1e-6 of the largest |plain|, the same inf and nan,
+               bit-equal run to run and each row against its own B = 1
+               call; timed in a CUDA graph of 20 launches and eager beside
+               the plain version and the bytes bound.  RecurrentGemma-2B
+               whole at full width (bf16 weights drawn on the card, fp32
+               AdamW moments) through launch.steps.make_train_step at B =
+               1, T = 1024 and, where the peak leaves room, 2048 (the data
+               pipeline's "random" source): a warm step and 3 timed steps
+               each, every loss finite, 18 rglru_scan and 18
+               rglru_scan_bwd launches a step and no plain version; step
+               ms (CUDA events, host wall), tokens/s, peak memory; one
+               more step under torch.profiler (its top device operations,
+               the two kernels' device ms and counts, the busy share).
+               The first 3 layers (rglru, rglru, attn) at full width: one
+               step on the card against the same step on the chip
+               machine's CPU (B = 1, T = 64; loss, every gradient leaf,
+               every updated parameter within TOL_TRAIN_*), and again with
+               rglru_scan_bwd's dlog_a zeroed, which that check must fail.
+               common.matmul_f32's backward at olmoe's expert shape
+               against the fp32 products.  Every reduced arch of the
+               registry in fp32 and in bf16 (the MoE experts' and sLSTM's
+               bf16 products and their backward, the routing, the xLSTM
+               scans): one make_train_step on the card against the CPU.
+               runtime.TrainLoop on recurrentgemma-2b reduced with int8
+               compression and a fault at step 9: the final state equal
+               to an uninterrupted run's bit for bit
+ 16 calib      the measured cost model (repro_torch.calib) on the card:
                replays what EESEN (B=4, T=300) and BYSDNE as an LSTM and a
                GRU launch (prefill slots; the decode tick's chained and
                per-layer sides at B = 4, 2, 1), EESEN's G=2 and G=1 slots
@@ -266,7 +297,7 @@ Phases, one line (or a few) of output each:
                flips BYSDNE's decode tick to 5 lstm_seq launches (no
                lstm_decode), within TOL_FP32 of the chained tick; and
                `python -m repro_torch.calib --grid smoke --check 25` exits 0
- 16 figures    the rows of benchmarks/paper_tables.py from the port's
+ 17 figures    the rows of benchmarks/paper_tables.py from the port's
                core.perfmodel (the paper's ASIC cycle model, host
                arithmetic): Fig. 9's best K per MAC budget, Fig. 10's max
                and at-512 speedups, Fig. 11's model speedups, Fig. 12's
@@ -280,7 +311,7 @@ Phases, one line (or a few) of output each:
                function on the CPU, timed by runtime.obs.measure_us in
                turns (3 rounds of 10 calls), with each schedule's speedup
                against sequential
- 17 chaos      the chaos suite's isolation scenarios at BYSDNE's width
+ 18 chaos      the chaos suite's isolation scenarios at BYSDNE's width
                (L=5, H=X=340, bf16 weights) through RecurrentServingEngine(
                device="cuda", on_fault="fallback"): a prefill fault that
                bisects a 3-request wave, a poisoned prefill state, a
@@ -291,7 +322,7 @@ Phases, one line (or a few) of output each:
                decode_launches and no plain version runs; each co-batched
                request (and a faulted request's kept frames) against the
                fault-free card run: max |diff| printed, held bit for bit
- 18 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 19 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -319,8 +350,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
           "serve_gru", "offpath", "rglru", "precision", "serve_lm",
-          "serve_dense", "serve_moe", "serve_xlstm", "calib", "figures",
-          "chaos", "summary")
+          "serve_dense", "serve_moe", "serve_xlstm", "train", "calib",
+          "figures", "chaos", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -331,6 +362,8 @@ KERNELS = {
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:40",
     "mvm": "src/repro/kernels/mvm_tile/kernel.py:49",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:63",
+    # no TPU kernel: jax.grad differentiates the reference's lax.scan
+    "rglru_scan_bwd": "src/repro/models/layers/rglru.py:50",
 }
 #: entry points whose source file (csrc/<name>.cu) has another name
 SOURCES = {"mvm": "mvm_tile"}
@@ -561,7 +594,7 @@ def entries():
 
     return (kernels.lstm_seq, kernels.lstm_decode, kernels.lstm_cell,
             kernels.gru_seq, kernels.gru_decode, kernels.rglru_scan,
-            kernels.mvm, kernels.decode_attention)
+            kernels.mvm, kernels.decode_attention, kernels.rglru_scan_bwd)
 
 
 def tally(ctx, *fns) -> None:
@@ -3802,6 +3835,7 @@ def phase_serve_lm(ctx):
 #: appears in it (the decode and sequence kernels share their cells)
 DEVICE_NAMES = {"mvm": ("mvm_kernel",), "decode_attention": ("attn_kernel",),
                 "rglru_scan": ("rglru_scan_kernel",),
+                "rglru_scan_bwd": ("rglru_scan_bwd_kernel",),
                 "lstm_cell": ("lstm_cell_kernel",),
                 "lstm_decode": ("cluster_kernel", "LstmCell"),
                 "gru_decode": ("cluster_kernel", "GruCell"),
@@ -5122,6 +5156,640 @@ def _xlstm_layers_vs_forward(label, cfg, params, prompts, done):
         worst_all = max(worst_all, max(shares))
         cpu_all = max(cpu_all, max(on_cpu))
     return worst_all, cpu_all
+
+
+#: train: rglru_scan_bwd's bytes an element (log_a, gx, hs, dhs read;
+#: dlog_a, dgx written; fp32) and its fp32 operations an element (an fma
+#: counted as two): the forward's two exps (52), 2 la, 1 - a2, max, sqrt,
+#: the selector (2), a2 sel, the division, its sign, g times it, q's fma
+#: (2), the chain's fma (2), s delta and delta q
+RGLRU_BWD_BYTES = 24
+RGLRU_BWD_OPS = 67
+#: rglru_scan_bwd held against its plain version at these (B, T, W): the
+#: train step's shape, B = 4 at T = 2048, and the edges of each strip
+#: width's tiles (C = 8: 128 steps a tile at B = 1; C = 16: 64 at B = 2,
+#: W = 2560; C = 32: 32 at B = 4) at ragged widths
+TRAIN_BWD_CASES = ((1, 1024, 2560), (4, 2048, 2560), (1, 129, 513),
+                   (1, 128, 33), (2, 65, 2560), (2, 64, 100), (4, 33, 2560),
+                   (4, 31, 513), (3, 1, 70))
+#: the full-width step: RecurrentGemma-2B whole, B = 1 at these T (the
+#: second only where the first's peak, its part past the params and AdamW
+#: state scaled with T, leaves TRAIN_ROOM_GB of the card free),
+#: TRAIN_STEPS timed steps each after one warm step; data from the
+#: pipeline's "random" source (its markov table would be V x V float64,
+#: 524 GB at V = 256,000)
+TRAIN_SEQS = (1024, 2048)
+TRAIN_STEPS = 3
+TRAIN_ROOM_GB = 6.0
+#: the 3-layer (rglru, rglru, attn) full-width cut, one step on the card
+#: against one on the chip machine's CPU (B = 1, T = TRAIN_CPU_T), AdamW at
+#: TRAIN_LR without warmup so that the step moves the bf16 parameters by
+#: more than their rounding
+TRAIN_CPU_T = 64
+TRAIN_LR = 1e-2
+# the 3-layer cut, bf16, card against CPU: the loss (mean CE of a
+# 256,000-way softmax, ~12.5) within TOL_TRAIN_LOSS; each gradient leaf
+# within TOL_TRAIN_GRAD of that leaf's largest |CPU gradient|: the two
+# round the bf16 activations and gradients at other points (other
+# summation orders, bf16 products summed in fp32 on the card, upcast on
+# the CPU), a few bf16 ulps (2^-8 each) of a leaf's scale carried back
+# through 3 layers; a lost dlog_a (planted) takes the gate leaves' whole
+# gradient.  Each updated parameter within one bf16 ulp of itself plus
+# TOL_TRAIN_STEP x lr: AdamW's first step is lr · g / (|g| + eps),
+# lr · sign(g) where |g| >> eps, which flips where g is near 0 (2 lr at
+# most); and plus TOL_TRAIN_WELL x lr where |g| is larger than twice the
+# gradient tolerance of its leaf's largest, so that its sign cannot flip.
+TOL_TRAIN_LOSS = 1e-2
+TOL_TRAIN_GRAD = 2.0 ** -4
+TOL_TRAIN_STEP = 2.0
+TOL_TRAIN_WELL = 0.05
+# every reduced arch, card against CPU (fp32: other summation orders only;
+# the loss within TRAIN_RED_LOSS relative, m (0.1 g) within TRAIN_RED_M of
+# each leaf's largest; bf16: the 3-layer cut's tolerances)
+TRAIN_RED_LOSS = 1e-5
+TRAIN_RED_M = 1e-4
+#: the FT check: recurrentgemma-2b reduced (fp32), FT_STEPS steps with int8
+#: compression, checkpoints every FT_EVERY, a fault at FT_FAULT
+FT_STEPS = 12
+FT_EVERY = 4
+FT_FAULT = 9
+
+
+def phase_train(ctx):
+    """Training (P11) on the card: rglru_scan_bwd against its plain
+    version; RecurrentGemma-2B whole at full width through make_train_step;
+    a 3-layer full-width cut against the CPU with a planted fault; every
+    reduced arch against the CPU; matmul_f32's backward at olmoe's expert
+    shape; TrainLoop's exact recovery."""
+    import torch
+
+    from repro_torch import rnn
+
+    dev = rnn.resolve_device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    _train_bwd_kernel(ctx, dev)
+    _train_full(ctx, dev)
+    _free()
+    _train_cut_vs_cpu(ctx, dev)
+    _free()
+    _train_matmul_f32(ctx, dev)
+    _train_reduced(ctx, dev)
+    _train_ft(ctx, dev)
+    _free()
+
+
+def _bwd_case(B, T, W, seed, dev):
+    """(log_a, gx, h0, hs, dhs, dhT) of a backward: the forward's inputs
+    (_rglru_case), its hs from the kernel, random cotangents."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops
+
+    la, gx, h0 = _rglru_case(B, T, W, seed, dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    dhs = torch.randn((B, T, W), generator=g).to(dev)
+    dhT = torch.randn((B, W), generator=g).to(dev)
+    hs, _ = ops.rglru_scan_cuda(la, gx, h0)
+    return [la, gx, h0, hs, dhs, dhT]
+
+
+def _rglru_bwd_bound(B, T, W):
+    return bound(RGLRU_BWD_BYTES * B * T * W + 12 * B * W,
+                 RGLRU_BWD_OPS * B * T * W)
+
+
+def _train_bwd_kernel(ctx, dev):
+    """rglru_scan_bwd against rglru_scan_bwd_plain at TRAIN_BWD_CASES
+    (each output within 1e-6 of its largest |plain|, the same non-finite
+    values), bit for bit run to run and each row of a B > 1 call against
+    that row's own B = 1 call; then timed at the train step's shape (B = 1,
+    T = 1024) in a CUDA graph of RGLRU_GRAPH_LAUNCHES launches and at B =
+    4, T = 2048 eager, beside the plain version and the bytes bound."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops
+
+    bwd = ops.rglru_scan_bwd
+    err_max, same = 0.0, True
+    for i, (B, T, W) in enumerate(TRAIN_BWD_CASES):
+        args = _bwd_case(B, T, W, seed=200 + i, dev=dev)
+        out = bwd(*args)
+        ref = ops.rglru_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for o, r in zip(out, ref):
+            fin = torch.isfinite(r)
+            check(torch.equal(torch.isfinite(o), fin),
+                  f"rglru_scan_bwd at B={B} T={T} W={W}: other non-finite "
+                  "values than the plain version")
+            e = float((o[fin] - r[fin]).abs().max()) if fin.any() else 0.0
+            scale = float(r[fin].abs().max()) if fin.any() else 1.0
+            errs.append(e / scale)
+            err_max = max(err_max, e)
+        again = _rglru_same(bwd(*args), out)
+        rows = all(_rglru_same(bwd(*(t[b:b + 1] for t in args)),
+                               [o[b:b + 1] for o in out])
+                   for b in range(B)) if B > 1 else True
+        same = same and again and rows
+        C, steps = ops.scan_tile(B, W)
+        print(f"kernels: rglru_scan_bwd B={B} T={T} W={W} (strips of {C}, "
+              f"{steps} steps a tile): max |kernel - plain| / max |plain| "
+              f"{max(errs):.2e} (dlog_a, dgx, dh0: "
+              f"{', '.join(f'{e:.1e}' for e in errs)}); run to run "
+              f"{'bit-equal' if again else 'DIFFERS'}; rows vs B=1 calls "
+              f"{'bit-equal' if rows else 'DIFFER'}")
+        check(max(errs) <= 1e-6, f"rglru_scan_bwd disagrees with its plain "
+                                 f"version at B={B} T={T} W={W}")
+    check(same, "rglru_scan_bwd is not bit-equal run to run or across B")
+
+    B, T, W = 1, 1024, 2560
+    args = _bwd_case(B, T, W, seed=230, dev=dev)
+    n = RGLRU_GRAPH_LAUNCHES
+    k_ms = graph_ms(lambda: [bwd(*args) for _ in range(n)]) / n
+    eager_ms = median_ms(lambda: bwd(*args), reps=20)
+    p_ms = median_ms(lambda: ops.rglru_scan_bwd_plain(*args), reps=1,
+                     trials=3)
+    b_ms, b_by = _rglru_bwd_bound(B, T, W)
+    nbytes = RGLRU_BWD_BYTES * B * T * W
+    print(f"kernels: rglru_scan_bwd at B={B} T={T} W={W} (the train step's "
+          f"shape; one CUDA graph of {n} launches): kernel {k_ms:.4f} ms a "
+          f"launch ({nbytes / k_ms / 1e6:.1f} GB/s, {k_ms / b_ms:.2f}x the "
+          f"bound), eager {eager_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); no single PyTorch call computes it")
+    ctx["rglru_scan_bwd"] = dict(
+        max_abs_err=err_max, ms=k_ms, plain_ms=p_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, warm_ms=eager_ms,
+        shape=f"B={B} T={T} W={W} fp32 (graph of {n})")
+    B, T = 4, 2048
+    args = _bwd_case(B, T, W, seed=231, dev=dev)
+    w_ms = median_ms(lambda: bwd(*args), reps=20)
+    b_ms, b_by = _rglru_bwd_bound(B, T, W)
+    print(f"kernels: rglru_scan_bwd at B={B} T={T} W={W} (eager): kernel "
+          f"{w_ms:.4f} ms ({RGLRU_BWD_BYTES * B * T * W / w_ms / 1e6:.1f} "
+          f"GB/s, {w_ms / b_ms:.2f}x the bound), bound {b_ms:.6f} ms "
+          f"({b_by})")
+    ctx["rglru_scan_bwd"].update(wide_ms=w_ms, wide_bound_ms=b_ms)
+
+
+def _train_batch(cfg, B, T, seed, dev):
+    """A batch of the synthetic pipeline's "random" source on ``dev``."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticPipeline
+
+    data = SyntheticPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=T, global_batch=B, seed=seed,
+        source="random", embed_dim=cfg.d_model if cfg.embed_stub else 0))
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch_at(0).items()}
+
+
+def _train_counts(label, n_rglru):
+    """Each train step's launches: one rglru_scan and one rglru_scan_bwd
+    a RG-LRU layer, every call a kernel launch (no plain version)."""
+    from repro_torch.kernels.rglru import ops
+
+    f, b = ops.rglru_scan, ops.rglru_scan_bwd
+    print(f"{label}: rglru_scan {f.kernel_launches} launches ({f.calls} "
+          f"calls), rglru_scan_bwd {b.kernel_launches} ({b.calls} calls) for "
+          f"{n_rglru} RG-LRU layers")
+    check(f.kernel_launches == f.calls == n_rglru
+          and b.kernel_launches == b.calls == n_rglru,
+          f"{label}: a train step did not take one rglru_scan and one "
+          f"rglru_scan_bwd launch a RG-LRU layer")
+
+
+def _train_full(ctx, dev):
+    """RecurrentGemma-2B whole at full width (26 layers, bf16 weights drawn
+    on the card) through launch.steps.make_train_step at B = 1, T in
+    TRAIN_SEQS: every step's loss finite, 18 rglru_scan and 18
+    rglru_scan_bwd launches a step and no plain version; step ms by CUDA
+    events and by the host clock around a synchronized step, tokens/s,
+    peak memory; one more step under torch.profiler (top device operations,
+    busy share)."""
+    import torch
+
+    from repro_torch.kernels import common as kcommon
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.launch import steps
+
+    label = "train recurrentgemma-2b"
+    t0 = time.perf_counter()
+    cfg, params, rec = _load_model(ctx, label, "recurrentgemma-2b", None, "")
+    n_rglru = cfg.layer_kinds().count("rglru")
+    settings = steps.TrainSettings()
+    opt = steps.init_opt_state(cfg, params, settings)
+    step = steps.make_train_step(cfg, settings)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"{label}: params + AdamW state (fp32 m, v) {state_gb:.1f} GB on "
+          f"the card before the first step")
+    rec["state_gb"] = state_gb
+    fwd, bwd = ops.rglru_scan, ops.rglru_scan_bwd
+    runs = {}
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    grads_gb = 2 * rec["params"] / 1e9
+    for T in TRAIN_SEQS:
+        if T != TRAIN_SEQS[0]:
+            # the gradient's peak past the state and the bf16 gradient
+            # (the activations) grows with T, the update's does not
+            t1 = TRAIN_SEQS[0]
+            need = max(state_gb + grads_gb + (runs[t1]["grad_peak_gb"]
+                                              - state_gb - grads_gb) * T / t1,
+                       runs[t1]["update_peak_gb"])
+            if need > total_gb - TRAIN_ROOM_GB:
+                print(f"{label}: T={T} not run: its peak would be ~"
+                      f"{need:.1f} GB, past the card's {total_gb:.1f} GB "
+                      f"less {TRAIN_ROOM_GB:g}")
+                continue
+        batch = _train_batch(cfg, 1, T, seed=T, dev=dev)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ev_ms, wall_ms = [], [], []
+        for i in range(TRAIN_STEPS + 1):
+            kcommon.reset_counts(fwd, bwd)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            start.record()
+            params, opt, m = step(params, opt, batch)
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - h0) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            check(all(float(v) == float(v) and abs(float(v)) < float("inf")
+                      for v in m.values()),
+                  f"{label} T={T}: step {i}: non-finite metrics {m}")
+            _train_counts(f"{label} T={T} step {i}", n_rglru)
+            tally(ctx, fwd, bwd)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med_ev = statistics.median(ev_ms[1:])
+        med_wall = statistics.median(wall_ms[1:])
+        r = dict(losses=losses, step_ms=ev_ms, wall_ms=wall_ms,
+                 median_step_ms=med_ev, tokens_per_s=T / med_ev * 1e3,
+                 peak_gb=peak)
+        print(f"{label} B=1 T={T}: losses {[round(x, 4) for x in losses]}; "
+              f"step ms by CUDA events {[round(x, 2) for x in ev_ms]} (the "
+              f"first warm), host wall {[round(x, 2) for x in wall_ms]}; "
+              f"median {med_ev:.2f} ms = {r['tokens_per_s']:.0f} tokens/s; "
+              f"peak device memory {peak:.1f} GB")
+        r.update(_train_split(f"{label} T={T}", cfg, settings, params, opt,
+                              batch, n_rglru))
+        tally(ctx, fwd, bwd)
+        busy_ms = _train_profile(f"{label} T={T}", lambda: step(
+            params, opt, batch), n_rglru)
+        r["busy_ms"] = busy_ms
+        runs[T] = r
+        del batch
+    rec["runs"] = runs
+    _peak(ctx, label, rec, t0)
+    ctx["train_full"] = rec
+    del params, opt
+
+
+def _short(name: str) -> str:
+    """A device kernel's name without its namespaces and launch-shape
+    template arguments: what it computes (its functor), 100 characters."""
+    import re
+
+    name = re.sub(r"at::native::|\(anonymous namespace\)::|void |"
+                  r"c10::|std::|detail::", "", name)
+    name = re.sub(r"^(vectorized_elementwise_kernel|unrolled_elementwise_"
+                  r"kernel|elementwise_kernel)<\d+(, \d+)?, ", r"\1<", name)
+    return name[:100]
+
+
+def _train_split(label, cfg, settings, params, opt, batch, n_rglru):
+    """One more step as make_train_step runs it, in its two halves:
+    launch.steps.value_and_grad (forward and backward) and
+    optim.apply_updates, each timed by CUDA events with its own peak
+    device memory."""
+    import torch
+
+    from repro_torch.kernels import common as kcommon
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import apply_updates
+
+    kcommon.reset_counts(ops.rglru_scan, ops.rglru_scan_bwd)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev[0].record()
+    _, grads = steps.value_and_grad(cfg, params, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    grad_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ev[1].record()
+    _, adam, _ = apply_updates(settings.adamw, params, grads, opt["adam"])
+    ev[2].record()
+    torch.cuda.synchronize()
+    opt["adam"] = adam
+    update_peak = torch.cuda.max_memory_allocated() / 1e9
+    del grads
+    grad_ms, update_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    print(f"{label}: a step in halves (CUDA events): loss and gradient "
+          f"{grad_ms:.2f} ms (peak {grad_peak:.1f} GB), AdamW update "
+          f"{update_ms:.2f} ms (peak {update_peak:.1f} GB)")
+    _train_counts(f"{label} halves", n_rglru)
+    return dict(grad_ms=grad_ms, update_ms=update_ms, grad_peak_gb=grad_peak,
+                update_peak_gb=update_peak)
+
+
+def _train_profile(label, fn, n_rglru):
+    """One step under torch.profiler: its device operations by time (top
+    12), the kernels' device ms and launches, the device's busy share."""
+    import torch
+
+    from repro_torch.kernels import common as kcommon
+    from repro_torch.kernels.rglru import ops
+
+    kcommon.reset_counts(ops.rglru_scan, ops.rglru_scan_bwd)
+    wall_us, by_name, count = device_events(fn)
+    busy = sum(by_name.values())
+    check(busy > 0, f"{label}: the profiler saw no device time")
+    top = "; ".join(f"{_short(name)} {us / 1e3:.2f} ms ({count[name]})"
+                    for name, us in by_name.most_common(12))
+    print(f"{label}: profiled step: wall {wall_us / 1e3:.2f} ms, device "
+          f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+          f"{sum(count.values())} device kernels; top: {top}")
+    for kernel in ("rglru_scan", "rglru_scan_bwd"):
+        ms, k = device_share(by_name, count, kernel)
+        print(f"{label}: profiled step: {kernel} {ms:.3f} ms in {k} kernels")
+        check(k == n_rglru, f"{label}: the profiler saw {k} {kernel} "
+                            f"kernels for {n_rglru} RG-LRU layers")
+    torch.cuda.synchronize()
+    return busy / 1e3
+
+
+def _grads_and_step(cfg, params, batch, lr):
+    """(loss, grads, new params) of one step at lr (AdamW without warmup):
+    launch.steps.value_and_grad then optim.apply_updates, what
+    make_train_step runs; ``params`` is left as it was (the update runs on
+    a copy)."""
+    from repro_torch import tree as tr
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+
+    (loss, m), grads = steps.value_and_grad(cfg, params, batch)
+    new = tr.tree_map(lambda p: p.clone(), params)
+    new, _, _ = apply_updates(AdamWConfig(lr=lr, warmup_steps=0), new,
+                              grads, init_state(new))
+    return float(m["loss"]), tr.leaves(grads), tr.leaves(new)
+
+
+def _hold_step(label, names, ref, got, lr, tol_loss, tol_grad,
+               rel_loss=False):
+    """A step's (loss, gradient leaves, new params) against a reference
+    step's: the loss within ``tol_loss`` (relative with ``rel_loss``),
+    each gradient leaf within ``tol_grad`` of its largest |reference|;
+    each new parameter, past one ulp of a bf16 leaf, within
+    TOL_TRAIN_WELL x lr where its reference gradient is larger than twice
+    that gradient tolerance of the leaf's largest (so that its sign
+    cannot flip between the two), and within TOL_TRAIN_STEP x lr
+    elsewhere.  Returns the worst readings (loss, gradient leaf, well
+    conditioned parameter, any parameter, the worst gradient leaf's
+    name), or raises SmokeFailure naming the worst leaf past its
+    tolerance."""
+    import torch
+
+    (l0, g0, p0), (l1, g1, p1) = ref, got
+    e_loss = abs(l1 - l0) / (abs(l0) if rel_loss else 1.0)
+    grads, wells, news = [], [], []
+    for name, a, b, pa, pb in zip(names, g0, g1, p0, p1):
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = float(a.abs().max())
+        grads.append((float((a - b).abs().max()) / (scale or 1.0), name))
+        bf16 = pb.dtype == torch.bfloat16
+        pa, pb = pa.float().cpu(), pb.float().cpu()
+        ulp = 2.0 ** -7 * torch.maximum(pa.abs(), pb.abs()) if bf16 else 0.0
+        d = ((pa - pb).abs() - ulp) / lr
+        news.append((float(d.max()), name))
+        well = a.abs() > 2 * tol_grad * scale
+        wells.append((float(d[well].max()) if bool(well.any()) else 0.0,
+                      name))
+    (e_grad, g_name), (e_well, w_name) = max(grads), max(wells)
+    e_step, p_name = max(news)
+    check(e_loss <= tol_loss, f"{label}: loss {l1:.6f} against {l0:.6f} "
+                              f"({e_loss:.2e} > {tol_loss:g})")
+    check(e_grad <= tol_grad, f"{label}: gradient of {g_name}: max |diff| "
+                              f"{e_grad:.3e} of the leaf's largest > "
+                              f"{tol_grad:g}")
+    check(e_well <= TOL_TRAIN_WELL, f"{label}: updated {w_name} where its "
+                                    f"gradient is large: {e_well:.3f} x lr "
+                                    f"past one ulp > {TOL_TRAIN_WELL:g}")
+    check(e_step <= TOL_TRAIN_STEP, f"{label}: updated {p_name}: "
+                                    f"{e_step:.3f} x lr past one ulp > "
+                                    f"{TOL_TRAIN_STEP:g}")
+    return e_loss, e_grad, e_well, e_step, g_name
+
+
+def _train_cut_vs_cpu(ctx, dev):
+    """The first 3 layers (rglru, rglru, attn) of RecurrentGemma-2B at full
+    width, bf16: one step on the card against the same step with
+    device="cpu" on the chip machine's CPU (loss, every gradient leaf,
+    every updated parameter), then again with rglru_scan_bwd's dlog_a
+    zeroed, which that check must fail."""
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.kernels.rglru import ops
+
+    label = "train cut"
+    cfg, params, rec = _load_model(ctx, label, "recurrentgemma-2b", 3,
+                                   "the card against its CPU")
+    names = ["/".join(str(k) for k in p)
+             for p, _ in tr.leaves_with_path(params)]
+    batch = _train_batch(cfg, 1, TRAIN_CPU_T, seed=5, dev=dev)
+    card = _grads_and_step(cfg, params, batch, TRAIN_LR)
+    cpu_params = tr.tree_map(lambda p: p.cpu(), params)
+    t0 = time.perf_counter()
+    cpu = _grads_and_step(cfg, cpu_params, {k: v.cpu()
+                                            for k, v in batch.items()},
+                          TRAIN_LR)
+    cpu_s = time.perf_counter() - t0
+    e_loss, e_grad, e_well, e_step, worst = _hold_step(
+        label, names, cpu, card, TRAIN_LR, TOL_TRAIN_LOSS, TOL_TRAIN_GRAD)
+    print(f"{label}: 3 layers at full width, B=1 T={TRAIN_CPU_T}, bf16, "
+          f"card vs device=\"cpu\" ({cpu_s:.1f} s on the CPU): loss "
+          f"{card[0]:.6f} vs {cpu[0]:.6f} (|diff| {e_loss:.2e}, tol "
+          f"{TOL_TRAIN_LOSS:g}); gradients: worst leaf ({worst}) {e_grad:.3e} "
+          f"of its largest (tol {TOL_TRAIN_GRAD:g}); updated params past one "
+          f"bf16 ulp: worst {e_well:.3f} x lr where the gradient is large "
+          f"(tol {TOL_TRAIN_WELL:g}), {e_step:.3f} x lr anywhere (tol "
+          f"{TOL_TRAIN_STEP:g}; lr {TRAIN_LR:g}) over {len(names)} leaves")
+    rec.update(loss_err=e_loss, grad_err=e_grad, well_err=e_well,
+               step_err=e_step, cpu_s=cpu_s)
+
+    real = ops.rglru_scan_bwd_cuda
+
+    def lost_dlog_a(*args):
+        dla, dgx, dh0 = real(*args)
+        return torch.zeros_like(dla), dgx, dh0
+
+    ops.rglru_scan_bwd_cuda = lost_dlog_a
+    try:
+        planted = _grads_and_step(cfg, params, batch, TRAIN_LR)
+    finally:
+        ops.rglru_scan_bwd_cuda = real
+    try:
+        _hold_step(label + " (planted)", names, cpu, planted, TRAIN_LR,
+                   TOL_TRAIN_LOSS, TOL_TRAIN_GRAD)
+        caught = None
+    except SmokeFailure as err:
+        caught = str(err)
+    print(f"{label}: planted fault (rglru_scan_bwd's dlog_a zeroed): "
+          f"{'caught: ' + caught if caught else 'NOT caught'}")
+    check(caught is not None, f"{label}: the check did not see a lost "
+                              "dlog_a")
+    ctx["train_cut"] = rec
+    del params, cpu_params, card, cpu, planted
+
+
+def _train_matmul_f32(ctx, dev):
+    """common.matmul_f32's backward (the bf16-operand, fp32-result products
+    of the MoE experts, sLSTM and the unembed) on the card at olmoe-1b-7b's
+    expert shape (64 experts, 16 slots, 2048 x 1024, bf16) against the
+    fp32 products of the upcast operands rounded to bf16 once: each
+    cotangent within one bf16 ulp of each element (at most 2^-7 of it:
+    two fp32 sums in other orders may round to neighbouring bf16 values)
+    plus 1e-6 of the largest."""
+    import torch
+
+    from repro_torch.models.layers import common
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((64, 16, 2048), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    b = (torch.randn((64, 2048, 1024), generator=g, device=dev) / 45).to(
+        torch.bfloat16).requires_grad_()
+    w = torch.randn((64, 16, 1024), generator=g, device=dev)
+    y = common.matmul_f32(a, b)
+    da, db = torch.autograd.grad((y * w).sum(), (a, b))
+    want_a = torch.bmm(w, b.detach().float().transpose(1, 2)).to(
+        torch.bfloat16)
+    want_b = torch.bmm(a.detach().float().transpose(1, 2), w).to(
+        torch.bfloat16)
+    errs = []
+    for got, want in ((da, want_a), (db, want_b)):
+        check(got.dtype == torch.bfloat16, "matmul_f32: a cotangent is not "
+                                           "bf16")
+        d = (got.float() - want.float()).abs()
+        tol = 2.0 ** -7 * want.float().abs() + 1e-6 * float(
+            want.float().abs().max())
+        errs.append(float((d / tol.clamp_min(1e-30)).max()))
+        check(bool((d <= tol).all()), "matmul_f32's backward disagrees with "
+                                      "the fp32 products")
+    print(f"train: matmul_f32 backward at olmoe's expert shape (64 x 16 x "
+          f"2048 @ 2048 x 1024, bf16): dA, dB within {errs[0]:.2f}, "
+          f"{errs[1]:.2f} of their tolerance (one bf16 ulp) of the fp32 "
+          f"products")
+    ctx["train_matmul_f32"] = dict(errs=errs)
+
+
+def _train_reduced(ctx, dev):
+    """Every reduced arch of the registry, fp32 and bf16: one
+    make_train_step on the card against the same step on the CPU, from the
+    same weights (drawn on the CPU) and batch: the loss, m (0.1 x the
+    clipped gradient) of every leaf, the updated parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch import tree as tr
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig
+
+    settings = steps.TrainSettings(adamw=AdamWConfig(lr=TRAIN_LR,
+                                                     warmup_steps=0))
+    worst = {}
+    for arch in configs.list_archs():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_reduced(arch), dtype=dtype)
+            base = tf.init_params(cfg, torch.Generator().manual_seed(0))
+            batch = _train_batch(cfg, 2, 16, seed=1, dev="cpu")
+            out = []
+            for where in ("cpu", "cuda"):
+                p = tr.tree_map(lambda t: t.to(where, copy=True), base)
+                b = {k: v.to(where) for k, v in batch.items()}
+                p, o, m = steps.make_train_step(cfg, settings)(
+                    p, steps.init_opt_state(cfg, p, settings), b)
+                out.append((float(m["loss"]), tr.leaves(o["adam"]["m"]),
+                            tr.leaves(p)))
+            names = ["/".join(str(k) for k in q)
+                     for q, _ in tr.leaves_with_path(base)]
+            fp32 = dtype == "float32"
+            e = _hold_step(f"train reduced {arch} {dtype}", names, *out,
+                           TRAIN_LR,
+                           TRAIN_RED_LOSS if fp32 else TOL_TRAIN_LOSS,
+                           TRAIN_RED_M if fp32 else TOL_TRAIN_GRAD,
+                           rel_loss=fp32)
+            worst[f"{arch} {dtype}"] = e[:4]
+            print(f"train reduced {arch} {dtype}: card vs CPU loss "
+                  f"{out[1][0]:.6f} vs {out[0][0]:.6f} ({e[0]:.2e}"
+                  f"{' rel' if fp32 else ''}); m worst leaf ({e[4]}) "
+                  f"{e[1]:.2e} of its largest; params past one ulp "
+                  f"{e[2]:.4f} x lr where m is large, {e[3]:.3f} x lr "
+                  f"anywhere")
+    ctx["train_reduced"] = worst
+
+
+def _train_ft(ctx, dev):
+    """runtime.TrainLoop at recurrentgemma-2b reduced (fp32) on the card:
+    FT_STEPS steps of make_train_step with int8 compression, checkpoints
+    every FT_EVERY; a fault at FT_FAULT restores the last checkpoint and
+    replays; the final params and optimizer state equal an uninterrupted
+    run's bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch import tree as tr
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import CompressionConfig
+    from repro_torch.runtime import FTConfig, TrainLoop
+
+    cfg = configs.get_reduced("recurrentgemma-2b")
+    settings = steps.TrainSettings(
+        compression=CompressionConfig(scheme="int8"))
+    data = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=32, global_batch=4, seed=2))
+
+    def run(directory, fail):
+        p = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        loop = TrainLoop(steps.make_train_step(cfg, settings),
+                         lambda i: {k: torch.from_numpy(v).to(dev)
+                                    for k, v in data.batch_at(i).items()},
+                         FTConfig(ckpt_dir=directory, ckpt_every=FT_EVERY))
+        if fail is not None:
+            loop.failure_at_steps.add(fail)
+        p, o, step = loop.run(p, steps.init_opt_state(cfg, p, settings), 0,
+                              FT_STEPS)
+        return loop, tr.leaves((p, o)), step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, a, _ = run(os.path.join(tmp, "clean"), None)
+        faulted, b, step = run(os.path.join(tmp, "faulted"), FT_FAULT)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    replayed = [h["step"] for h in faulted.metrics_history]
+    print(f"train ft: {cfg.name} {FT_STEPS} steps, int8 compression, "
+          f"checkpoints every {FT_EVERY}, fault at step {FT_FAULT}: "
+          f"restarts {faulted.restarts}, steps run {replayed}; final params "
+          f"and optimizer state {'bit-equal to' if same else 'DIFFER from'} "
+          f"the uninterrupted run's ({len(a)} leaves); losses "
+          f"{[round(h['loss'], 4) for h in faulted.metrics_history]}")
+    check(faulted.restarts == 1 and clean.restarts == 0 and step == FT_STEPS,
+          "train ft: the fault did not restart the loop exactly once")
+    check(same, "train ft: the recovered run's final state differs from "
+                "the uninterrupted run's")
+    ctx["train_ft"] = dict(restarts=faulted.restarts, steps=replayed)
 
 
 #: the calib phase: BYSDNE's prefill shapes (B, T) and, from their B's,

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port (``csrc/``) and their entry
 points: ``kernels.lstm_cell`` carries ``lstm_seq``, ``lstm_decode`` and
 ``lstm_cell``; ``kernels.gru_cell`` carries ``gru_seq`` and
-``gru_decode``; ``kernels.rglru`` carries ``rglru_scan``;
+``gru_decode``; ``kernels.rglru`` carries ``rglru_scan`` and its
+backward ``rglru_scan_bwd``;
 ``kernels.mvm_tile`` carries ``mvm`` and ``kernels.decode_attention``
 ``decode_attention``, the transformer decode step's two kernels;
 ``kernels.quant`` holds the int8 / bf16 / block-sparse weight transforms;
@@ -15,4 +16,4 @@ from repro_torch.kernels.lstm_cell.ops import (  # noqa: F401
     lstm_seq_plain)
 from repro_torch.kernels.mvm_tile.ops import mvm, mvm_plain  # noqa: F401
 from repro_torch.kernels.rglru.ops import (  # noqa: F401
-    rglru_scan, rglru_scan_plain)
+    rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain, rglru_scan_plain)

@@ -1,12 +1,21 @@
-"""Public entry point of the RG-LRU scan kernel: ``rglru_scan`` (the whole
-T-step gated linear recurrence of every (batch row, channel), one launch).
+"""Public entry points of the RG-LRU scan kernels: ``rglru_scan`` (the
+whole T-step gated linear recurrence of every (batch row, channel), one
+launch) and its backward, ``rglru_scan_bwd`` (the reverse recurrence of
+the cotangents, one launch).
 
-The device of the tensors decides how it runs: on the CPU it runs the
-plain PyTorch version (``rglru_scan_plain``, the oracle's Python loop over
-T); on a CUDA device it launches the hand-written kernel
-(``csrc/rglru_scan.cu``) or raises.  There is no fallback from one to the
-other.  Like every kernel entry point it carries the ``calls`` and
-``kernel_launches`` counters (``kernels.common.counted``).
+The device of the tensors decides how each runs: on the CPU the plain
+PyTorch version (``rglru_scan_plain``, the oracle's Python loop over T;
+``rglru_scan_bwd_plain``); on a CUDA device the hand-written kernel
+(``csrc/rglru_scan.cu``, ``csrc/rglru_scan_bwd.cu``) or an error.  There
+is no fallback from one to the other.  Like every kernel entry point each
+carries the ``calls`` and ``kernel_launches`` counters
+(``kernels.common.counted``).
+
+``rglru_scan`` is differentiable: it runs as a ``torch.autograd.Function``
+(``RglruScan``) whose forward is the dispatch above and whose backward
+calls ``rglru_scan_bwd`` on the saved ``log_a``, ``gx``, ``h0`` and
+``hs``.  Autograd never looks inside the plain forward: its ``xla_exp``
+is built from floor and exponent bits, whose derivative is not exp's.
 """
 from __future__ import annotations
 
@@ -16,7 +25,8 @@ from repro_torch.kernels.common import (check_operands, check_shape,
                                         count_launch, counted, launched,
                                         on_cuda, operand)
 from repro_torch.kernels.rglru import kernel
-from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.kernels.rglru.ref import (rglru_scan_bwd_plain,
+                                          rglru_scan_ref)
 
 #: The kernel's arithmetic in plain PyTorch is the oracle's: each step's
 #: products and sums rounded on their own in fp32, as the kernel does.
@@ -63,6 +73,29 @@ def rglru_scan_cuda(log_a, gx, h0):
     return hs, h_n
 
 
+def _scan(log_a, gx, h0):
+    if on_cuda("rglru_scan", log_a.device):
+        return rglru_scan_cuda(operand(log_a), operand(gx), operand(h0))
+    return rglru_scan_plain(log_a, gx, h0)
+
+
+class RglruScan(torch.autograd.Function):
+    """``rglru_scan`` with its backward: forward (log_a, gx, h0) ->
+    (hs, h_T); backward (dhs, dhT) -> (dlog_a, dgx, dh0) through
+    ``rglru_scan_bwd``."""
+
+    @staticmethod
+    def forward(ctx, log_a, gx, h0):
+        hs, hT = _scan(log_a, gx, h0)
+        ctx.save_for_backward(log_a, gx, h0, hs)
+        return hs, hT
+
+    @staticmethod
+    def backward(ctx, dhs, dhT):
+        log_a, gx, h0, hs = ctx.saved_tensors
+        return rglru_scan_bwd(log_a, gx, h0, hs, dhs, dhT)
+
+
 @counted
 def rglru_scan(log_a, gx, h0, *, block_w: int = 0):
     """The RG-LRU recurrence h = a·h + sqrt(max(1 − a², 0))·gx with
@@ -78,10 +111,52 @@ def rglru_scan(log_a, gx, h0, *, block_w: int = 0):
         raise ValueError(f"rglru_scan: block_w={block_w} must be >= 0")
     if log_a.shape[1] == 0:  # degenerate empty sequence: state passes through
         return log_a.new_zeros(log_a.shape), h0
-    if on_cuda("rglru_scan", log_a.device):
-        return rglru_scan_cuda(operand(log_a), operand(gx), operand(h0))
-    return rglru_scan_plain(log_a, gx, h0)
+    return RglruScan.apply(log_a, gx, h0)
+
+
+def rglru_scan_bwd_cuda(log_a, gx, h0, hs, dhs, dhT):
+    """Launch ``csrc/rglru_scan_bwd.cu`` (T >= 1) on the current stream;
+    shapes as ``rglru_scan_bwd_plain``, every operand fp32."""
+    B, T, W = log_a.shape
+    dev = log_a.device
+    ops = dict(log_a=log_a, gx=gx, h0=h0, hs=hs, dhs=dhs, dhT=dhT)
+    check_operands("rglru_scan_bwd", dev, **ops)
+    for arg, t in ops.items():
+        check_shape("rglru_scan_bwd", arg, t,
+                    (B, W) if arg in ("h0", "dhT") else (B, T, W))
+        if t.dtype != torch.float32:
+            raise TypeError(f"rglru_scan_bwd: {arg} must be float32, got "
+                            f"{t.dtype}")
+    dla = torch.empty((B, T, W), dtype=torch.float32, device=dev)
+    dgx = torch.empty((B, T, W), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, W), dtype=torch.float32, device=dev)
+    launch = kernel.entry("rglru_scan_bwd")
+    with torch.cuda.device(dev):
+        rc = launch(log_a.data_ptr(), gx.data_ptr(), h0.data_ptr(),
+                    hs.data_ptr(), dhs.data_ptr(), dhT.data_ptr(),
+                    dla.data_ptr(), dgx.data_ptr(), dh0.data_ptr(), B, T, W,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    launched("rglru_scan_bwd", rc)
+    count_launch(rglru_scan_bwd)
+    return dla, dgx, dh0
+
+
+@counted
+def rglru_scan_bwd(log_a, gx, h0, hs, dhs, dhT):
+    """The backward of ``rglru_scan``, ONE kernel launch for all T steps:
+    from the forward's inputs log_a, gx (B, T, W) and h0 (B, W), its
+    output hs (B, T, W) and the cotangents dhs (B, T, W) of hs and dhT
+    (B, W) of h_T, the cotangents (dlog_a, dgx, dh0) of its inputs; all
+    fp32, T >= 1.  The math and its inf / nan where a rounds to 1:
+    ``kernels.rglru.ref.rglru_scan_bwd_plain``."""
+    rglru_scan_bwd.calls += 1
+    if on_cuda("rglru_scan_bwd", log_a.device):
+        return rglru_scan_bwd_cuda(*(operand(t) for t in (
+            log_a, gx, h0, hs, dhs, dhT)))
+    return rglru_scan_bwd_plain(log_a, gx, h0, hs, dhs, dhT)
 
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_cuda",
-           "rglru_scan_ref", "scan_tile", "SCAN_TILE_ELEMS"]
+           "rglru_scan_ref", "rglru_scan_bwd", "rglru_scan_bwd_plain",
+           "rglru_scan_bwd_cuda", "RglruScan", "scan_tile",
+           "SCAN_TILE_ELEMS"]

@@ -16,6 +16,10 @@ floating-point operations XLA emits for the reference's compiled scan:
 
 With them the port's scan stays within 2.4e-7 of the reference's, and
 ``csrc/rglru_scan.cu`` computes the same operations with ``fmaf``.
+
+``rglru_scan_bwd_plain`` is the plain version of the scan's backward
+(``csrc/rglru_scan_bwd.cu``): the derivative of the forward as the port
+evaluates it, a² = exp(2·la) included (module doc of ``rglru_scan_bwd_plain``).
 """
 from __future__ import annotations
 
@@ -87,3 +91,57 @@ def rglru_scan_ref(log_a, gx, h0):
     if not hs:
         return log_a.new_zeros(log_a.shape), h0
     return torch.stack(hs, dim=1), h
+
+
+def rglru_coefficients_bwd(la, g):
+    """The h-independent part of a backward step, each operation rounded
+    on its own in fp32: a = exp(la) and a2 = exp(2·la) as the forward
+    evaluates them (``xla_exp``, so the a_t here are bitwise the
+    forward's), s = sqrt(max(1 − a2, 0)) and
+
+        u = g · ds/dla,   ds/dla = −(a2 · sel) / s,
+
+    the derivative of s = sqrt(max(1 − exp(2·la), 0)), where ``sel`` is
+    ``maximum``'s selector as ``jax.grad`` takes it: 1 where 1 − a2 > 0,
+    ½ where it is 0 and 0 below.  Returns (a, s, u)."""
+    a = xla_exp(la)
+    a2 = xla_exp(la + la)
+    d = 1.0 - a2
+    s = torch.sqrt(torch.clamp_min(d, 0.0))
+    sel = torch.where(d > 0, 1.0, torch.where(d == 0, 0.5, 0.0))
+    return a, s, g * (-(a2 * sel) / s)
+
+
+def rglru_scan_bwd_plain(log_a, gx, h0, hs, dhs, dhT):
+    """The backward of ``rglru_scan_ref``: (dlog_a, dgx, dh0) from the
+    forward's inputs, its hs and the cotangents dhs (B, T, W) of hs and
+    dhT (B, W) of h_T; all fp32.
+
+    With a_t, s_t and u_t = g_t · ds_t/dla_t (``rglru_coefficients_bwd``),
+    h_{−1} = h0 and δ the cotangent of h_t:
+
+        δ_{T−1} = dhs_{T−1} + dhT,  δ_t = fma(a_{t+1}, δ_{t+1}, dhs_t)
+        dgx_t    = s_t · δ_t
+        dlog_a_t = δ_t · fma(a_t, h_{t−1}, u_t)
+        dh0      = a_0 · δ_0
+
+    Everything but the chain over δ is parallel over T; the chain is one
+    fma a step, walked here as a Python loop from T − 1 down.
+
+    Where a rounds to 1 (1 − a2 = 0, so s = 0) ds/dla is −inf, and dlog_a
+    is ±inf, or nan where g_t · δ_t = 0; below it (a > 1) nan.  ``jax.grad``
+    of the reference's step gives inf and nan at the same places (the
+    cotangent of sqrt at 0 is inf, and ``maximum``'s selector multiplies
+    it).  The RG-LRU's la = 8·r·log σ(Λ) < 0 reaches a = 1 only where r
+    underflows."""
+    B, T, W = log_a.shape
+    a, s, u = rglru_coefficients_bwd(log_a, gx)
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+    q = fma(a, h_prev, u)
+    delta = torch.empty_like(dhs)
+    d = fma(1.0, dhT, dhs[:, T - 1])  # dhs + dhT, rounded once
+    delta[:, T - 1] = d
+    for t in range(T - 2, -1, -1):
+        d = fma(a[:, t + 1], d, dhs[:, t])
+        delta[:, t] = d
+    return delta * q, s * delta, a[:, 0] * delta[:, 0]

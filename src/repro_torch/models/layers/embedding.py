@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers.common import dense_init
+from repro_torch.models.layers.common import dense_init, matmul_f32
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
@@ -32,12 +32,13 @@ def unembed(params, x):
     product of two bf16 values is exact in fp32, so this is the
     reference's einsum up to the order of summation, and no fp32 copy of
     the (d, vocab) table is made (RecurrentGemma-2B's untied unembed is
-    2560 x 256000).  On the CPU, where ``aten::mm.dtype`` has no kernel,
-    both operands are upcast to fp32 and multiplied (TF32 stays off on the
-    card, ``rnn.resolve_device``)."""
+    2560 x 256000); its backward takes the reference's cotangents with
+    bf16 products too (``common.matmul_f32``).  On the CPU, where
+    ``aten::mm.dtype`` has no kernel, both operands are upcast to fp32 and
+    multiplied (TF32 stays off on the card, ``rnn.resolve_device``)."""
     w = params["unembed"] if "unembed" in params else params["table"].T
     if x.device.type != "cuda":
         return torch.matmul(x.float(), w.float())
     lead = x.shape[:-1]
-    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    y = matmul_f32(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*lead, w.shape[1])

@@ -18,7 +18,7 @@ which pick crosses the k-th boundary on a tie decides which tokens a full
 expert drops.  Nothing here syncs with the host (no ``.item()``,
 ``nonzero``, boolean-mask indexing or ``bincount``), so the layer runs
 inside the decode step's CUDA graph capture.  The expert products are
-``common.bmm_f32`` (bf16 operands, fp32 result): the reference computes
+``common.matmul_f32`` (bf16 operands, fp32 result): the reference computes
 them outside any Pallas kernel, and so does the port.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.common import bmm_f32, dense_init
+from repro_torch.models.layers.common import matmul_f32, dense_init
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
 
 
@@ -123,7 +123,7 @@ def apply_moe(params, x, *, k: int, capacity_factor: float,
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar fp32).  ``decode``
     sends arctic's dense branch through the mvm kernel
     (``common.project``); the router and the experts stay
-    ``torch.matmul`` / ``bmm_f32`` in every mode."""
+    ``torch.matmul`` / ``matmul_f32`` in every mode."""
     B, S, d = x.shape
     E = params["router"].shape[1]
     T = B * S
@@ -148,10 +148,10 @@ def apply_moe(params, x, *, k: int, capacity_factor: float,
     buf = buf.reshape(E, C, d)
 
     # ---- expert computation (E, C, d) x (E, d, f) ---------------------
-    g = bmm_f32(buf, params["w_gate"])
-    u = bmm_f32(buf, params["w_up"])
+    g = matmul_f32(buf, params["w_gate"])
+    u = matmul_f32(buf, params["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
-    out = bmm_f32(h, params["w_down"]).to(x.dtype)
+    out = matmul_f32(h, params["w_down"]).to(x.dtype)
 
     # ---- combine: gather back and weight ------------------------------
     gathered = out[flat_e, flat_s]  # (T*k, d)
@@ -177,10 +177,10 @@ def moe_reference(params, x, *, k: int):
     mask = torch.zeros((xt.shape[0], E), dtype=torch.float32,
                        device=x.device).scatter_(1, top_e, top_w)
     xe = xt[None].expand(E, -1, -1)  # (E, T, d)
-    g = bmm_f32(xe, params["w_gate"])  # (E, T, f)
-    u = bmm_f32(xe, params["w_up"])
+    g = matmul_f32(xe, params["w_gate"])  # (E, T, f)
+    u = matmul_f32(xe, params["w_up"])
     h = F.silu(g) * u
-    o = bmm_f32(h.to(x.dtype), params["w_down"])  # (E, T, d)
+    o = matmul_f32(h.to(x.dtype), params["w_down"])  # (E, T, d)
     y = (o.transpose(0, 1) * mask[..., None]).sum(dim=1)
     y = y.to(x.dtype).reshape(B, S, d)
     if "dense" in params:

@@ -16,7 +16,7 @@ sLSTM's W and w_out — 6 and 2 launches a layer.  What stays
 ``torch.matmul``: mLSTM's fp32 gate pre-activations ``xv @ w_i + b_i``
 and ``xv @ w_f + b_f``, and the sLSTM bias, which the reference adds
 after ``x @ W`` is rounded to the model dtype (not mvm's fp32 bias
-epilogue).  sLSTM's recurrent product is ``common.bmm_f32`` (fp32
+epilogue).  sLSTM's recurrent product is ``common.matmul_f32`` (fp32
 result).  The reference has no Pallas kernel here; neither has the port.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.common import (bmm_f32, chunked_scan,
+from repro_torch.models.layers.common import (matmul_f32, chunked_scan,
                                               dense_init, project)
 
 # ---------------------------------------------------------------------------
@@ -234,7 +234,7 @@ def slstm_cell(state, x_pre, R, n_heads: int):
     dh = d // n_heads
     h_prev = state["h"].reshape(B, n_heads, dh)
     # einsum("bhd,hdk->bhk") with an fp32 result, one product per head
-    rec = bmm_f32(h_prev.to(R.dtype).transpose(0, 1), R).transpose(0, 1)
+    rec = matmul_f32(h_prev.to(R.dtype).transpose(0, 1), R).transpose(0, 1)
     pre = x_pre.float().reshape(B, n_heads, 4 * dh) + rec
     # gate layout per head-block: (z, i, f, o), each dh wide
     pre4 = pre.reshape(B, n_heads, 4, dh)

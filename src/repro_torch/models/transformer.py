@@ -7,11 +7,14 @@ branch), unrolled (``scan_layers=False``) stacks of local-attention and
 RG-LRU blocks (RecurrentGemma), each with a gated MLP, and of mLSTM and
 sLSTM blocks (xLSTM).
 
-``loss_fn``, with everything else of training, raises
-``NotImplementedError`` naming its entry in ROADMAP.md's 'Queued in the
-port' list (P11).  The remat policy and ``remat_group`` only matter when
-gradients are taken: they are accepted and ignored (the reference's
-grouped branch runs only without a cache, and gives the same values).
+``loss_fn`` is the reference's next-token cross-entropy; training takes
+its gradient by autograd through ``forward(mode="train")``, which writes
+in place into no tensor that autograd saved (the rings are written only
+with a cache, and the MoE dispatch's ``index_add_`` fills a fresh
+buffer).  The remat policy and ``remat_group`` change what the backward
+holds, not any value: they are accepted and ignored, and autograd keeps
+every layer's activations (the reference's grouped branch runs only
+without a cache, and gives the same values).
 
 Layer params: with ``scan_layers`` the reference's layout, one dict whose
 leaves are (L, ...) tensors; the port has no scan to trace, so the layers
@@ -61,7 +64,6 @@ from repro_torch.models.layers.moe import apply_moe, init_moe
 from repro_torch.models.layers.norm import init_norm, rms_norm
 from repro_torch.models.layers.rope import (apply_rope, mrope_angles,
                                             rope_angles)
-from repro_torch.runtime.errors import not_ported
 
 NAIVE_ATTN_MAX_SEQ = 1024  # above this, blockwise/local paths engage
 KINDS = ("attn", "rglru", "mlstm", "slstm")
@@ -416,7 +418,8 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
     load-balancing loss summed over the layers (fp32 0 without MoE).
 
     train/prefill: tokens (B,S) or embeds (B,S,d); "train" is the
-    full-sequence forward without a cache (no gradients are taken here).
+    full-sequence forward without a cache, the one ``loss_fn``
+    differentiates.
     decode: tokens (B,1) / embeds (B,1,d) + cache (required)."""
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
@@ -471,8 +474,26 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Next-token cross-entropy: training is not ported yet."""
-    raise not_ported("training (loss_fn, optim/, checkpoint/, data/)", "P11")
+    """Next-token CE.  batch: {tokens|embeds, labels?}.  Returns (total,
+    {"loss", "aux_loss"}): the mean negative log-likelihood in fp32 over
+    ``log_softmax`` of the fp32 logits, of ``labels`` where the batch has
+    them and of each next token otherwise, plus 0.01 x the MoE aux loss
+    that ``forward`` sums (fp32 0 without MoE)."""
+    tokens = batch.get("tokens")
+    embeds = batch.get("embeds")
+    logits, _, aux = forward(cfg, params, tokens=tokens, embeds=embeds,
+                             positions=batch.get("positions"), mode="train")
+    if "labels" in batch:
+        labels = batch["labels"]
+        tgt_logits = logits
+    else:
+        labels = tokens[:, 1:]
+        tgt_logits = logits[:, :-1]
+    logp = F.log_softmax(tgt_logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    loss = nll.mean()
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux}
 
 
 def prefill(cfg: ModelConfig, params, batch, seq_len: int):

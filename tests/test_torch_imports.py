@@ -135,3 +135,45 @@ def test_moe_and_xlstm_models_load_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+#: training (P11): the optimizer, compression, data, checkpoints, the FT
+#: loop, the step functions and the driver, with the rglru backward
+TRAINING = ("optim/__init__.py", "optim/optimizer.py",
+            "optim/compression.py", "data/__init__.py", "data/pipeline.py",
+            "checkpoint/__init__.py", "checkpoint/checkpointer.py",
+            "runtime/ft.py", "launch/steps.py", "launch/train.py", "tree.py",
+            "kernels/rglru/ops.py", "kernels/rglru/ref.py",
+            "models/layers/common.py")
+
+
+@pytest.mark.parametrize("rel", TRAINING)
+def test_training_modules_import_no_jax_repro_or_triton(rel):
+    """The training modules name neither JAX, the JAX package nor triton
+    in any import statement (data/pipeline.py and checkpoint/ keep their
+    own numpy copies of the reference's)."""
+    bad = [(mod, line) for mod, line in _imported_roots(PORT / rel)
+           if mod in FORBIDDEN + ("triton",)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_a_train_step_loads_neither_jax_nor_repro(tmp_path):
+    """A reduced RecurrentGemma train step through TrainLoop (a fault, a
+    checkpoint, a restore) loads neither JAX, the JAX package nor
+    triton."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.launch import train\n"
+        "loop = train.main(['--arch', 'recurrentgemma-2b', '--reduced', "
+        "'--steps', '4', '--batch', '2', '--seq', '8', '--ckpt-every', '2', "
+        f"'--fail-at', '3', '--device', 'cpu', '--ckpt-dir', '{tmp_path}'])\n"
+        "assert loop.restarts == 1\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), \
+        out.stderr
