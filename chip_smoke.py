@@ -322,7 +322,27 @@ Phases, one line (or a few) of output each:
                decode_launches and no plain version runs; each co-batched
                request (and a faulted request's kept frames) against the
                fault-free card run: max |diff| printed, held bit for bit
- 19 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 19 mesh       the port's sharding (repro_torch.sharding) on the card:
+               starcoder2-3b whole (bf16) on a 1x1 DeviceMesh("cuda",
+               ("data", "model")) over NCCL at world size 1, params by
+               param_specs(fsdp=False), rings by cache_specs: prefills of
+               4 prompts of 24-300 tokens, then 8 decode_steps at B=4,
+               logits and rings bit for bit equal to the same steps with
+               no mesh, every step 6 L mvm and L decode_attention
+               launches (counted, and on the device in one step
+               profiled in a fresh process), ticks timed with and
+               without the mesh; the
+               reduced starcoder2-3b train step on the 1x1 mesh, loss,
+               params and AdamW moments bit for bit equal to the step
+               with no mesh; then two ranks sharing the card (two
+               processes on cuda:0, gloo on CUDA tensors; NCCL refuses two
+               ranks on one device): run_layer_unfolded_tp (H=340, B=4,
+               T=300, gate axis over model=2) within TOL_TP of the 1-rank
+               run_layer_unfolded on the card, and the reduced
+               starcoder2-3b decode with its ring's T split over model=2
+               (each rank's decode_attention on its half, the (m, l)
+               combine) within TOL_SEQ of the 1-rank card decode
+ 20 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound
 
@@ -351,7 +371,7 @@ SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
           "serve_gru", "offpath", "rglru", "precision", "serve_lm",
           "serve_dense", "serve_moe", "serve_xlstm", "train", "calib",
-          "figures", "chaos", "summary")
+          "figures", "chaos", "mesh", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -382,13 +402,6 @@ def row_name(kernel: str, variant: str = "dense") -> str:
 ROWS = tuple((row_name(k, v), k) for k in KERNELS
              for v in (VARIANTS if k in SEQ_KERNELS else ("dense",)))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit): the
-# recurrent kernels' operands are fp32 (or upcast to it), so fp32 is their
-# rate; the bf16 rate bounds the operations on bf16 operands (mvm,
-# decode_attention on the RecurrentGemma path)
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_S = 3.35e12
 
 # max |kernel - plain| on identical inputs.  fp32 activations: the kernel
 # and cuBLAS/PyTorch sum the 340 h.U products in different orders, and the
@@ -582,9 +595,18 @@ def device_share(by_name, count, kernel):
             / 1e3, sum(c for n, c in count.items() if is_kernel(kernel, n)))
 
 
-def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+def bound(nbytes: float, flops: float, rate: str = "fp32"):
+    """The least ms of a function: its bytes over the H100's HBM rate or
+    its operations over its peak ``rate`` ("fp32" or "bf16"), the larger
+    (``repro_torch.configs.base.H100``, NVIDIA's data sheet, dense, at the
+    700 W limit: the recurrent kernels' operands are fp32, or upcast to
+    it; the bf16 rate bounds the operations on bf16 operands, mvm and
+    decode_attention on the decoders' paths)."""
+    from repro_torch.configs.base import H100
+
+    peak = {"fp32": H100.peak_flops_fp32, "bf16": H100.peak_flops_bf16}
+    t_bytes = nbytes / H100.hbm_bw * 1e3
+    t_ops = flops / peak[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1890,7 +1912,7 @@ def _kernels_mvm(ctx, dev):
             p_ms = median_ms(lambda: ops.mvm_plain(x, W), reps=50)
             l_ms = median_ms(lambda: torch.matmul(x, W), reps=50)
             nbytes = 2 * (X * N + B * X + B * N)
-            b_ms, b_by = bound(nbytes, 2 * B * X * N, PEAK_BF16_FLOPS)
+            b_ms, b_by = bound(nbytes, 2 * B * X * N, "bf16")
             print(f"kernels: mvm warm (W from L2) at B={B} X={X} N={N} "
                   f"bf16: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
                   f"GB/s), plain {p_ms:.4f} ms, torch.matmul (cuBLAS) "
@@ -1916,7 +1938,7 @@ def _kernels_mvm(ctx, dev):
                                  for W in Ws])
         nbytes = sum(2 * (X * N + B * X + B * N) for X, N in mix)
         flops = sum(2 * B * X * N for X, N in mix)
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         print(f"kernels: mvm step mix ({len(mix)} projections on distinct "
               f"weights, {nbytes / 1e9:.3f} GB) at B={B}: kernel {k_ms:.4f} "
               f"ms ({nbytes / k_ms / 1e6:.1f} GB/s), torch.matmul (cuBLAS) "
@@ -2115,7 +2137,7 @@ def _kernels_decode_attention(ctx, dev):
             # once, and each needs 4 Hq D operations (q.k and p.v)
             live = sum(min(x, T) if x >= 1 else T for x in valid)
             nbytes = 2 * (2 * live * Hk * D + 2 * b * Hq * D) + 4 * b
-            b_ms, b_by = bound(nbytes, 4 * live * Hq * D, PEAK_BF16_FLOPS)
+            b_ms, b_by = bound(nbytes, 4 * live * Hq * D, "bf16")
             print(f"kernels: decode_attention cold in a graph at B={b} "
                   f"T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid={valid} ({n} "
                   f"distinct ring pairs, {n * ring_bytes / 1e6:.1f} MB), ms "
@@ -2143,13 +2165,105 @@ def _kernels_decode_attention(ctx, dev):
           f"valid=T (one ring, from L2): kernel {w_ms:.4f} ms, "
           f"F.scaled_dot_product_attention {wl_ms:.4f} ms")
     cold = ctx["decode_attention_cold"][f"B{B} full"]
+    ml = _attn_stats(dev)
     ctx["decode_attention"] = dict(
-        max_abs_err=err_max, ms=cold["ms"],
+        **ml, max_abs_err=err_max, ms=cold["ms"],
         plain_ms=cold["plain_ms"], library_ms=cold["library_ms"],
         bound_ms=cold["bound_ms"], bound_by=cold["bound_by"], warm_ms=w_ms,
         condition=f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16, full ring; ms, "
                   "plain_ms and library_ms cold in a CUDA graph (distinct "
                   "rings, from HBM), warm_ms warm and eager")
+
+
+#: decode_attention's (m, l) form (return_stats: o in fp32 and each head's
+#: softmax statistics) against its plain version: the same fp32 sums in
+#: other orders (a few fp32 ulps of the largest output, max score and exp
+#: sum), relative to each head's largest |o|, |m| (at least 1) and l
+TOL_STATS = 1e-5
+
+
+def _attn_stats(dev):
+    """decode_attention's (m, l) form against its plain version: at the
+    RecurrentGemma shape with a row of no live slot (the combine's
+    identity, (0, -inf, 0), exactly), an fp32 GQA shape, and the two
+    halves of a starcoder2-3b ring as the mesh phase's ranks take them;
+    then timed beside the plain form cold in a CUDA graph on distinct
+    full rings (B = 4, ATTN_SHAPE).  Returns the summary row's ml_ keys."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, T, Hq, Hk, D = ATTN_SHAPE
+    cases = [
+        (_attn_case(B, T, Hq, Hk, D, bf16, [0, 700, 1537, 2048], 120, dev),
+         f"B={B} T={T} Hq={Hq} Hk={Hk} D={D} bf16 valid=[0, 700, 1537, "
+         "2048]"),
+        (_attn_case(2, 256, 8, 2, 64, f32, [3, 256], 121, dev),
+         "B=2 T=256 Hq=8 Hk=2 D=64 fp32 valid=[3, 256]")]
+    q, k, v, _ = _attn_case(4, 512, 24, 2, 128, bf16, [512] * 4, 122, dev)
+    for lo, valid in ((0, [24, 100, 256, 256]), (256, [0, 0, 0, 44])):
+        cases.append(((q, k[:, lo:lo + 256].contiguous(),
+                       v[:, lo:lo + 256].contiguous(),
+                       torch.tensor(valid, dtype=torch.int32, device=dev)),
+                      f"starcoder2-3b half ring B=4 T=256 Hq=24 Hk=2 D=128 "
+                      f"bf16 valid={valid}"))
+    worst = 0.0
+    for args, label in cases:
+        o, m, l = ops.decode_attention(*args, return_stats=True)
+        ro, rm, rl = ops.decode_attention_plain(
+            *args, block_t=ops.default_block_t(args[1].shape[1]),
+            return_stats=True)
+        torch.cuda.synchronize()
+        live = args[3] >= 1
+        share = max(
+            float(((o - ro).abs().amax(-1)[live] / ro.abs().amax(-1)[live]
+                   .clamp_min(1e-30)).max()),
+            float(((m - rm).abs()[live] / rm.abs()[live].clamp_min(1.0))
+                  .max()),
+            float(((l - rl).abs()[live] / rl[live]).max())) / TOL_STATS
+        empty = ~live
+        ident = bool((o[empty] == 0).all() and (m[empty] == -math.inf).all()
+                     and (l[empty] == 0).all())
+        print(f"kernels: decode_attention (m, l) form {label}: o, m, l at "
+              f"{share:.3f} of TOL_STATS {TOL_STATS:g} (relative); rows of "
+              f"no live slot the identity (0, -inf, 0) {ident}; o {o.dtype}")
+        check(share <= 1.0, f"decode_attention (m, l) form disagrees with "
+                            f"its plain version ({label}): {share:.3f}")
+        check(ident, f"decode_attention (m, l) form {label}: an empty row "
+                     "is not (0, -inf, 0)")
+        check(o.dtype == f32, "decode_attention (m, l) form: o not fp32")
+        worst = max(worst, share * TOL_STATS)
+    # cold, as the plain form's rows are timed: distinct full rings
+    ring_bytes = 2 * B * T * Hk * D * 2
+    n = max(8, math.ceil(1.25 * L2_BYTES / ring_bytes))
+    gen = torch.Generator(device=dev).manual_seed(123)
+    sets = [[torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+             for shape in ((B, Hq, D), (B, T, Hk, D), (B, T, Hk, D))]
+            for _ in range(n)]
+    vl = torch.full((B,), T, dtype=torch.int32, device=dev)
+    base = graph_ms(lambda: [ops.decode_attention(qq, kk, vv, vl)
+                             for qq, kk, vv in sets]) / n
+    ml_ms = graph_ms(lambda: [ops.decode_attention(qq, kk, vv, vl,
+                                                   return_stats=True)
+                              for qq, kk, vv in sets]) / n
+    plain = graph_ms(lambda: [ops.decode_attention_plain(
+        qq, kk, vv, vl, block_t=ops.default_block_t(T), return_stats=True)
+        for qq, kk, vv in sets], trials=3) / n
+    # (m, l) form: o in fp32 and 8 bytes a head more than the plain form
+    nbytes = 2 * (2 * B * T * Hk * D + B * Hq * D) + 4 * B * Hq * D \
+        + 8 * B * Hq + 4 * B
+    b_ms, b_by = bound(nbytes, 4 * B * T * Hq * D, "bf16")
+    print(f"kernels: decode_attention (m, l) form cold in a graph at B={B} "
+          f"T={T} Hq={Hq} Hk={Hk} D={D} bf16, full rings ({n} distinct): "
+          f"{ml_ms:.4f} ms a launch against {base:.4f} for the output alone "
+          f"in the same call ({ml_ms / base:.3f}x); plain (m, l) form "
+          f"{plain:.4f}; bound {b_ms:.6f} ({b_by})")
+    del sets
+    return dict(ml_ms=ml_ms, ml_base_ms=base, ml_plain_ms=plain,
+                ml_bound_ms=b_ms, ml_max_rel_err=worst)
 
 
 #: the reference's six dense decoders at full width, as serve_dense runs
@@ -2318,7 +2432,7 @@ def _kernels_dense(ctx, dev):
             k_ms = graph_ms(lambda: [mops.mvm(xb, w) for w in Ws]) / n
             l_ms = graph_ms(lambda: [torch.matmul(xb, w) for w in Ws]) / n
             b_ms, b_by = bound(2 * (X * N + B * X + B * N), 2 * B * X * N,
-                               PEAK_BF16_FLOPS)
+                               "bf16")
             rec[f"B{B}"] = dict(ms=k_ms, library_ms=l_ms, bound_ms=b_ms,
                                 bound_by=b_by)
         del Ws
@@ -2424,7 +2538,7 @@ def _kernels_dense(ctx, dev):
                 for qs, ks, vs in sdpa]) / n
             live = B * T
             nbytes = 2 * (2 * live * Hk * D + 2 * B * Hq * D) + 4 * B
-            b_ms, b_by = bound(nbytes, 4 * live * Hq * D, PEAK_BF16_FLOPS)
+            b_ms, b_by = bound(nbytes, 4 * live * Hq * D, "bf16")
             rec[f"B{B}"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                 bound_ms=b_ms, bound_by=b_by, rings=n)
             del sets, sdpa
@@ -6419,6 +6533,480 @@ def phase_chaos(ctx):
     ctx["chaos"] = record
 
 
+# ---------------------------------------------------------------------------
+# mesh: the port's sharding on the card
+# ---------------------------------------------------------------------------
+
+#: (a): starcoder2-3b whole on a 1x1 mesh, its prompts' lengths, the
+#: decode steps after them and the rings' length
+MESH_ARCH = "starcoder2-3b"
+MESH_PROMPTS = (24, 100, 200, 300)
+MESH_STEPS = 8
+MESH_SEQ = 512
+#: (c): the reference's own tolerances for the sharded runs it holds
+#: against one device (tests/test_sharding.py): the tensor-parallel LSTM
+#: and the decode on a sequence-sharded ring
+TOL_TP = 1e-5
+TOL_SEQ = 2e-4
+#: (c)'s shapes: the TP LSTM (H, B, T) and the reduced decode's (B, S,
+#: ring, steps)
+MESH_TP = (340, 4, 300)
+MESH_SEQ_CASE = (4, 24, 32, 3)
+
+
+def _mesh_group(backend: str, rank: int, world: int, store: str):
+    """A process group over ``world`` ranks meeting at a FileStore."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch import tree as tr
+
+    return all(bool(x.dtype == y.dtype and x.shape == y.shape
+                    and (x == y).all()) for x, y in
+               zip(tr.leaves(a), tr.leaves(b)))
+
+
+def _whole(tree):
+    """A tree's DTensor leaves gathered whole (plain leaves as they are)."""
+    from repro_torch import tree as tr
+    from repro_torch.sharding.partition import is_dtensor
+
+    return tr.tree_map(lambda t: t.full_tensor() if is_dtensor(t) else t,
+                       tree)
+
+
+def phase_mesh(ctx):
+    """(a) the sharded decode at full width and (b) the reduced train step
+    on a 1x1 mesh over NCCL, bit for bit against the same steps with no
+    mesh; (c) two ranks sharing the card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import rnn
+
+    dev = rnn.resolve_device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx["mesh_tmp"] = tmp
+    _mesh_group("nccl", 0, 1, os.path.join(tmp, "store1"))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        print(f"mesh: {mesh} over NCCL, world size 1")
+        _mesh_decode(ctx, dev, mesh)
+        _mesh_train(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    _free()
+    _mesh_two_ranks(ctx, dev)
+
+
+def _mesh_prompts(cfg, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(280)
+    return [torch.randint(0, cfg.vocab_size, (1, n), generator=g).to(dev)
+            for n in MESH_PROMPTS]
+
+
+def _mesh_batch_cache(caches):
+    """The prompts' B=1 caches as one B=4 cache (rows in prompt order)."""
+    import torch
+
+    return {"layers": {k: torch.cat([c["layers"][k] for c in caches], 1)
+                       for k in caches[0]["layers"]},
+            "idx": torch.cat([c["idx"] for c in caches])}
+
+
+def _mesh_profile(store: str, out: str):
+    """The profile worker: (a)'s mesh, params and prompts drawn as the
+    phase draws them, one decode step at B=4 after the prefills under the
+    profiler; saves {kernel: (device ms, launches seen)} to ``out``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers.common import sharding_ctx
+    from repro_torch.sharding.partition import (cache_shardings,
+                                                distribute, param_shardings)
+
+    _mesh_group("nccl", 0, 1, store)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cfg, params, _ = _load_model({}, "mesh profile", MESH_ARCH, None, "")
+    with sharding_ctx(mesh):
+        sharded = distribute(params, param_shardings(params, mesh,
+                                                     fsdp=False))
+        pre, caches = [], []
+        for tok in _mesh_prompts(cfg, torch.device("cuda")):
+            lg, c = tf.prefill(cfg, sharded, {"tokens": tok},
+                               seq_len=MESH_SEQ)
+            pre.append(_whole(lg))
+            caches.append(_whole(c))
+        cache = _mesh_batch_cache(caches)
+        cache = distribute(cache, cache_shardings(cache, mesh))
+        tok = torch.stack([x[0, -1].argmax() for x in pre])[:, None].int()
+        by_name, count = _device_kernels(
+            lambda: tf.decode_step(cfg, sharded, cache, {"tokens": tok}))
+    torch.save({k: device_share(by_name, count, k)
+                for k in ("mvm", "decode_attention")}, out)
+    torch.distributed.destroy_process_group()
+
+
+def _mesh_subprocess(tmp: str, task: str, world: int):
+    """Run ``world`` processes of this script as ``--mesh-worker`` for
+    ``task``; returns what rank 0 saved."""
+    import torch
+
+    out = os.path.join(tmp, f"{task}.pt")
+    store = os.path.join(tmp, f"store_{task}")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+         f"{task},{r},{world},{store},{out}"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            print(f"mesh: {task} rank {r} of {world} exited "
+                  f"{p.returncode}:\n" + log[-3000:])
+    check(all(p.returncode == 0 for p in procs),
+          f"mesh: a rank of the {task} run failed")
+    return torch.load(out), logs
+
+
+def _device_kernels(fn):
+    """(device us by kernel name, events by kernel name) of ``fn`` under a
+    CUDA-only torch.profiler trace that a finished kernel has opened, so
+    that the trace is live before ``fn``'s first launch (in one full run
+    a CPU-and-CUDA trace of a mesh step saw 178 of its 180 mvm
+    launches)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] += ev.time_range.elapsed_us()
+            count[ev.name] += 1
+    return by_name, count
+
+
+def _mesh_decode(ctx, dev, mesh):
+    """(a): prefill each prompt, then MESH_STEPS decode steps at B=4 of
+    their rows, with no mesh and on ``mesh`` (params by param_specs(fsdp=
+    False), rings by cache_specs); every logit and ring bit for bit."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, mvm
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers.common import sharding_ctx
+    from repro_torch.sharding.partition import (cache_shardings,
+                                                distribute, param_shardings)
+
+    cfg, params, _ = _load_model(ctx, "mesh", MESH_ARCH, None, "")
+    L = cfg.n_layers
+    prompts = _mesh_prompts(cfg, dev)
+
+    def run(p, on_mesh: bool):
+        """Prefill logits, the steps' logits, tick ms (CUDA events), the
+        final cache and each step's launches."""
+        pre, caches = [], []
+        for tok in prompts:
+            lg, c = tf.prefill(cfg, p, {"tokens": tok}, seq_len=MESH_SEQ)
+            pre.append(_whole(lg))
+            caches.append(_whole(c))
+        cache = _mesh_batch_cache(caches)
+        if on_mesh:
+            cache = distribute(cache, cache_shardings(cache, mesh))
+        tok = torch.stack([x[0, -1].argmax() for x in pre])[:, None].int()
+        outs, ticks, counts = [], [], []
+        for _ in range(MESH_STEPS):
+            n0 = (mvm.kernel_launches, decode_attention.kernel_launches)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            lg, cache = tf.decode_step(cfg, p, cache, {"tokens": tok})
+            e1.record()
+            torch.cuda.synchronize()
+            ticks.append((e0.elapsed_time(e1),
+                          (time.perf_counter() - t0) * 1e3))
+            counts.append((mvm.kernel_launches - n0[0],
+                           decode_attention.kernel_launches - n0[1]))
+            lg = _whole(lg)
+            outs.append(lg)
+            tok = lg[:, -1].argmax(-1)[:, None].int()
+        return pre, outs, ticks, _whole(cache), counts
+
+    plain = run(params, False)
+    with sharding_ctx(mesh):
+        sharded = distribute(params, param_shardings(params, mesh,
+                                                     fsdp=False))
+        placed = sorted({str(t.placements) for t in _leaves(sharded)})
+        reset_counts(mvm, decode_attention)
+        got = run(sharded, True)
+        launched = (mvm.kernel_launches, decode_attention.kernel_launches)
+        tally(ctx, mvm, decode_attention)
+    pre_same = all(bool(torch.equal(a, b)) for a, b in zip(plain[0], got[0]))
+    step_same = all(bool(torch.equal(a, b)) for a, b in zip(plain[1],
+                                                            got[1]))
+    ring_same = _tree_equal(plain[3], got[3])
+    per_step = set(got[4])
+    med = lambda xs, i: statistics.median(x[i] for x in xs)  # noqa: E731
+    print(f"mesh: {MESH_ARCH} L={L} on the 1x1 mesh, params placed "
+          f"{placed}; prefills of {list(MESH_PROMPTS)} tokens (rings of "
+          f"{MESH_SEQ}), {MESH_STEPS} decode steps at B=4: prefill logits "
+          f"bit-equal to no mesh {pre_same}, every step's logits {step_same}"
+          f", the final rings and cursor {ring_same}; launches a step (mvm, "
+          f"decode_attention) {sorted(per_step)} for 6 L = {6 * L}, L = {L}")
+    check(pre_same and step_same and ring_same,
+          "mesh: the 1x1 mesh's prefill or decode differs from no mesh")
+    check(per_step == {(6 * L, L)}, f"mesh: a step launched {per_step}, "
+                                    f"not ({6 * L}, {L})")
+    # the device's own count of one step's kernels, in a fresh process: in
+    # a full run, after the serving phases' traces, the profiler saw 178 of
+    # a mesh step's 180 mvm launches (twice), and all 180 in a process
+    # that had traced nothing before
+    prof = _mesh_subprocess(ctx["mesh_tmp"], "profile", 1)[0]
+    for kernel, n in (("mvm", 6 * L), ("decode_attention", L)):
+        ms, seen = prof[kernel]
+        print(f"mesh: profile (one step, a fresh process): {kernel} "
+              f"{ms:.3f} ms of device in {seen} launches (counted {n})")
+        check(seen == n, f"mesh: the profiler saw {seen} {kernel} kernels "
+                         f"for {n} launches")
+    tick = (med(plain[2], 0), med(got[2], 0), med(plain[2], 1),
+            med(got[2], 1))
+    print(f"mesh: a B=4 tick, median of {MESH_STEPS} (CUDA events / host "
+          f"wall, ms): no mesh {tick[0]:.3f} / {tick[2]:.3f}, 1x1 mesh "
+          f"{tick[1]:.3f} / {tick[3]:.3f}: DTensor's host cost "
+          f"{tick[3] - tick[2]:.3f} ms a step; card {ctx.get('card')}")
+    ctx["mesh"] = dict(tick_ms=tick[0], mesh_tick_ms=tick[1],
+                       wall_ms=tick[2], mesh_wall_ms=tick[3],
+                       launches=launched)
+    del params, sharded, plain, got
+    _free()
+
+
+def _mesh_train(dev, mesh):
+    """(b): the reduced starcoder2-3b train step on the 1x1 mesh (params,
+    moments and batch distributed) against the same step with no mesh."""
+    import torch
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers.common import sharding_ctx
+    from repro_torch.sharding.partition import (NamedSharding, batch_spec,
+                                                distribute, param_shardings)
+
+    cfg = get_reduced(MESH_ARCH)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(29))
+    opt = init_opt_state(cfg, params)
+    g = torch.Generator().manual_seed(281)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 16),
+                                     generator=g).to(dev)}
+    step = make_train_step(cfg)
+    clone = lambda t: tr.tree_map(lambda x: x.clone(), t)  # noqa: E731
+    p1, o1, m1 = step(clone(params), clone(opt), batch)
+    with sharding_ctx(mesh):
+        p2 = distribute(clone(params), param_shardings(params, mesh))
+        o2 = distribute(clone(opt), param_shardings(opt, mesh))
+        b2 = distribute(batch, tr.tree_map(lambda s: NamedSharding(mesh, s),
+                                           batch_spec(mesh, batch)))
+        p3, o3, m3 = step(p2, o2, b2)
+        p3, o3 = _whole(p3), _whole(o3)
+    same = (bool(torch.equal(m1["loss"], m3["loss"])), _tree_equal(p1, p3),
+            _tree_equal(o1, o3))
+    print(f"mesh: reduced {MESH_ARCH} train step (fp32, B=8 T=16) on the "
+          f"1x1 mesh: loss {float(m3['loss']):.6f} bit-equal to no mesh "
+          f"{same[0]}, params {same[1]}, AdamW state {same[2]}")
+    check(all(same), "mesh: the 1x1 mesh's train step differs from no mesh")
+
+
+def _mesh_tp_case(dev):
+    """(params, xs) of (c)'s TP LSTM layer, fp32, from seeded generators."""
+    import torch
+
+    from repro_torch.models.layers.lstm import init_lstm_layer
+
+    H, B, T = MESH_TP
+    params = init_lstm_layer(torch.Generator().manual_seed(282), H, H,
+                             torch.float32, device=dev)
+    g = torch.Generator().manual_seed(283)
+    xs = (torch.randn((B, T, H), generator=g) * 0.5).to(dev)
+    return params, xs
+
+
+def _mesh_seq_case(dev):
+    """(cfg, params, tokens) of (c)'s reduced decode."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tf
+
+    cfg = get_reduced(MESH_ARCH)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(284),
+                            device=dev)
+    B, S, _, _ = MESH_SEQ_CASE
+    g = torch.Generator().manual_seed(285)
+    return cfg, params, torch.randint(0, cfg.vocab_size, (B, S),
+                                      generator=g).to(dev)
+
+
+def _mesh_seq_decode(cfg, params, tokens):
+    """(c)'s prefill and decode steps: the steps' logits."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    B, _, ring, steps = MESH_SEQ_CASE
+    _, cache = tf.prefill(cfg, params, {"tokens": tokens}, seq_len=ring)
+    outs = []
+    for t in range(steps):
+        tok = torch.full((B, 1), t + 5, dtype=torch.int32,
+                         device=tokens.device)
+        lg, cache = tf.decode_step(cfg, params, cache, {"tokens": tok})
+        outs.append(_whole(lg))
+    return outs
+
+
+def mesh_worker(spec: str) -> int:
+    """A process of the mesh phase (``--mesh-worker task,rank,world,store,
+    out``): task "profile" (``_mesh_profile``), or "ranks", one of (c)'s
+    ranks: the TP LSTM and the sequence-sharded decode on cuda:0 over
+    gloo; rank 0 saves the gathered outputs to ``out``."""
+    task, rank, world, store, out = spec.split(",")
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, SRC)
+    if task == "profile":
+        _mesh_profile(store, out)
+        return 0
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import rnn
+    from repro_torch.core.unfolded import run_layer_unfolded_tp
+    from repro_torch.kernels import decode_attention, mvm
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.models.layers.common import DEFAULT_RULES, sharding_ctx
+    from repro_torch.sharding import local
+    from repro_torch.sharding.partition import distribute, param_shardings
+
+    dev = rnn.resolve_device("cuda")
+    torch.cuda.set_device(0)
+    _mesh_group("gloo", rank, world, store)
+    res = {}
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("model",))
+    params, xs = _mesh_tp_case(dev)
+    reset_counts(mvm)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = run_layer_unfolded_tp(params, xs, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["tp"] = hs.full_tensor().cpu()
+    res["tp_ms"] = statistics.median(times)
+    res["tp_mvm"] = mvm.kernel_launches // 3
+    # one step's collective alone: the gates' all-gather, (B, 4H/n) each
+    H, B, _ = MESH_TP
+    part = torch.randn((B, 4 * H // world), device=dev)
+    gather = lambda: local.all_gather_over(part, mesh, 0, 1)  # noqa: E731
+    gather()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        gather()
+    torch.cuda.synchronize()
+    res["gather_ms"] = (time.perf_counter() - t0) * 1e3 / 100
+    # the sequence-sharded decode: the ring's T over model, the weights
+    # (all below the rules' size threshold) and activations replicated:
+    # DTensor's own collectives crash under gloo on CUDA tensors
+    # (PyTorch 2.11), so the only collectives are the combine's, c10d's
+    mesh2 = init_device_mesh("cuda", (1, world),
+                             mesh_dim_names=("data", "model"))
+    cfg, params, tokens = _mesh_seq_case(dev)
+    with sharding_ctx(mesh2, rules={k: None for k in DEFAULT_RULES}):
+        sharded = distribute(params, param_shardings(params, mesh2,
+                                                     fsdp=False))
+        reset_counts(decode_attention)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["seq"] = [x.cpu() for x in _mesh_seq_decode(cfg, sharded, tokens)]
+        torch.cuda.synchronize()
+        res["seq_ms"] = (time.perf_counter() - t0) * 1e3
+        res["seq_attn"] = decode_attention.kernel_launches
+    res["backend"] = dist.get_backend()
+    if rank == 0:
+        torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_two_ranks(ctx, dev):
+    """(c): two processes on cuda:0 form a gloo group (NCCL refuses two
+    ranks on one device) and run mesh_worker; their gathered outputs
+    against the 1-rank card runs."""
+    from repro_torch.core.schedules import run_layer_unfolded
+
+    res = _mesh_subprocess(ctx["mesh_tmp"], "ranks", 2)[0]
+    params, xs = _mesh_tp_case(dev)
+    ref = run_layer_unfolded(params, xs).cpu()
+    tp_err = float((res["tp"] - ref).abs().max())
+    cfg, params, tokens = _mesh_seq_case(dev)
+    seq_ref = [x.cpu() for x in _mesh_seq_decode(cfg, params, tokens)]
+    seq_err = max(float((a - b).abs().max())
+                  for a, b in zip(res["seq"], seq_ref))
+    H, B, T = MESH_TP
+    L = cfg.n_layers
+    steps = MESH_SEQ_CASE[3]
+    print(f"mesh: two ranks on cuda:0 over {res['backend']}: "
+          f"run_layer_unfolded_tp H={H} B={B} T={T} (gate axis over "
+          f"model=2, {res['tp_mvm']} mvm launches a rank) max |diff| "
+          f"{tp_err:.3e} against the 1-rank card run (TOL_TP {TOL_TP:g}), "
+          f"{res['tp_ms']:.1f} ms a layer, the gates' all-gather "
+          f"{res['gather_ms']:.4f} ms a step; reduced {MESH_ARCH} decode, "
+          f"ring T={MESH_SEQ_CASE[2]} over model=2 ({res['seq_attn']} "
+          f"decode_attention launches a rank for {steps} steps x {L} "
+          f"layers), max |diff| {seq_err:.3e} against the 1-rank card "
+          f"decode (TOL_SEQ {TOL_SEQ:g}), {res['seq_ms']:.1f} ms for the "
+          f"prefill and {steps} steps")
+    check(tp_err <= TOL_TP, f"mesh: TP LSTM off by {tp_err:.3e}")
+    check(seq_err <= TOL_SEQ, f"mesh: sequence-sharded decode off by "
+                              f"{seq_err:.3e}")
+    check(res["tp_mvm"] == T and res["seq_attn"] == steps * L,
+          "mesh: the two-rank run's launches are not T mvm and steps x L "
+          "decode_attention a rank")
+    ctx["mesh"].update(tp_err=tp_err, seq_err=seq_err, tp_ms=res["tp_ms"],
+                       gather_ms=res["gather_ms"], seq_ms=res["seq_ms"])
+
+
 def phase_summary(ctx):
     rows = []
     for name, kernel in ROWS:
@@ -6433,7 +7021,9 @@ def phase_summary(ctx):
             "bound_by": m.get("bound_by"), "library_ms": m.get("library_ms"),
             **{k: m[k] for k in ("warm_ms", "condition", "b1_ms",
                                  "b1_bound_ms", "graph_ms", "wide_ms",
-                                 "wide_bound_ms")
+                                 "wide_bound_ms", "ml_ms", "ml_base_ms",
+                                 "ml_plain_ms", "ml_bound_ms",
+                                 "ml_max_rel_err")
                if k in m},
         })
     ctx["kernels"] = rows
@@ -6452,7 +7042,10 @@ def main(argv=None) -> int:
                          "device's busy share and time by kernel")
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--mesh-worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_worker:  # one rank of the mesh phase's two-rank run
+        return mesh_worker(args.mesh_worker)
     phases = [p for p in args.only.split(",") if p]
     bad = [p for p in phases if p not in PHASES]
     if bad:

@@ -18,7 +18,14 @@ dict keys sorted, lists in order), and a bfloat16 leaf is written as the
     (double-buffered — a new save waits for the previous one).
   * atomic: readers only trust directories with the commit marker, so a
     worker dying mid-write can never corrupt a restore.
-  * restore: into the structure, dtypes and devices of ``like``.
+  * restore: into the structure, dtypes and devices of ``like``; with
+    ``shardings`` (a tree of ``sharding.NamedSharding``) each leaf is laid
+    out on its mesh — the elastic restore: a checkpoint saved on one mesh
+    restores onto any other.
+  * under a process group: ``save`` gathers each DTensor leaf whole (a
+    collective: every rank calls it) and rank 0 writes; ``restore`` waits
+    at a barrier for rank 0's write, then every rank reads the files and
+    keeps its own shards (``wait``, which both call, is a barrier).
   * GC: keep the newest ``keep`` checkpoints.
 """
 from __future__ import annotations
@@ -34,13 +41,17 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.sharding.partition import is_dtensor
 
 #: the ``.npy`` descr of a bfloat16 leaf (``np.save`` of ml_dtypes')
 BF16_DESCR = "<V2"
 
 
 def _host(leaf) -> np.ndarray:
-    """A host numpy copy of a tensor leaf (bf16 as its raw 16-bit words)."""
+    """A host numpy copy of a tensor leaf (bf16 as its raw 16-bit words);
+    a DTensor leaf is gathered whole first."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
@@ -68,6 +79,12 @@ def _load_leaf(path: str, like: torch.Tensor) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(arr)).to(like.dtype)
     return t.to(like.device)
+
+
+def _group_rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _name(path) -> str:
@@ -111,6 +128,8 @@ class Checkpointer:
             os.rename(tmp, final)
             self._gc()
 
+        if _group_rank() != 0:  # rank 0 writes what every rank gathered
+            return
         if blocking:
             _write()
         else:
@@ -118,9 +137,13 @@ class Checkpointer:
             self._thread.start()
 
     def wait(self):
+        """Until the last save is on disk; under a process group on every
+        rank (a barrier after rank 0's writer is done)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
 
     # -- restore ---------------------------------------------------------
     def latest_step(self) -> Optional[int]:
@@ -133,19 +156,27 @@ class Checkpointer:
 
     def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Restore into the structure of ``like``: each leaf with the dtype
-        and on the device of ``like``'s leaf.  ``shardings`` is the
-        reference's (a mesh's placements); one process on one device has
-        none, so it is accepted and ignored."""
+        and on the device of ``like``'s (local) leaf; with ``shardings``
+        (a tree of ``NamedSharding`` of ``like``'s structure) laid out on
+        their meshes, every rank cutting its own shards from the file."""
+        self.wait()
         d = os.path.join(self.directory, f"step_{step}")
         if not os.path.exists(os.path.join(d, ".complete")):
             raise FileNotFoundError(f"no complete checkpoint at {d}")
-        leaves = [torch.as_tensor(x) for x in tr.leaves(like)]
+        leaves = [x.to_local() if is_dtensor(x) else torch.as_tensor(x)
+                  for x in tr.leaves(like)]
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         if manifest["num_leaves"] != len(leaves):
             raise AssertionError("structure mismatch")
         out = [_load_leaf(os.path.join(d, f"arr_{i}.npy"), like_leaf)
                for i, like_leaf in enumerate(leaves)]
+        if shardings is not None:
+            from repro_torch.sharding.partition import shard_tensor
+            shard_leaves = tr.leaves(shardings)
+            if len(shard_leaves) != len(out):
+                raise AssertionError("shardings: structure mismatch")
+            out = [shard_tensor(t, s) for t, s in zip(out, shard_leaves)]
         return tr.unflatten(like, out)
 
     # -- gc ----------------------------------------------------------------

@@ -13,7 +13,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401 (re-export)
+from repro_torch.configs.base import (  # noqa: F401 (re-export)
+    H100, SHAPES, HardwareConfig, ModelConfig, ShapeConfig, supports_shape)
 
 #: the reference's order (``repro.configs._ARCH_MODULES``)
 _ARCH_MODULES: Dict[str, str] = {

@@ -1,6 +1,8 @@
-"""Model configuration dataclass (a copy of ``repro.configs.base``'s
-``ModelConfig``; the shape and hardware tables of that module describe the
-transformer side and the TPU, which this port does not carry).
+"""Model, input-shape and hardware configuration — the port of
+``repro.configs.base``: ``ModelConfig`` and the input shapes
+(``ShapeConfig``, ``SHAPES``, ``supports_shape``) as the reference has
+them; the hardware model is the H100's (``H100``), where the reference
+describes a TPU (its ``V5E`` is not ported).
 
 Configs are frozen (hashable) so they can key plan caches and tables.
 """
@@ -151,3 +153,63 @@ class ModelConfig:
     def model_flops_per_token(self) -> int:
         """Standard 6*N_active*D-style estimate (per token, fwd+bwd=6N, fwd=2N)."""
         return 2 * self.num_active_params(include_embed=False)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def supports_shape(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """Applicability per assignment: long_500k needs sub-quadratic attention."""
+    if shape.name != "long_500k":
+        return True
+    if model.family in ("ssm",):
+        return True
+    kinds = set(model.layer_kinds())
+    if "attn" in kinds and model.window == 0:
+        return False  # pure full attention at 512k context: skip (documented)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Hardware model: one NVIDIA H100 SXM
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """One card's peaks (NVIDIA's H100 SXM data sheet, dense, at its 700 W
+    power limit).  ``nvlink_bw`` stands where the reference's TPU has its
+    ICI link rate (read by no code, as that rate is not in the
+    reference), and ``smem_bytes`` where it has VMEM: the shared memory
+    one block may opt in to (227 KiB of an SM's 228), which the sequence
+    kernels' plans read as ``kernels.common.SEQ_MAX_SMEM``.  The dry run
+    reads ``hbm_bytes``; the cost bounds read the peaks."""
+
+    name: str = "nvidia-h100-sxm"
+    peak_flops_bf16: float = 989e12  # per card
+    peak_flops_fp32: float = 67e12
+    hbm_bw: float = 3.35e12  # bytes/s per card
+    nvlink_bw: float = 450e9  # bytes/s per direction (NVLink 4, 18 links)
+    hbm_bytes: int = 80 * 10**9
+    smem_bytes: int = 232448  # csrc's kMaxSmem
+
+
+H100 = HardwareConfig()

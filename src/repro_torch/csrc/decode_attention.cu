@@ -68,6 +68,13 @@
 //  - Every output's order of summation depends on (T, D) and the row's own
 //    valid only, never on B or on the run: two runs are bit-equal, and a
 //    row of a B = 4 call equals the same row at B = 1 bit for bit.
+//  - The (m, l) form (a non-null ml): for a ring sharded over T across
+//    ranks, which combine their slices' outputs.  The kernel then also
+//    writes each head's softmax statistics, m (the max of its live
+//    scores) and l (sum of exp(s - m)), the merge's own m_row and l, into
+//    ml (B, Hq) as float2, and its output o in fp32, unrounded, into out.
+//    A row with no live slot (valid < 1) gives the combine's identity,
+//    o = 0, m = -inf, l = 0, where the plain form averages v.
 
 #include <cooperative_groups.h>
 
@@ -215,7 +222,8 @@ template <typename QT, typename KT, int VEC, int NH, bool MMA>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
             const KT* __restrict__ v, const int* __restrict__ valid,
-            QT* __restrict__ out, int T, int Hk, int G, int D) {
+            QT* __restrict__ out, float2* __restrict__ ml, int T, int Hk,
+            int G, int D) {
   constexpr int PW = VEC > 1 ? 4 : 1;  // columns per thread in (3)
   static_assert(!MMA || (kWarps == 16 && kHeads == 16 && kTile == 32),
                 "the tensor-core layout: 2 x 8 warps of 8 slots, 16 rows");
@@ -277,6 +285,20 @@ attn_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     }
   }
   const int vb = valid[b];
+  // the (m, l) form's identity for a row with no live slot; every CTA of
+  // the cluster (one row) returns here, before the first cluster barrier
+  float* out32 = reinterpret_cast<float*>(out) +
+                 ((size_t)b * Hq + (size_t)h * G + g0) * D;
+  float2* mlb =
+      ml == nullptr ? nullptr : ml + (size_t)b * Hq + (size_t)h * G + g0;
+  if (ml != nullptr && vb < 1) {
+    if (split == 0) {
+      for (int i = threadIdx.x; i < ng * D; i += kThreads) out32[i] = 0.f;
+      for (int g = threadIdx.x; g < ng; g += kThreads)
+        mlb[g] = make_float2(-__int_as_float(0x7f800000), 0.f);
+    }
+    return;
+  }
   const bool all_masked = vb < 1;
   const int vlim = all_masked ? T : min(vb, T);  // slots to read
   // this CTA's tiles of the ring: split, split + S, split + 2 S, ... of
@@ -642,6 +664,7 @@ attn_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     if (g < ng) {
       w_s[g * kMaxSplits + r] = w;
       if (r == 0) den_s[g] = fmaxf(l, 1e-30f);
+      if (r == 0 && mlb != nullptr) mlb[g] = make_float2(m_row, l);
     }
   }
   __syncthreads();
@@ -682,9 +705,14 @@ attn_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       for (int e = 0; e < PW; ++e) sum[e] = __fadd_rn(sum[e], part[e]);
     }
     const float den = den_s[i / D];
+    if (mlb != nullptr) {
 #pragma unroll
-    for (int e = 0; e < PW; ++e)
-      ob[i + e] = from_f32<QT>(__fdiv_rn(sum[e], den));
+      for (int e = 0; e < PW; ++e) out32[i + e] = __fdiv_rn(sum[e], den);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PW; ++e)
+        ob[i + e] = from_f32<QT>(__fdiv_rn(sum[e], den));
+    }
   }
 }
 
@@ -726,6 +754,7 @@ struct LaunchOp {
   const void *q, *k, *v;
   const int* valid;
   void* out;
+  float2* ml;
   int B, T, Hk, G, D, S;
   cudaStream_t stream;
   template <typename QT, typename KT, int VEC, int NH, bool MMA>
@@ -738,7 +767,7 @@ struct LaunchOp {
                              static_cast<const QT*>(q),
                              static_cast<const KT*>(k),
                              static_cast<const KT*>(v), valid,
-                             static_cast<QT*>(out), T, Hk, G, D);
+                             static_cast<QT*>(out), ml, T, Hk, G, D);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
 };
@@ -798,17 +827,18 @@ cudaError_t by_types(const Op& op, int q_type, int kv_type) {
 // Plain C entry points (bound with ctypes).  Layouts, all contiguous:
 // q (B, Hq, D) and out (B, Hq, D) in q's type, k and v (B, T, Hk, D) in
 // the cache type (0 = fp32, 1 = bf16 for q_type / kv_type), valid (B,)
-// int32.  Hq = Hk * G; 1 <= D <= 256; splits S in {1, 2, 4, 8, 16}, the
+// int32; ml null, or (B, Hq) float2 (m, l) with out then fp32.  Hq = Hk * G; 1 <= D <= 256; splits S in {1, 2, 4, 8, 16}, the
 // CTAs of one cluster.
 
 // Launches on `stream` and returns cudaGetLastError() (0 = ok).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid,
-                                       void* out, int B, int T, int Hk,
-                                       int G, int D, int splits, int q_type,
-                                       int kv_type, void* stream) {
+                                       void* out, void* ml, int B, int T,
+                                       int Hk, int G, int D, int splits,
+                                       int q_type, int kv_type,
+                                       void* stream) {
   const dattn::LaunchOp op{q, k, v, static_cast<const int*>(valid), out,
-                           B, T, Hk, G, D, splits,
+                           static_cast<float2*>(ml), B, T, Hk, G, D, splits,
                            static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dattn::by_types(op, q_type, kv_type));
 }

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import H100
+
 #: the dtype names plans, slot signatures and configs key on (the JAX
 #: package's spelling, so the two packages' plans compare as strings)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -193,10 +195,11 @@ def operand(t):
 
 
 def on_cuda(name: str, device) -> bool:
-    """True for the CUDA kernel, False for the plain CPU version."""
+    """True for the CUDA kernel, False for the plain CPU version (which
+    also traces shapes on the ``meta`` device: ``launch.dryrun``)."""
     if device.type == "cuda":
         return True
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: tensors on {device}; the port runs on cuda "
                      "(kernel) or cpu (plain version)")
@@ -303,7 +306,7 @@ def decode_clusters(family: str, B: int, H: int, w_dtype=torch.bfloat16,
 #: CTA may opt in to, the widest H, and what a CTA's shared memory holds
 #: besides U: its threads' partials for up to _SEQ_ROWS batch rows, and
 #: the per-thread rings of a CTA that streams part of U.
-SEQ_MAX_SMEM = 232448
+SEQ_MAX_SMEM = H100.smem_bytes
 SEQ_MAX_H = DECODE_MAX_H
 _SEQ_THREADS = 512
 _SEQ_ROWS = 4

@@ -10,6 +10,6 @@ from __future__ import annotations
 from repro_torch.kernels.build import I, P, bind, entry, register
 
 register("decode_attention", "decode_attention_launch",
-         [P] * 5 + [I] * 8 + [P])
+         [P] * 6 + [I] * 8 + [P])
 
 __all__ = ["bind", "entry"]

@@ -1,6 +1,8 @@
 """Public entry point of the flash-decode attention kernel:
 ``decode_attention`` (one query token per sequence against its KV cache,
-ONE launch).
+ONE launch).  Its (m, l) form (``return_stats=True``) also gives each
+head's softmax statistics and the output in fp32, for a ring sharded over
+T whose slices are combined across ranks.
 
 The device of the tensors decides how it runs: on the CPU it runs the
 plain PyTorch version (``decode_attention_plain``, the Pallas kernel's
@@ -59,13 +61,19 @@ def default_block_t(T: int) -> int:
     return block_t
 
 
-def decode_attention_plain(q, k_cache, v_cache, valid, *, block_t: int):
+def decode_attention_plain(q, k_cache, v_cache, valid, *, block_t: int,
+                           return_stats: bool = False):
     """What the Pallas kernel computes, in plain PyTorch: q (B, Hq, D),
     caches (B, T, Hk, D), valid (B,) -> (B, Hq, D) in q's dtype.
 
     The cache is walked in tiles of ``block_t`` slots with the kernel's
     online softmax, everything in fp32 (p is not rounded to v's dtype, as
-    it is in ``decode_attention_ref``)."""
+    it is in ``decode_attention_ref``).
+
+    ``return_stats``: (o, m, l), o (B, Hq, D) in fp32, m the max of each
+    head's live scores and l the sum of their exp(s - m), (B, Hq) fp32;
+    a row with no live slot gives (0, -inf, 0), the identity of the
+    combine over T's shards."""
     B, Hq, D = q.shape
     T, Hk = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hk
@@ -89,14 +97,22 @@ def decode_attention_plain(q, k_cache, v_cache, valid, *, block_t: int):
         acc = acc * alpha[..., None] + torch.einsum("bhgt,bthd->bhgd", p, v)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(B, Hq, D).to(q.dtype)
+    if not return_stats:
+        return out.reshape(B, Hq, D).to(q.dtype)
+    empty = (valid < 1)[:, None, None]
+    out = torch.where(empty[..., None], 0.0, out)
+    m = torch.where(empty, float("-inf"), m)
+    l = torch.where(empty, 0.0, l)
+    return out.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
 
 
-def decode_attention_cuda(q, k_cache, v_cache, valid):
+def decode_attention_cuda(q, k_cache, v_cache, valid,
+                          return_stats: bool = False):
     """Launch ``csrc/decode_attention.cu`` on the current stream; shapes as
-    ``decode_attention_plain``; q and the caches fp32 or bf16 (k and v of
-    one dtype), valid int32.  One launch over clusters of ``splits(T)``
-    CTAs, which take the ring's TILE-slot tiles in turn."""
+    ``decode_attention_plain`` (its (m, l) form with ``return_stats``); q
+    and the caches fp32 or bf16 (k and v of one dtype), valid int32.  One
+    launch over clusters of ``splits(T)`` CTAs, which take the ring's
+    TILE-slot tiles in turn."""
     B, Hq, D = q.shape
     T, Hk = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
@@ -115,20 +131,27 @@ def decode_attention_cuda(q, k_cache, v_cache, valid):
                          f"at most {MAX_HEAD_DIM}")
     q_type = dtype_flag("decode_attention", "q", q)
     kv_type = dtype_flag("decode_attention", "k_cache", k_cache)
-    out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Hq, D), device=dev,
+                      dtype=torch.float32 if return_stats else q.dtype)
+    ml = (torch.empty((B, Hq, 2), dtype=torch.float32, device=dev)
+          if return_stats else None)
     launch = kernel.entry("decode_attention")
     with torch.cuda.device(dev):
         rc = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    valid.data_ptr(), out.data_ptr(), B, T, Hk, G, D,
+                    valid.data_ptr(), out.data_ptr(),
+                    None if ml is None else ml.data_ptr(), B, T, Hk, G, D,
                     splits(T), q_type, kv_type,
                     torch.cuda.current_stream(dev).cuda_stream)
     launched("decode_attention", rc)
     count_launch(decode_attention)
+    if return_stats:
+        return out, ml[..., 0], ml[..., 1]
     return out
 
 
 @counted
-def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0):
+def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0,
+                     return_stats: bool = False):
     """Flash-decode GQA attention.  q (B, Hq, D) or (B, 1, Hq, D); caches
     (B, T, Hk, D); valid (B,) int32, the live slots of each row (slots
     t < valid attend).  Returns q's shape and dtype.
@@ -138,7 +161,10 @@ def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0):
     reference.  The plain version walks the cache in these tiles; the CUDA
     kernel splits T by its own rule (``splits``) and ignores ``block_t``
     once it is checked, as the sequence kernels ignore theirs: the tiling
-    changes only the order in which fp32 sums are taken."""
+    changes only the order in which fp32 sums are taken.
+
+    ``return_stats``: (o, m, l) as ``decode_attention_plain`` gives them,
+    o in fp32 (q's shape)."""
     decode_attention.calls += 1
     squeeze = q.dim() == 4
     if squeeze:
@@ -157,10 +183,15 @@ def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0):
     if on_cuda("decode_attention", q.device):
         o = decode_attention_cuda(operand(q), operand(k_cache),
                                   operand(v_cache),
-                                  operand(valid.to(torch.int32)))
+                                  operand(valid.to(torch.int32)),
+                                  return_stats)
     else:
         o = decode_attention_plain(q, k_cache, v_cache, valid,
-                                   block_t=block_t)
+                                   block_t=block_t,
+                                   return_stats=return_stats)
+    if return_stats:
+        o, m, l = o
+        return (o[:, None] if squeeze else o), m, l
     return o[:, None] if squeeze else o
 
 

@@ -9,9 +9,11 @@ optimizer state, it updates them in place and returns them
 (``optim.optimizer``).  On CUDA tensors the RecurrentGemma blocks run the
 ``rglru_scan`` kernel forward and the ``rglru_scan_bwd`` kernel backward.
 
-The reference's abstract inputs (``batch_struct``, ``input_specs``) need
-its ``ShapeConfig``, which the port takes with its sharding (ROADMAP.md,
-Queue 1 item 11).
+Under a mesh (``models.layers.common.sharding_ctx`` and DTensor params,
+``sharding.partition``) the same step runs on DTensors: each gradient is
+reduced to its parameter's placements (``_as_param``) before the update.
+The abstract inputs of a step (``batch_struct``, ``input_specs``) are
+tensors on the ``meta`` device: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import tree as tr
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (AdamWConfig, CompressionConfig, apply_updates,
                                compress, init_error_state, init_state)
+from repro_torch.sharding.partition import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +42,22 @@ class TrainSettings:
 # ---------------------------------------------------------------------------
 
 
+def _as_param(g, p):
+    """A gradient laid out as its parameter: under a mesh a DTensor
+    gradient comes out of autograd as the backward left it (a sum over
+    the batch's shards is ``Partial``), and is reduced or resharded to
+    the parameter's placements, as GSPMD gives a gradient its
+    parameter's sharding."""
+    if is_dtensor(p) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _whole(t):
+    """A scalar metric as a plain tensor (a DTensor's reduced value)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def value_and_grad(cfg: ModelConfig, params, batch):
     """((total, metrics), grads): ``loss_fn`` and its gradient in each
     leaf's dtype (zeros for a leaf the loss does not reach, as
@@ -49,10 +68,10 @@ def value_and_grad(cfg: ModelConfig, params, batch):
     with torch.enable_grad():
         total, metrics = tf.loss_fn(cfg, tr.unflatten(params, views), batch)
         grads = torch.autograd.grad(total, views, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _as_param(g, p)
              for p, g in zip(flat, grads)]
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return (total.detach(), metrics), tr.unflatten(params, grads)
+    metrics = {k: _whole(v.detach()) for k, v in metrics.items()}
+    return (_whole(total.detach()), metrics), tr.unflatten(params, grads)
 
 
 def make_train_step(cfg: ModelConfig, settings: TrainSettings = TrainSettings()):
@@ -68,8 +87,8 @@ def make_train_step(cfg: ModelConfig, settings: TrainSettings = TrainSettings())
                               + tuple(x.shape[1:]))
                 return x[i]
 
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in tr.leaves(params)]
+            g_acc = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in tr.leaves(params)]
             loss_sum = None
             for i in range(n_micro):
                 mb = {k: micro(v, i) for k, v in batch.items()}
@@ -95,6 +114,7 @@ def make_train_step(cfg: ModelConfig, settings: TrainSettings = TrainSettings())
             out_state["err"] = new_err
         elif "err" in opt_state:
             out_state["err"] = opt_state["err"]
+        om = {k: _whole(v) for k, v in om.items()}
         return new_params, out_state, {**metrics, **om}
 
     return train_step
@@ -129,5 +149,54 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
+# ---------------------------------------------------------------------------
+# abstract inputs (meta-device stand-ins; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def batch_struct(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
+    meta = torch.device("meta")
+    if cfg.embed_stub:
+        return {
+            "embeds": torch.empty((batch, seq, cfg.d_model),
+                                  dtype=torch.bfloat16, device=meta),
+            "labels": torch.empty((batch, seq), dtype=torch.int32,
+                                  device=meta),
+        }
+    return {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                  device=meta)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                settings: TrainSettings = TrainSettings(), seed: int = 0
+                ) -> Dict[str, Any]:
+    """Abstract (``meta``-device) arguments for the step of ``shape.mode``:
+    the params (drawn from no generator: a meta tensor has no values), the
+    optimizer state, the batch and, for decode, the cache."""
+    meta = torch.device("meta")
+    gen = torch.Generator().manual_seed(seed)
+    params = tf.init_params(cfg, gen, device=meta)
+    if shape.mode == "train":
+        opt = init_opt_state(cfg, params, settings)
+        batch = batch_struct(cfg, shape.global_batch, shape.seq_len)
+        return {"params": params, "opt_state": opt, "batch": batch}
+    if shape.mode == "prefill":
+        batch = batch_struct(cfg, shape.global_batch, shape.seq_len)
+        return {"params": params, "batch": batch}
+    if shape.mode == "decode":
+        cache = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
+                              device=meta)
+        if cfg.embed_stub:
+            batch = {"embeds": torch.empty(
+                (shape.global_batch, 1, cfg.d_model), dtype=torch.bfloat16,
+                device=meta)}
+        else:
+            batch = {"tokens": torch.empty((shape.global_batch, 1),
+                                           dtype=torch.int32, device=meta)}
+        return {"params": params, "cache": cache, "batch": batch}
+    raise ValueError(shape.mode)
+
+
 __all__ = ["TrainSettings", "value_and_grad", "make_train_step",
-           "init_opt_state", "make_prefill_step", "make_serve_step"]
+           "init_opt_state", "make_prefill_step", "make_serve_step",
+           "batch_struct", "input_specs"]

@@ -6,11 +6,20 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --reduced --steps 100 --compression int8 --fail-at 30   # FT demo
 
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch starcoder2-3b --reduced --mesh-model 2   # a 2x2 mesh
+
 Runs on the card by default (``--device cuda``, through
 ``rnn.resolve_device``, which also keeps fp32 products out of TF32); the
 weights are drawn from a ``torch.Generator`` on that device, seeded with
-``--seed``.  Prints the reference's JSON summary.  ``--mesh-model`` > 1
-(tensor parallelism) waits for the port's sharding.
+``--seed``.  Prints the reference's JSON summary (rank 0).
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks form a process group
+from torchrun's environment (NCCL on the card, gloo on the CPU), and
+``host_mesh(model=--mesh-model)`` lays them out as a (data, model) mesh:
+the params and optimizer state are sharded by ``param_specs`` and each
+batch by ``batch_spec``, and a restart restores onto that mesh.  In a
+single process ``--mesh-model`` > 1 raises.
 """
 from __future__ import annotations
 
@@ -25,13 +34,17 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data import DataConfig, SyntheticPipeline
+from repro_torch import tree as tr
+from repro_torch.launch.mesh import host_mesh
 from repro_torch.launch.steps import (TrainSettings, init_opt_state,
                                       make_train_step)
+from repro_torch.models.layers.common import sharding_ctx
 from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, CompressionConfig
 from repro_torch.rnn.compiled import resolve_device
 from repro_torch.runtime import FTConfig, TrainLoop
-from repro_torch.runtime.errors import not_ported
+from repro_torch.sharding.partition import (NamedSharding, batch_spec,
+                                            distribute, param_shardings)
 
 
 def main(argv=None):
@@ -57,11 +70,18 @@ def main(argv=None):
                          "PyTorch versions)")
     args = ap.parse_args(argv)
 
-    if args.mesh_model > 1:
-        raise not_ported(f"--mesh-model {args.mesh_model} (tensor "
-                         "parallelism over a device mesh)", "Queue 1 item 11")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and args.mesh_model > 1:
+        raise ValueError(
+            f"--mesh-model {args.mesh_model} needs a process group of a "
+            f"multiple of {args.mesh_model} ranks; this process has world "
+            f"size 1: launch with torchrun --nproc-per-node "
+            f"{args.mesh_model} -m repro_torch.launch.train ...")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     dev = resolve_device(args.device)
+    mesh = None
+    if world > 1:
+        mesh = _mesh(dev, args.mesh_model)
 
     settings = TrainSettings(
         adamw=AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -79,25 +99,39 @@ def main(argv=None):
         args.seed))
     opt_state = init_opt_state(cfg, params, settings)
     train_step = make_train_step(cfg, settings)
+    p_sh = o_sh = None
+    if mesh is not None:  # every rank drew the same tree: each keeps its shards
+        p_sh = param_shardings(params, mesh)
+        o_sh = param_shardings(opt_state, mesh)
+        params = distribute(params, p_sh)
+        opt_state = distribute(opt_state, o_sh)
 
     def batch_fn(step):
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in data.batch_at(step).items()}
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        if mesh is None:
+            return batch
+        return distribute(batch, tr.tree_map(
+            lambda s: NamedSharding(mesh, s), batch_spec(mesh, batch)))
 
     loop = TrainLoop(train_step, batch_fn,
                      FTConfig(ckpt_dir=f"{args.ckpt_dir}/{cfg.name}",
-                              ckpt_every=args.ckpt_every))
+                              ckpt_every=args.ckpt_every),
+                     shardings=(p_sh, o_sh))
     if args.fail_at >= 0:
         loop.failure_at_steps.add(args.fail_at)
 
     t0 = time.time()
-    params, opt_state, step = loop.run(params, opt_state, 0, args.steps)
+    with sharding_ctx(mesh):
+        params, opt_state, step = loop.run(params, opt_state, 0, args.steps)
     wall = time.time() - t0
 
     hist = loop.metrics_history
     first = np.mean([h["loss"] for h in hist[:5]])
     last = np.mean([h["loss"] for h in hist[-5:]])
     tok_s = args.batch * args.seq * len(hist) / wall
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        return loop
     print(json.dumps({
         "arch": cfg.name, "device": str(dev), "steps": step,
         "wall_s": round(wall, 1),
@@ -110,6 +144,16 @@ def main(argv=None):
     if args.steps >= 20 and not last < first:
         raise AssertionError("training did not reduce loss")
     return loop
+
+
+def _mesh(dev, model: int):
+    """The (data, model) mesh over torchrun's ranks, the process group
+    formed from its environment; each rank on its own card."""
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    torch.distributed.init_process_group(backend)
+    return host_mesh(model=model, device_type=dev.type)
 
 
 if __name__ == "__main__":

@@ -28,13 +28,16 @@ import math
 import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_kernel
+from repro_torch.models.layers.common import on_mesh
+from repro_torch.sharding.partition import is_dtensor
 
 NEG_INF = -1e30
 
 
 def _inv_sqrt(D: int) -> torch.Tensor:
     """1 / sqrt(D) in fp32, as the reference computes it."""
-    return 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
+    return on_mesh(1.0 / torch.sqrt(torch.tensor(float(D),
+                                                 dtype=torch.float32)))
 
 
 def _gqa_scores(q, k):
@@ -63,7 +66,7 @@ def causal_mask(S: int, T: int, q_offset=0, window: int = 0, device="cpu"):
     if window:
         ok &= kpos > qpos - window
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    return torch.where(ok, zero, NEG_INF)
+    return on_mesh(torch.where(ok, zero, NEG_INF))
 
 
 def naive_attention(q, k, v, *, window: int = 0, q_offset=0):
@@ -97,19 +100,22 @@ def blockwise_attention(q, k, v, *, q_chunk: int = 512, kv_chunk: int = 1024):
     for i in range(nq):
         qi = q[:, i * q_chunk:(i + 1) * q_chunk].reshape(
             B, q_chunk, Hk, G, D).float()
-        qpos = i * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
-        m = torch.full((B, Hk, G, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, Hk, G, q_chunk), dtype=torch.float32, device=dev)
-        o = torch.zeros((B, Hk, G, q_chunk, D), dtype=torch.float32,
-                        device=dev)
+        qpos = on_mesh(i * q_chunk + torch.arange(q_chunk,
+                                                  device=dev)[:, None])
+        m = on_mesh(torch.full((B, Hk, G, q_chunk), NEG_INF,
+                               dtype=torch.float32, device=dev))
+        l = on_mesh(torch.zeros((B, Hk, G, q_chunk), dtype=torch.float32,
+                                device=dev))
+        o = on_mesh(torch.zeros((B, Hk, G, q_chunk, D), dtype=torch.float32,
+                                device=dev))
         for j in range(nk):
             if j * kv_chunk > (i + 1) * q_chunk - 1:
                 break  # wholly above the diagonal (module doc)
             kj = k[:, j * kv_chunk:(j + 1) * kv_chunk]
             vj = v[:, j * kv_chunk:(j + 1) * kv_chunk]
             s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj.float()) * scale
-            kpos = j * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+            kpos = on_mesh(j * kv_chunk
+                           + torch.arange(kv_chunk, device=dev)[None, :])
             s = torch.where(kpos <= qpos, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -160,7 +166,7 @@ def local_attention(q, k, v, *, window: int):
     kpos = torch.arange(2 * W, device=dev)[None, :]
     ok = (kpos <= qpos) & (kpos > qpos - W)
     first = torch.arange(n, device=dev) == 0  # chunk 0 has no previous chunk
-    ok = ok[None, :, :] & ~(first[:, None, None] & (kpos < W)[None])
+    ok = on_mesh(ok[None, :, :] & ~(first[:, None, None] & (kpos < W)[None]))
     s = torch.where(ok[None, :, None, None, :, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bnhgqk,bnkhd->bnqhgd", p.to(v2.dtype).float(),
@@ -188,13 +194,21 @@ def decode_attention(q, k_cache, v_cache, cache_index, *, window: int = 0):
     The kernel has no window mask.  The model passes ``window=0`` when the
     ring bounds the cache and otherwise a window larger than the cache, so
     that every live slot attends; a window that would mask a live slot
-    (0 < window < T) raises."""
+    (0 < window < T) raises.
+
+    Under a mesh (DTensor operands) the kernel runs on each rank's slice
+    of the ring and the slices' (o, m, l) are combined
+    (``sharding.local.decode_attention``)."""
     T = k_cache.shape[1]
     if 0 < window < T:
         raise ValueError(
             f"decode_attention: window={window} < cache length {T} would "
             "mask live slots, and the decode kernel masks only slots at or "
             "past cache_index; the model never asks for it")
+    if is_dtensor(q, k_cache, v_cache, cache_index):
+        from repro_torch.sharding import local
+        return local.decode_attention(decode_kernel.decode_attention, q,
+                                      k_cache, v_cache, cache_index)
     return decode_kernel.decode_attention(q, k_cache, v_cache, cache_index)
 
 

@@ -1,15 +1,29 @@
 """Shared building blocks of the model layers: the dtype policy, parameter
-initialisers, the products with fp32 accumulation, and the scan over
-time of the recurrent blocks."""
+initialisers, the products with fp32 accumulation, the scan over time of
+the recurrent blocks, and the mesh helpers.
+
+Model code annotates activations with logical axis names (``shard_act``);
+a thread-local context (``sharding_ctx``) binds those names to physical
+mesh axes.  Without an active context the annotation is a no-op, so a run
+with no mesh never touches ``torch.distributed``.  Under a ``DeviceMesh``
+the parameters are DTensors, ``shard_act`` is ``DTensor.redistribute``
+(JAX's ``with_sharding_constraint``), and every tensor the model creates
+itself (rope tables, masks, scan carries, zero states, MoE buffers) joins
+them as a replicated DTensor through ``on_mesh``.
+"""
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels.common import torch_dtype
 from repro_torch.kernels.mvm_tile.ops import mvm
+from repro_torch.sharding.partition import (P, axis_sizes, is_dtensor,
+                                            placements)
 
 
 def param_dtype(cfg) -> torch.dtype:
@@ -24,7 +38,10 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
     in float32 from ``gen`` on the generator's own device and then cast
     and moved, so one seed gives the same weights on every device it is
     moved to.  (A CUDA generator draws other numbers than a CPU one: the
-    full-width models draw on the card.)"""
+    full-width models draw on the card.)  On the ``meta`` device nothing
+    is drawn (``launch.steps.input_specs``)."""
+    if torch.device(device).type == "meta":  # shapes only: nothing drawn
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     if scale is None:
         scale = 1.0 / math.sqrt(max(fan_in, 1))
@@ -49,11 +66,20 @@ def project(x, w, *, decode: bool):
     projection stay ``torch.matmul`` in every mode: the RG-LRU gates'
     ``x @ w_a + b_a`` and ``x @ w_x + b_x`` (the reference rounds the
     product to the model dtype before the bias add, which is not mvm's
-    fp32 bias epilogue) and the fp32-logit unembed."""
+    fp32 bias epilogue) and the fp32-logit unembed.
+
+    Under a mesh (DTensor operands) the kernel runs on each rank's local
+    shards (``sharding.local.matmul``)."""
     if not decode:
         return torch.matmul(x, w)
     lead = x.shape[:-1]
-    return mvm(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if is_dtensor(x2, w):
+        from repro_torch.sharding import local
+        y = local.matmul(mvm, x2, w)
+    else:
+        y = mvm(x2, w)
+    return y.reshape(*lead, w.shape[1])
 
 
 def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -81,7 +107,11 @@ def bf16_split(x: torch.Tensor):
 
 def _mm_f32(a, b):
     """a @ b of bf16 operands summed in fp32 into an fp32 result: ``mm`` or
-    ``bmm`` with ``out_dtype`` (``aten::mm.dtype`` / ``aten::bmm.dtype``)."""
+    ``bmm`` with ``out_dtype`` (``aten::mm.dtype`` / ``aten::bmm.dtype``);
+    a 2-D product of DTensors on their local shards (``sharding.local``)."""
+    if a.dim() == 2 and is_dtensor(a, b):
+        from repro_torch.sharding import local
+        return local.matmul(lambda x, w, _: _mm_f32(x, w), a, b)
     mm = torch.mm if a.dim() == 2 else torch.bmm
     return mm(a, b, out_dtype=torch.float32)
 
@@ -175,3 +205,118 @@ def chunked_scan(step, carry, xs, chunk: int = 128, remat: bool = True):
         carry, y = step(carry, _at(xs, t))
         ys.append(y)
     return carry, _stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# logical-axis sharding annotations
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+# logical name -> physical mesh axes (tuple -> sharded over multiple axes)
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "qdim": "model",
+    "ff": "model",
+    "experts": "model",
+    "capacity": None,
+    "ff_fsdp": ("pod", "data"),
+    "vocab": "model",
+    "state": "model",
+    "cache_seq": "model",
+}
+
+
+def _axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes.get(a, 1)
+    return n
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, rules: Optional[dict] = None):
+    """Bind the logical names to ``mesh``'s axes (a ``DeviceMesh``, or a
+    ``sharding.MeshShape`` where only specs are asked for) for the
+    duration; ``None`` turns the annotations off."""
+    prev = getattr(_CTX, "state", None)
+    _CTX.state = ((mesh, dict(DEFAULT_RULES, **(rules or {})))
+                  if mesh is not None else None)
+    try:
+        yield
+    finally:
+        _CTX.state = prev
+
+
+def current_mesh():
+    st = getattr(_CTX, "state", None)
+    return st[0] if st else None
+
+
+def logical_spec(names: Sequence[Optional[str]], shape=None) -> Optional[P]:
+    """Resolve logical names to a ``P`` under the active rules.
+
+    Axes absent from the mesh are dropped (a single-pod mesh ignores
+    'pod').  If ``shape`` is given, dims whose size does not divide evenly
+    by the mesh-axis product are dropped (replicated)."""
+    st = getattr(_CTX, "state", None)
+    if st is None:
+        return None
+    mesh, rules = st
+    present = set(axis_sizes(mesh))
+    spec = []
+    for i, nm in enumerate(names):
+        axes = rules.get(nm) if nm else None
+        if isinstance(axes, str):
+            axes = (axes,)
+        if axes is not None:
+            axes = tuple(a for a in axes if a in present)
+            if not axes:
+                axes = None
+        if axes is not None and shape is not None:
+            if shape[i] % _axis_size(mesh, axes) != 0:
+                axes = None
+        if axes is not None and len(axes) == 1:
+            axes = axes[0]
+        spec.append(axes)
+    return P(*spec)
+
+
+def device_mesh():
+    """The active context's mesh if it is a ``DeviceMesh``, else None."""
+    mesh = current_mesh()
+    return mesh if hasattr(mesh, "mesh_dim_names") else None
+
+
+def shard_act(x, *names: Optional[str]):
+    """``with_sharding_constraint`` by logical names: a DTensor is
+    redistributed to the names' placements on the active mesh (no-op
+    without a context, or for a plain tensor).  A dim the names' axes do
+    not divide stays replicated, as in the partition rules, so that no
+    rank holds an empty shard a kernel would be launched on."""
+    mesh = device_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    spec = logical_spec(names, tuple(x.shape))
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def on_mesh(t):
+    """A tensor the model made itself, as a replicated DTensor on the
+    active ``DeviceMesh`` (every rank makes the same one), so that it
+    meets the DTensor parameters; as it is without a mesh."""
+    mesh = device_mesh()
+    if mesh is None or t is None:
+        return t
+    from repro_torch.sharding.local import as_dtensor
+
+    return as_dtensor(t, mesh)

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers.common import dense_init, matmul_f32
+from repro_torch.models.layers.common import (dense_init, matmul_f32,
+                                              shard_act)
+from repro_torch.sharding.partition import is_dtensor
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
@@ -17,6 +19,17 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def embed(params, tokens, dtype):
+    """The table's rows of ``tokens``.  Under a mesh every rank looks up
+    the whole batch's tokens (they are gathered if sharded; the caller
+    shards the rows it gets, ``shard_act``), so that the lookup's
+    backward scatters replicated rows: PyTorch's sharding rule for that
+    scatter-add mis-places its output when the rows are sharded over the
+    batch."""
+    if is_dtensor(tokens):
+        from torch.distributed.tensor import Replicate
+
+        mesh = tokens.device_mesh
+        tokens = tokens.redistribute(mesh, [Replicate()] * mesh.ndim)
     return params["table"].to(dtype)[tokens]
 
 
@@ -38,7 +51,9 @@ def unembed(params, x):
     multiplied (TF32 stays off on the card, ``rnn.resolve_device``)."""
     w = params["unembed"] if "unembed" in params else params["table"].T
     if x.device.type != "cuda":
-        return torch.matmul(x.float(), w.float())
-    lead = x.shape[:-1]
-    y = matmul_f32(x.reshape(-1, x.shape[-1]), w)
-    return y.reshape(*lead, w.shape[1])
+        y = torch.matmul(x.float(), w.float())
+    else:
+        lead = x.shape[:-1]
+        y = matmul_f32(x.reshape(-1, x.shape[-1]), w).reshape(*lead,
+                                                              w.shape[1])
+    return shard_act(y, "batch", "seq", "vocab")

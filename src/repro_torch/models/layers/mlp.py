@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.common import dense_init, project
+from repro_torch.models.layers.common import dense_init, project, shard_act
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device="cpu"):
@@ -22,4 +22,5 @@ def apply_mlp(params, x, *, decode: bool = False):
     g = project(x, params["w_gate"], decode=decode)
     u = project(x, params["w_up"], decode=decode)
     h = F.silu(g.float()).to(x.dtype) * u
+    h = shard_act(h, "batch", "seq", "ff")
     return project(h, params["w_down"], decode=decode)

@@ -28,8 +28,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.common import matmul_f32, dense_init
+from repro_torch.models.layers.common import (dense_init, matmul_f32, on_mesh,
+                                              shard_act)
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
+from repro_torch.sharding.partition import is_dtensor
 
 
 def draw_experts(gen: torch.Generator, out: torch.Tensor) -> torch.Tensor:
@@ -89,6 +91,15 @@ def route(router_logits, k: int, capacity: int, n_experts: int):
     return top_e, slot, top_w, valid
 
 
+def _into(buf, op: str, *args):
+    """``buf.<op>_(*args)``, in place; on a DTensor (under a mesh) out of
+    place, since DTensor's in-place scatter-adds may re-place ``buf``
+    without moving its data.  The same values either way."""
+    if is_dtensor(buf):
+        return getattr(buf, op)(*args)
+    return getattr(buf, op + "_")(*args)
+
+
 def assign_slots(top_e, capacity: int, n_experts: int):
     """(slot_idx, valid), each (T, k), of the picks ``top_e`` (T, k): the
     position of each (token, choice) within its expert, ordered
@@ -96,7 +107,7 @@ def assign_slots(top_e, capacity: int, n_experts: int):
     past ``capacity`` is not valid (dropped)."""
     T, k = top_e.shape
     flat_e = top_e.reshape(-1)  # (T*k,)
-    experts = torch.arange(n_experts, device=flat_e.device)
+    experts = on_mesh(torch.arange(n_experts, device=flat_e.device))
     onehot = (flat_e[:, None] == experts).to(torch.int32)  # (T*k, E)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
     slot = torch.gather(pos, 1, flat_e[:, None])[:, 0]  # (T*k,)
@@ -110,10 +121,11 @@ def aux_load_balance_loss(router_logits, top_e, n_experts: int):
     probs = torch.softmax(router_logits, dim=-1)
     p_mean = probs.mean(dim=0)  # (E,)
     flat = top_e.reshape(-1)
-    counts = torch.zeros((n_experts,), dtype=torch.float32,
-                         device=flat.device).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=torch.float32,
-                            device=flat.device))
+    counts = _into(on_mesh(torch.zeros((n_experts,), dtype=torch.float32,
+                                       device=flat.device)), "index_add",
+                   0, flat, on_mesh(torch.ones(flat.shape,
+                                               dtype=torch.float32,
+                                               device=flat.device)))
     f = counts / torch.clamp_min(counts.sum(), 1.0)
     return n_experts * torch.sum(f * p_mean)
 
@@ -143,14 +155,16 @@ def apply_moe(params, x, *, k: int, capacity_factor: float,
     flat_s = torch.where(flat_v, slot_idx.reshape(-1), 0)
     src = (xt[:, None].expand(T, k, d).reshape(T * k, d)
            * flat_v[:, None].to(x.dtype))
-    buf = x.new_zeros((E * C, d))
-    buf.index_add_(0, flat_e * C + flat_s, src)
-    buf = buf.reshape(E, C, d)
+    buf = on_mesh(torch.zeros((E * C, d), dtype=x.dtype, device=x.device))
+    buf = _into(buf, "index_add", 0, flat_e * C + flat_s, src)
+    # EP over experts only
+    buf = shard_act(buf.reshape(E, C, d), "experts", None, None)
 
     # ---- expert computation (E, C, d) x (E, d, f) ---------------------
     g = matmul_f32(buf, params["w_gate"])
     u = matmul_f32(buf, params["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
+    h = shard_act(h, "experts", None, "ff_fsdp")
     out = matmul_f32(h, params["w_down"]).to(x.dtype)
 
     # ---- combine: gather back and weight ------------------------------
@@ -174,8 +188,9 @@ def moe_reference(params, x, *, k: int):
     top_w, top_e = _top_k(probs, k)
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
     E = probs.shape[-1]
-    mask = torch.zeros((xt.shape[0], E), dtype=torch.float32,
-                       device=x.device).scatter_(1, top_e, top_w)
+    mask = _into(on_mesh(torch.zeros((xt.shape[0], E), dtype=torch.float32,
+                                     device=x.device)), "scatter", 1, top_e,
+                 top_w)
     xe = xt[None].expand(E, -1, -1)  # (E, T, d)
     g = matmul_f32(xe, params["w_gate"])  # (E, T, f)
     u = matmul_f32(xe, params["w_up"])

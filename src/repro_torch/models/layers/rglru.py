@@ -29,7 +29,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.common import torch_dtype
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import xla_exp
-from repro_torch.models.layers.common import dense_init, promoted_matmul
+from repro_torch.models.layers.common import (dense_init, on_mesh,
+                                              promoted_matmul)
+from repro_torch.sharding.partition import is_dtensor
 
 C_EXP = 8.0
 
@@ -69,8 +71,13 @@ def scan_recurrence(log_a, gx, h0):
     """The serial half: h_t = a_t h_(t-1) + sqrt(1 - a_t^2) gx_t, all
     fp32; log_a, gx (B, T, W), h0 (B, W) -> (h_T (B, W), hs (B, T, W)),
     in the reference's order.  One ``rglru_scan`` call: one kernel launch
-    on the card."""
-    hs, hT = rglru_scan(log_a, gx, h0)
+    on the card; under a mesh (DTensor operands) on each rank's local
+    shards (``sharding.local.rglru_scan``)."""
+    if is_dtensor(log_a, gx, h0):
+        from repro_torch.sharding import local
+        hs, hT = local.rglru_scan(rglru_scan, log_a, gx, h0)
+    else:
+        hs, hT = rglru_scan(log_a, gx, h0)
     return hT, hs
 
 
@@ -78,7 +85,8 @@ def apply_rglru(params, x, h0=None):
     """x (B, T, W) -> (y (B, T, W) in x's dtype, h_T fp32)."""
     B, T, W = x.shape
     if h0 is None:
-        h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+        h0 = on_mesh(torch.zeros((B, W), dtype=torch.float32,
+                                 device=x.device))
     log_a, gx = gate_inputs(params, x)
     hT, hs = scan_recurrence(log_a, gx, h0)
     return hs.to(x.dtype), hT

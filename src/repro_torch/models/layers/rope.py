@@ -12,13 +12,15 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.models.layers.common import on_mesh
+
 
 def rope_angles(positions, head_dim: int, theta: float):
     """positions (..., S) -> cos/sin (..., S, head_dim//2) in fp32."""
     half = head_dim // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                           device=positions.device) / half))
-    ang = positions.float()[..., None] * freqs
+    ang = positions.float()[..., None] * on_mesh(freqs)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -33,6 +35,7 @@ def mrope_angles(positions3, head_dim: int, theta: float,
                          f"to head_dim // 2 = {half}")
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                           device=positions3.device) / half))
+    freqs = on_mesh(freqs)
     pos = positions3.float()
     bands, lo = [], 0
     for i, n in enumerate(sections):  # stream i drives bands lo .. lo + n

@@ -24,8 +24,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as tr
 from repro_torch.models.layers.common import (matmul_f32, chunked_scan,
-                                              dense_init, project)
+                                              dense_init, on_mesh, project,
+                                              shard_act)
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -111,7 +113,8 @@ def apply_mlstm(params, x, n_heads: int, state=None, *,
     q, k, v, i_pre, f_pre, xg = mlstm_inputs(params, x, n_heads,
                                              decode=decode)
     if state is None:
-        state = mlstm_state_init(B, n_heads, dh, device=x.device)
+        state = tr.tree_map(on_mesh, mlstm_state_init(B, n_heads, dh,
+                                                      device=x.device))
 
     def step(st, inp):
         qt, kt, vt, it, ft = inp
@@ -150,7 +153,8 @@ def apply_mlstm_chunked(params, x, n_heads: int, state=None,
         return apply_mlstm(params, x, n_heads, state)
     q, k, v, i_pre, f_pre, xg = mlstm_inputs(params, x, n_heads)
     if state is None:
-        state = mlstm_state_init(B, n_heads, dh, device=x.device)
+        state = tr.tree_map(on_mesh, mlstm_state_init(B, n_heads, dh,
+                                                      device=x.device))
     n_chunks = T // chunk
 
     def to_chunks(a):  # (B, T, H, ...) -> (n, B, H, L, ...)
@@ -158,8 +162,8 @@ def apply_mlstm_chunked(params, x, n_heads: int, state=None,
         return a.movedim(3, 1).movedim(2, 0)
 
     xs = tuple(to_chunks(a) for a in (q, k, v, i_pre, f_pre))
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
-                                device=x.device))
+    tri = on_mesh(torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                        device=x.device)))
 
     def chunk_step(st, inp):
         qt, kt, vt, it, ft = inp  # (B,H,L,dh) / (B,H,L)
@@ -236,6 +240,8 @@ def slstm_cell(state, x_pre, R, n_heads: int):
     # einsum("bhd,hdk->bhk") with an fp32 result, one product per head
     rec = matmul_f32(h_prev.to(R.dtype).transpose(0, 1), R).transpose(0, 1)
     pre = x_pre.float().reshape(B, n_heads, 4 * dh) + rec
+    # the gate axis over 'model', as R's
+    pre = shard_act(pre, "batch", None, "ff")
     # gate layout per head-block: (z, i, f, o), each dh wide
     pre4 = pre.reshape(B, n_heads, 4, dh)
     z = torch.tanh(pre4[:, :, 0]).reshape(B, d)
@@ -257,7 +263,7 @@ def apply_slstm(params, x, n_heads: int, state=None, *,
     """x (B,T,d) -> (y (B,T,d), state)."""
     B, T, d = x.shape
     if state is None:
-        state = slstm_state_init(B, d, device=x.device)
+        state = tr.tree_map(on_mesh, slstm_state_init(B, d, device=x.device))
     # Unfolded: input half hoisted out of the scan (one GEMM for all t)
     x_pre = (project(x, params["W"], decode=decode)
              + params["b"].to(x.dtype))  # (B,T,4d)

@@ -57,13 +57,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import rglru as rglru_lib
 from repro_torch.models.layers import xlstm as xlstm_lib
-from repro_torch.models.layers.common import dense_init, param_dtype, project
+from repro_torch.models.layers.common import (current_mesh, dense_init,
+                                              device_mesh, on_mesh,
+                                              param_dtype, project,
+                                              shard_act)
 from repro_torch.models.layers.embedding import embed, init_embedding, unembed
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
 from repro_torch.models.layers.moe import apply_moe, init_moe
 from repro_torch.models.layers.norm import init_norm, rms_norm
 from repro_torch.models.layers.rope import (apply_rope, mrope_angles,
                                             rope_angles)
+from repro_torch.sharding.partition import (axis_sizes, cache_shardings,
+                                            distribute, is_dtensor)
 
 NAIVE_ATTN_MAX_SEQ = 1024  # above this, blockwise/local paths engage
 KINDS = ("attn", "rglru", "mlstm", "slstm")
@@ -308,10 +313,18 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
         T = cache["k"].shape[1]
         ring = bool(cfg.window and cfg.window <= T)
         slot = (idx % T if ring else torch.clamp_max(idx, T - 1)).long()
-        rows = torch.arange(B, device=x.device)
         # the new slot is written into the given ring in place (module doc)
-        k_cache = cache["k"].index_put_((rows, slot), k[:, 0])
-        v_cache = cache["v"].index_put_((rows, slot), v[:, 0])
+        # under a mesh each rank writes its slice; the rings keep the
+        # layout cache_specs gave them (the reference's shard_act on them
+        # names the same one), so they stay the tensors written in place
+        if is_dtensor(cache["k"]):
+            from repro_torch.sharding import local
+            k_cache = local.ring_write(cache["k"], slot, k[:, 0])
+            v_cache = local.ring_write(cache["v"], slot, v[:, 0])
+        else:
+            rows = torch.arange(B, device=x.device)
+            k_cache = cache["k"].index_put_((rows, slot), k[:, 0])
+            v_cache = cache["v"].index_put_((rows, slot), v[:, 0])
         new_cache = {"k": k_cache, "v": v_cache}
         valid = torch.clamp_max(idx + 1, T)  # number of live slots
         o = attn_lib.decode_attention(
@@ -320,6 +333,7 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
     else:
         k4 = k.reshape(B, S, Hk, D)
         v4 = v.reshape(B, S, Hk, D)
+        k4, v4 = _repeat_kv_for_mesh(cfg, k4, v4)
         if cfg.window and S > cfg.window:
             o = attn_lib.local_attention(q, k4, v4, window=cfg.window)
         elif S > NAIVE_ATTN_MAX_SEQ:
@@ -327,16 +341,51 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
         else:
             o = attn_lib.naive_attention(q, k4, v4, window=cfg.window)
         if mode == "prefill":  # into the given rings, as decode does
-            T = cache["k"].shape[1]
             for key, t in (("k", k), ("v", v)):
-                if T >= S:
-                    cache[key][:, :S].copy_(t)
-                    cache[key][:, S:].zero_()
-                else:  # ring: keep the last T positions at slot = pos % T
-                    cache[key].copy_(torch.roll(t[:, S - T:], (S - T) % T,
-                                                dims=1))
-    o = o.reshape(B, S, Hq * D)
+                if is_dtensor(cache[key]):  # each rank its slice
+                    from repro_torch.sharding import local
+                    t = t.full_tensor() if is_dtensor(t) else t
+                    local.ring_fill(cache[key], _fill_ring(
+                        t.new_empty(cache[key].shape), t))
+                else:
+                    _fill_ring(cache[key], t)
+    o = shard_act(o.reshape(B, S, Hq * D), "batch", "seq", "qdim")
     return project(o, p["w_o"], decode=decode), new_cache
+
+
+def _repeat_kv_for_mesh(cfg: ModelConfig, k4, v4):
+    """Under a mesh whose model axis the kv heads do not divide (GQA's
+    2-8 kv heads on a 16-way axis), the prefill's k and v repeated to
+    Hk r heads, the smallest r with (Hk r) % model == 0 and Hq % (Hk r)
+    == 0, so that every attention product is head-local; the grouping
+    stays valid (query head h G + g still meets a copy of kv head h) and
+    no value changes.  Without a mesh, or with no such r, as they are."""
+    mesh = current_mesh()
+    Hq, Hk = cfg.n_heads, cfg.n_kv_heads
+    if mesh is None or Hk >= Hq:
+        return k4, v4
+    msize = axis_sizes(mesh).get("model", 1)
+    if Hk % msize == 0:
+        return k4, v4
+    rep = next((r for r in range(2, Hq // Hk + 1)
+                if (Hk * r) % msize == 0 and Hq % (Hk * r) == 0), None)
+    if rep is None:
+        return k4, v4
+    return tuple(shard_act(torch.repeat_interleave(t, rep, dim=2), "batch",
+                           "seq", "heads", None) for t in (k4, v4))
+
+
+def _fill_ring(ring, t):
+    """A prefill's keys or values t (B, S, KV) written into ring (B, T, KV)
+    in place: the S positions then zeros when T >= S, else the last T
+    positions at slot = pos % T.  Returns ring."""
+    S, T = t.shape[1], ring.shape[1]
+    if T >= S:
+        ring[:, :S].copy_(t)
+        ring[:, S:].zero_()
+    else:
+        ring.copy_(torch.roll(t[:, S - T:], (S - T) % T, dims=1))
+    return ring
 
 
 def _rglru_block(cfg: ModelConfig, p, x, cache, mode: str):
@@ -367,7 +416,7 @@ def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
     """Pre-norm residual block.  Returns (x, new_cache, aux_loss): the MoE
     load-balancing loss of the layer, fp32 0 without MoE."""
     decode = mode == "decode"
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = on_mesh(torch.zeros((), dtype=torch.float32, device=x.device))
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
         o, new_cache = _attn_block(cfg, p["attn"], h, rope_cs, cache, idx,
@@ -404,6 +453,7 @@ def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
         else:
             o = apply_mlp(p["mlp"], h, decode=decode)
         x = x + o
+    x = shard_act(x, "batch", "seq", "embed")
     return x, new_cache, aux
 
 
@@ -426,11 +476,16 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
         raise ValueError(f"mode={mode!r} invalid; allowed: train, prefill, "
                          "decode")
     dtype = param_dtype(cfg)
+    # under a mesh the inputs join the DTensor params (plain ones as
+    # replicated); without one this changes nothing
+    tokens, embeds, positions = (on_mesh(t) for t in (tokens, embeds,
+                                                     positions))
     if embeds is None:
         x = embed(params["head"], tokens, dtype)
     else:
         x = embeds.to(dtype)
     B, S = x.shape[:2]
+    x = shard_act(x, "batch", "seq", "embed")
     if mode != "train" and cache is None:
         raise ValueError(f"mode={mode!r} needs a cache")
     if mode == "decode" and S != 1:
@@ -441,14 +496,15 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
         if mode == "decode":
             positions = idx[:, None]  # (B,1)
         else:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=x.device)[None].expand(B, S)
+            positions = on_mesh(torch.arange(
+                S, dtype=torch.int32, device=x.device))[None].expand(B, S)
     rope_cs = _rope_for(cfg, positions)
 
     # a stacked cache's layers are written through their views, in place
     caches = cache["layers"] if cache is not None else None
     new_layer_caches = caches if cfg.scan_layers else []
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = on_mesh(torch.zeros((), dtype=torch.float32,
+                                    device=x.device))
     for i, kind in enumerate(cfg.layer_kinds()):
         cache_l = layer_view(caches, i) if cache is not None else None
         x, new_cache_l, aux = _layer_apply(cfg, kind,
@@ -502,6 +558,9 @@ def prefill(cfg: ModelConfig, params, batch, seq_len: int):
     embeds = batch.get("embeds")
     src = tokens if tokens is not None else embeds
     cache = init_cache(cfg, src.shape[0], seq_len, device=src.device)
+    mesh = device_mesh()
+    if mesh is not None:  # the rings and states laid out by cache_specs
+        cache = distribute(cache, cache_shardings(cache, mesh))
     logits, new_cache, _ = forward(cfg, params, tokens=tokens, embeds=embeds,
                                    positions=batch.get("positions"),
                                    cache=cache, mode="prefill")

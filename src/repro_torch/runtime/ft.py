@@ -5,9 +5,9 @@
     (the data pipeline is a pure function of the step index, so replay is
     exact).
   * restore — into the structure, dtypes and devices of the running state
-    (``Checkpointer.restore``); the reference's elastic re-sharding to the
-    restarted job's mesh waits for the port's sharding (ROADMAP.md, Queue
-    1 item 11): one process here holds the whole state on one device.
+    (``Checkpointer.restore``); with ``shardings`` (params, opt) — trees
+    of ``sharding.NamedSharding`` — each leaf is laid out on the restarted
+    job's mesh (elastic re-sharding).
   * straggler mitigation — per-step wall-time EWMA watchdog; steps slower
     than ``straggler_factor``x the EWMA are logged and counted (also used
     by the serving loop).
@@ -72,7 +72,7 @@ class TrainLoop:
         self.train_step = train_step
         self.batch_fn = batch_fn  # step -> device-ready batch (pure)
         self.cfg = cfg
-        self.shardings = shardings  # the reference's; accepted, unused
+        self.shardings = shardings  # (params, opt) NamedSharding trees
         self.ckpt = Checkpointer(cfg.ckpt_dir, keep=cfg.keep)
         self.watchdog = StragglerWatchdog(cfg.straggler_factor, cfg.ewma_alpha)
         self.restarts = 0
@@ -128,7 +128,10 @@ class TrainLoop:
         last = self.ckpt.latest_step()
         if last is None:
             raise RuntimeError("no checkpoint to restore from")
-        tree = self.ckpt.restore(last, self._saveable(like_state))
+        sh = None
+        if self.shardings is not None and self.shardings[0] is not None:
+            sh = {"params": self.shardings[0], "opt": self.shardings[1]}
+        tree = self.ckpt.restore(last, self._saveable(like_state), sh)
         log.info("restored step %d", last)
         return {"params": tree["params"], "opt": tree["opt"]}, last
 

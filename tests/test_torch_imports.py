@@ -177,3 +177,69 @@ def test_a_train_step_loads_neither_jax_nor_repro(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), \
         out.stderr
+
+
+#: sharding (Queue 1 item 11): the partition rules, the kernels on local
+#: shards, the meshes, the dry run, and the modules that take a mesh
+SHARDING = ("sharding/__init__.py", "sharding/partition.py",
+            "sharding/local.py", "launch/mesh.py", "launch/dryrun.py",
+            "core/unfolded.py", "configs/base.py",
+            "kernels/decode_attention/ops.py", "kernels/mvm_tile/ops.py",
+            "models/transformer.py", "models/layers/embedding.py",
+            "models/layers/moe.py", "models/layers/mlp.py")
+
+
+@pytest.mark.parametrize("rel", SHARDING)
+def test_sharding_modules_import_no_jax_repro_or_triton(rel):
+    """The sharding modules name neither JAX, the JAX package nor triton
+    in any import statement: meshes are torch.distributed's, specs the
+    port's own ``P``."""
+    bad = [(mod, line) for mod, line in _imported_roots(PORT / rel)
+           if mod in FORBIDDEN + ("triton",)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or "", node.lineno
+
+
+@pytest.mark.parametrize("rel", sorted(
+    p.relative_to(PORT).as_posix() for p in (PORT / "kernels").rglob("*.py")))
+def test_kernels_know_no_mesh(rel):
+    """The kernel layer sits below the mesh: no kernel module imports
+    ``repro_torch.sharding`` or ``torch.distributed`` (the model's call
+    sites run a kernel on its local shards, ``sharding.local``)."""
+    bad = [(mod, line) for mod, line in _imported_modules(PORT / rel)
+           if mod.startswith(("repro_torch.sharding", "torch.distributed"))]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_sharding_and_the_dry_run_load_neither_jax_nor_repro():
+    """The rules on a mesh description, the kernels' local-shard module,
+    the mesh helpers and one small dry-run cell load neither JAX, the JAX
+    package nor triton."""
+    code = (
+        "import os, sys, tempfile\n"
+        "os.environ['REPRO_DRYRUN_SMALL'] = '1'\n"
+        "from repro_torch.sharding import MeshShape, param_specs\n"
+        "from repro_torch.sharding import local\n"
+        "from repro_torch.launch import mesh, dryrun\n"
+        "from repro_torch.core.unfolded import run_layer_unfolded_tp\n"
+        "r = dryrun.run_cell('xlstm-125m', 'decode_32k', False, "
+        "tempfile.mkdtemp())\n"
+        "assert r['status'] == 'ok', r\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), \
+        out.stderr

@@ -111,7 +111,10 @@ def test_train_driver_with_fault_and_compression(tmp_path):
         range(8, 14))
 
 
-def test_train_driver_refuses_a_model_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+def test_train_driver_refuses_a_model_mesh(tmp_path, monkeypatch):
+    """In one process (no torchrun) a model axis has no ranks to span:
+    the driver names the world size it needs."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="world size 1.*torchrun"):
         train_mod.main(["--reduced", "--mesh-model", "2", "--device", "cpu",
                         "--ckpt-dir", str(tmp_path)])
