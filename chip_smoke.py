@@ -342,9 +342,24 @@ Phases, one line (or a few) of output each:
                starcoder2-3b decode with its ring's T split over model=2
                (each rank's decode_attention on its half, the (m, l)
                combine) within TOL_SEQ of the 1-rank card decode
- 20 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 20 cost       the static cost walker (repro_torch.calib.hlo) against
+               the card at full width, eager: starcoder2-3b's and
+               olmoe-1b-7b's B=4 decode steps on 4096-slot rings and
+               RecurrentGemma-2B's B=1 T=1024 train step, each traced on
+               the host first (fake tensors of the card's arguments),
+               then run on the card: the trace's kernel ops equal the
+               counted launches; its FLOPs outside the kernels equal
+               FlopCounterMode's of the card's step and its kernel FLOPs
+               the launches' Cost; the card's path of the train step
+               computes 8 B T d V FLOPs more than the function (the
+               unembed's three bf16 products a cotangent); its predicted
+               high-water mark within COST_PEAK_REL + COST_PEAK_ABS of
+               max_memory_allocated's growth; its bound at most
+               COST_BOUND_SHARE x the step's CUDA-event time
+ 21 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
-               error, times and bound
+               error, times and bound (each bound from the kernel's
+               Cost: kernels.common.Cost)
 
 With --profile, the serve, forward, paper, serve_gru and precision
 phases also print their lstm_seq / gru_seq device ms (paper's GMAT serve
@@ -371,7 +386,7 @@ SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
           "serve_gru", "offpath", "rglru", "precision", "serve_lm",
           "serve_dense", "serve_moe", "serve_xlstm", "train", "calib",
-          "figures", "chaos", "mesh", "summary")
+          "figures", "chaos", "mesh", "cost", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -610,6 +625,20 @@ def bound(nbytes: float, flops: float, rate: str = "fp32"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def meta(*shape, dtype=None):
+    """A ``meta`` tensor (shape and dtype, no storage; fp32 by default):
+    what a kernel's ``Cost`` is priced on."""
+    import torch
+
+    return torch.empty(shape, dtype=dtype or torch.float32, device="meta")
+
+
+def cost_bound(cost, rate: str = "fp32"):
+    """``bound`` of a kernel's ``Cost`` (``kernels.common.Cost``): its
+    bytes, or its FLOPs and other operations."""
+    return bound(cost.bytes, cost.ops, rate)
+
+
 def entries():
     """Every kernel entry point of the port (each carries its counters)."""
     from repro_torch import kernels
@@ -771,10 +800,7 @@ def phase_kernels(ctx):
     x = torch.randn((B, T, H), device=dev)
     with torch.no_grad():
         l_ms = median_ms(lambda: lstm(x), reps=20)
-    nbytes = 4 * (G * H * 4 * H + G * B * T * 4 * H + 2 * G * B * H
-                  + G * B * T * H + 2 * G * B * H)
-    flops = G * B * T * (8 * H * H + 4 * H + 10 * H)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = cost_bound(ops.lstm_seq_cost(U4, xw, h0, c0))
     ctx["lstm_seq"] = dict(max_abs_err=seq_err, ms=k_ms, plain_ms=p_ms,
                            library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                            shape=f"G={G} B={B} T={T} H={H} fp32")
@@ -861,11 +887,7 @@ def _kernels_gru(ctx, dev):
     x = torch.randn((B, T, H), device=dev)
     with torch.no_grad():
         l_ms = median_ms(lambda: gru(x), reps=20)
-    nbytes = (2 * G * H * 3 * H
-              + 4 * (G * B * T * 3 * H + G * B * H + G * B * T * H
-                     + G * B * H))
-    flops = G * B * T * (6 * H * H + 12 * H)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = cost_bound(ops.gru_seq_cost(U3, xw, h0))
     ctx["gru_seq"] = dict(max_abs_err=seq_err, ms=k_ms, plain_ms=p_ms,
                           library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                           shape=f"G={G} B={B} T={T} H={H} bf16 U, fp32 "
@@ -917,15 +939,20 @@ def _decode_row(args, r):
 
 
 def _decode_bound(gates, L, B, H):
-    """The least time of one tick with bf16 weights and fp32 state: W_1..
+    """The least time of one tick with bf16 weights and fp32 state, from
+    the decode kernels' Cost (``kernels.common.decode_cost``): W_1..
     W_(L-1), U_0..U_(L-1) and b_1..b_(L-1) read once, xw0, h0 (and c0)
     read and h_n (and c_n) written once; 2 gates H^2 FMAs per row and
     matrix."""
-    state = 4 if gates == 4 else 2
-    nbytes = (2 * ((2 * L - 1) * H * gates * H + (L - 1) * gates * H)
-              + 4 * (B * gates * H + state * L * B * H))
-    flops = B * ((2 * L - 1) * 2 * gates * H * H + L * 14 * H)
-    return bound(nbytes, flops)
+    import torch
+
+    from repro_torch.kernels.common import decode_cost
+
+    bf16 = torch.bfloat16
+    return cost_bound(decode_cost(
+        gates, meta(B, gates, H), meta(L, H, gates, H, dtype=bf16),
+        meta(L, gates, H, dtype=bf16), meta(L, H, gates, H, dtype=bf16),
+        meta(L, B, H)))
 
 
 def _chained(fn, xw0, stacks, state, n):
@@ -1155,10 +1182,16 @@ def _cell_case(B, H, u_dtype, act_dtype, seed, dev):
 
 
 def _cell_bound(B, H, u_bytes):
-    """The least time of one step: U read once, xw, h and c read and h, c
-    written once (fp32), 8 H^2 + 14 H operations a row at the fp32 rate."""
-    nbytes = u_bytes * H * 4 * H + 4 * (B * 4 * H + 4 * B * H)
-    return bound(nbytes, B * (8 * H * H + 14 * H))
+    """The least time of one step, from the cell kernel's Cost
+    (``lstm_cell_cost``): U read once, xw, h and c read and h, c written
+    once (fp32), 8 H^2 + 14 H operations a row at the fp32 rate."""
+    import torch
+
+    from repro_torch.kernels.lstm_cell.ops import lstm_cell_cost
+
+    u_dtype = torch.bfloat16 if u_bytes == 2 else torch.float32
+    return cost_bound(lstm_cell_cost(meta(H, 4, H, dtype=u_dtype),
+                                     meta(B, 4, H), meta(B, H), meta(B, H)))
 
 
 def cell_chain_ms(fn, Us, xws, h, c, order) -> float:
@@ -1369,26 +1402,17 @@ def _weight_branch(U, variant: str, first_layer: int = 0):
     return U, scales, rows
 
 
-def _seq_bound(family, G, B, T, H, U, scales, rows, act_bytes=4):
-    """Least time of one sequence-kernel launch: bytes (U in its stored
-    type, its scales and row index, xw, state in and out, hs) or FLOPs
-    (the h·U products over the rows U holds, and the cell's pointwise
-    work), whichever is larger."""
+def _seq_bound(family, G, B, T, H, U, scales, rows):
+    """Least time of one sequence-kernel launch with fp32 activations, from
+    the sequence kernels' Cost (``kernels.common.seq_cost``): bytes (U in
+    its stored type, its scales and row index, xw, state in and out, hs)
+    or operations (the h·U products over the rows U holds, and the cell's
+    pointwise work), whichever is larger."""
+    from repro_torch.kernels.common import seq_cost
+
     gates = 4 if family == "lstm" else 3
-    Hr = U.shape[1]
-    nbytes = (U.numel() * U.element_size()
-              + (0 if scales is None else 4 * scales.numel())
-              + (0 if rows is None else 4 * rows.numel())
-              + act_bytes * (G * B * T * gates * H + G * B * T * H
-                             + 2 * G * B * H))
-    if family == "lstm":
-        nbytes += 4 * 2 * G * B * H  # c0 in, c_T out
-        flops = G * B * T * (8 * Hr * H + 4 * H + 10 * H)
-    else:
-        flops = G * B * T * (6 * Hr * H + 12 * H)
-    if scales is not None:
-        flops += G * B * T * gates * H
-    return bound(nbytes, flops)
+    return cost_bound(seq_cost(gates, U, meta(G, B, T, gates, H),
+                               meta(G, B, H), None, scales, rows))
 
 
 def _seq_family(family):
@@ -1697,11 +1721,6 @@ def _rglru_case(B, T, W, seed, dev):
 
 #: rglru_scan's bytes an element: log_a and gx read, hs written (fp32)
 RGLRU_BYTES = 12
-#: rglru_scan's fp32 operations an element (an fma counted as two): two of
-#: XLA's exps of 26 each (clamp 2, range reduction 5, polynomial 14, the
-#: final add, 2^n 2, product 1), 2 la, 1 - a2, max, sqrt, s g and the
-#: step's fma
-RGLRU_OPS = 59
 #: B = 1 (serve_lm's prefills) timed at these T, in a CUDA graph of
 #: RGLRU_GRAPH_LAUNCHES launches
 RGLRU_B1_T = (256, 1024, 2048)
@@ -1709,8 +1728,12 @@ RGLRU_GRAPH_LAUNCHES = 20
 
 
 def _rglru_bound(B, T, W):
-    return bound(RGLRU_BYTES * B * T * W + 8 * B * W,
-                 RGLRU_OPS * B * T * W)
+    """From the scan's Cost (``rglru_scan_cost``): 12 bytes an element and
+    8 a channel, ``SCAN_OPS`` operations an element."""
+    from repro_torch.kernels.rglru.ops import rglru_scan_cost
+
+    return cost_bound(rglru_scan_cost(meta(B, T, W), meta(B, T, W),
+                                      meta(B, W)))
 
 
 def _rglru_same(a, b) -> bool:
@@ -1911,8 +1934,9 @@ def _kernels_mvm(ctx, dev):
             k_ms = median_ms(lambda: ops.mvm(x, W), reps=50)
             p_ms = median_ms(lambda: ops.mvm_plain(x, W), reps=50)
             l_ms = median_ms(lambda: torch.matmul(x, W), reps=50)
-            nbytes = 2 * (X * N + B * X + B * N)
-            b_ms, b_by = bound(nbytes, 2 * B * X * N, "bf16")
+            c = ops.mvm_cost(x, W)
+            nbytes = c.bytes
+            b_ms, b_by = cost_bound(c, "bf16")
             print(f"kernels: mvm warm (W from L2) at B={B} X={X} N={N} "
                   f"bf16: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
                   f"GB/s), plain {p_ms:.4f} ms, torch.matmul (cuBLAS) "
@@ -1936,9 +1960,9 @@ def _kernels_mvm(ctx, dev):
         k_ms = graph_ms(lambda: [ops.mvm(xs[W.shape[0]], W) for W in Ws])
         l_ms = graph_ms(lambda: [torch.matmul(xs[W.shape[0]], W)
                                  for W in Ws])
-        nbytes = sum(2 * (X * N + B * X + B * N) for X, N in mix)
-        flops = sum(2 * B * X * N for X, N in mix)
-        b_ms, b_by = bound(nbytes, flops, "bf16")
+        costs = [ops.mvm_cost(xs[W.shape[0]], W) for W in Ws]
+        nbytes = sum(c.bytes for c in costs)
+        b_ms, b_by = bound(nbytes, sum(c.ops for c in costs), "bf16")
         print(f"kernels: mvm step mix ({len(mix)} projections on distinct "
               f"weights, {nbytes / 1e9:.3f} GB) at B={B}: kernel {k_ms:.4f} "
               f"ms ({nbytes / k_ms / 1e6:.1f} GB/s), torch.matmul (cuBLAS) "
@@ -2431,8 +2455,7 @@ def _kernels_dense(ctx, dev):
             xb = x[:B].contiguous()
             k_ms = graph_ms(lambda: [mops.mvm(xb, w) for w in Ws]) / n
             l_ms = graph_ms(lambda: [torch.matmul(xb, w) for w in Ws]) / n
-            b_ms, b_by = bound(2 * (X * N + B * X + B * N), 2 * B * X * N,
-                               "bf16")
+            b_ms, b_by = cost_bound(mops.mvm_cost(xb, Ws[0]), "bf16")
             rec[f"B{B}"] = dict(ms=k_ms, library_ms=l_ms, bound_ms=b_ms,
                                 bound_by=b_by)
         del Ws
@@ -5273,12 +5296,8 @@ def _xlstm_layers_vs_forward(label, cfg, params, prompts, done):
 
 
 #: train: rglru_scan_bwd's bytes an element (log_a, gx, hs, dhs read;
-#: dlog_a, dgx written; fp32) and its fp32 operations an element (an fma
-#: counted as two): the forward's two exps (52), 2 la, 1 - a2, max, sqrt,
-#: the selector (2), a2 sel, the division, its sign, g times it, q's fma
-#: (2), the chain's fma (2), s delta and delta q
+#: dlog_a, dgx written; fp32)
 RGLRU_BWD_BYTES = 24
-RGLRU_BWD_OPS = 67
 #: rglru_scan_bwd held against its plain version at these (B, T, W): the
 #: train step's shape, B = 4 at T = 2048, and the edges of each strip
 #: width's tiles (C = 8: 128 steps a tile at B = 1; C = 16: 64 at B = 2,
@@ -5368,8 +5387,13 @@ def _bwd_case(B, T, W, seed, dev):
 
 
 def _rglru_bwd_bound(B, T, W):
-    return bound(RGLRU_BWD_BYTES * B * T * W + 12 * B * W,
-                 RGLRU_BWD_OPS * B * T * W)
+    """From the backward's Cost (``rglru_scan_bwd_cost``): 24 bytes an
+    element and 12 a channel, ``SCAN_BWD_OPS`` operations an element."""
+    from repro_torch.kernels.rglru.ops import rglru_scan_bwd_cost
+
+    seq, state = meta(B, T, W), meta(B, W)
+    return cost_bound(rglru_scan_bwd_cost(seq, seq, state, seq, seq,
+                                          state))
 
 
 def _train_bwd_kernel(ctx, dev):
@@ -7005,6 +7029,221 @@ def _mesh_two_ranks(ctx, dev):
           "decode_attention a rank")
     ctx["mesh"].update(tp_err=tp_err, seq_err=seq_err, tp_ms=res["tp_ms"],
                        gather_ms=res["gather_ms"], seq_ms=res["seq_ms"])
+
+
+#: the cost phase's cases (label, arch, mode, B, T): two decode steps at
+#: B = 4 on serve_dense's 4096-slot rings and the train step of the train
+#: phase (B = 1, T = 1024), each at full width and depth
+COST_CASES = (("cost starcoder2-3b decode", "starcoder2-3b", "decode", 4,
+               4096),
+              ("cost olmoe-1b-7b decode", "olmoe-1b-7b", "decode", 4, 4096),
+              ("cost recurrentgemma-2b train", "recurrentgemma-2b", "train",
+               1, 1024))
+#: (iii): the trace's high-water mark of the step's own storages against
+#: the growth of torch.cuda.max_memory_allocated() over the step, within
+#: this share of the growth plus this many bytes (PERF.md, PR 29)
+COST_PEAK_REL = 0.05
+COST_PEAK_ABS = 4 * 2**20
+#: (iv): the walker's bound may be at most this multiple of the step's time
+COST_BOUND_SHARE = 1.05
+#: eager steps timed by CUDA events for (iv)
+COST_TIMED_STEPS = 3
+
+
+def phase_cost(ctx):
+    """The static cost walker (``calib.hlo``) against the card, at full
+    width, one card, eager: for each of COST_CASES the step is traced on
+    the host first (fake tensors of the card's arguments: nothing runs on
+    the card), then run on the card, and (i) the kernel ops the trace
+    recorded equal each entry point's counted launches; (ii) the trace's
+    FLOPs outside the kernels equal FlopCounterMode's count of the card's
+    step, and its kernel FLOPs the sum of each launch's ``Cost``
+    (``calib.hlo.Meter``); where the card computes more than the function
+    (``common.matmul_f32``'s three bf16 products a cotangent) the
+    difference against a trace of the CPU's path is held to its closed
+    form; (iii) the trace's high-water mark matches the growth of
+    max_memory_allocated over the step within COST_PEAK_REL and
+    COST_PEAK_ABS; (iv) the walker's bound, max(bytes / HBM rate, FLOPs /
+    the bf16 peak), is at most COST_BOUND_SHARE x the step's time."""
+    import torch
+
+    from repro_torch import rnn
+
+    dev = rnn.resolve_device("cuda")
+    _free()
+    recs = {}
+    for case in COST_CASES:
+        recs[case[0]] = _cost_case(ctx, dev, *case)
+        _free()
+    ctx["cost"] = recs
+    torch.cuda.synchronize()
+
+
+def _bmm_flops(a_shape, b_shape, *_, out_shape=None, **__):
+    """``torch.utils.flop_counter``'s bmm formula, which takes the
+    ``aten::bmm.dtype`` overload's out_dtype for an output shape."""
+    from torch.utils.flop_counter import bmm_flop
+
+    return bmm_flop(a_shape, b_shape)
+
+
+def _dtype_bmm():
+    import torch
+
+    return {torch.ops.aten.bmm: _bmm_flops}
+
+
+def _cost_args(cfg, params, mode, B, T, dev):
+    """(step, args) of ``mode`` on the card: a decode step's cache of T
+    slots with every row at position T // 2, or the train step's AdamW
+    state and a batch of the synthetic pipeline."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    if mode == "decode":
+        cache = tf.init_cache(cfg, B, T, device=dev)
+        cache["idx"].fill_(T // 2)
+        g = torch.Generator(device=dev).manual_seed(290)
+        tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                               device=dev, dtype=torch.int32)
+        return steps.make_serve_step(cfg), (params, cache,
+                                            {"tokens": tokens})
+    settings = steps.TrainSettings()
+    opt = steps.init_opt_state(cfg, params, settings)
+    return (steps.make_train_step(cfg, settings),
+            (params, opt, _train_batch(cfg, B, T, seed=291, dev=dev)))
+
+
+def _cost_case(ctx, dev, label, arch, mode, B, T):
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.calib import hlo
+    from repro_torch.configs.base import H100
+    from repro_torch.kernels import common as kcommon
+
+    cfg, params, rec = _load_model(ctx, label, arch, None, "")
+    step, args = _cost_args(cfg, params, mode, B, T, dev)
+    grad = torch.enable_grad() if mode == "train" else torch.no_grad()
+
+    # the trace, on the host: fake tensors of the arguments
+    h0 = time.perf_counter()
+    with grad:
+        trace, _ = hlo.run(step, *args, label=label)
+    trace_s = time.perf_counter() - h0
+    text = trace.text()
+    cost = hlo.analyze(text)
+    ops = hlo.parse(text)
+    k_flops = sum(float(o.attrs.get("flops", 0)) for o in ops
+                  if o.name.startswith("kernel."))
+    other_flops = cost["flops"] - k_flops
+    if ctx.get("out"):
+        import gzip
+
+        path = os.path.join(ctx["out"], label.replace(" ", "_") + ".hlo.gz")
+        with gzip.open(path, "wt") as f:
+            f.write(text)
+    print(f"{label}: traced on the host in {trace_s:.1f} s: {len(ops)} "
+          f"operations, kernel ops {dict(trace.kernels)}; FLOPs "
+          f"{cost['flops']:.6e} (kernels {k_flops:.6e}), bytes "
+          f"{cost['bytes']:.6e}, transcendentals "
+          f"{cost['transcendental_elems']:.6e}; predicted high-water "
+          f"{trace.memory.high_water} bytes over the arguments' "
+          f"{trace.memory.argument_bytes}")
+
+    with grad:
+        step(*args)  # warm: the libraries' workspaces
+        torch.cuda.synchronize()
+        # (i), (ii) kernels, (iii): one counted, metered step from an empty
+        # cache of free blocks, so each allocation counts its own size
+        kcommon.reset_counts(*entries())
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        with hlo.Meter() as meter:
+            step(*args)
+        torch.cuda.synchronize()
+        grow = torch.cuda.max_memory_allocated() - m0
+        launches = {fn.__name__: fn.kernel_launches for fn in entries()
+                    if fn.kernel_launches}
+        tally(ctx, *entries())
+        # (ii) outside the kernels: FlopCounterMode over the card's step
+        counter = FlopCounterMode(display=False, custom_mapping=_dtype_bmm())
+        with counter:
+            step(*args)
+        torch.cuda.synchronize()
+        card_flops = counter.get_total_flops()
+        # (iv)
+        times = []
+        for _ in range(COST_TIMED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    kcommon.reset_counts(*entries())
+    ms = statistics.median(times)
+
+    print(f"{label}: (i) kernel launches counted on the card {launches}, "
+          f"ops in the trace {dict(trace.kernels)}, calls metered "
+          f"{dict(meter.calls)}")
+    check(dict(trace.kernels) == launches == dict(meter.calls),
+          f"{label}: the trace's kernel ops {dict(trace.kernels)} differ "
+          f"from the launches {launches}")
+    print(f"{label}: (ii) FLOPs outside the kernels: trace {other_flops:.0f}"
+          f", FlopCounterMode on the card {card_flops}; kernel FLOPs: trace "
+          f"{k_flops:.0f}, the launches' Cost {meter.flops}")
+    check(other_flops == card_flops,
+          f"{label}: the trace's FLOPs outside the kernels {other_flops:.0f}"
+          f" differ from FlopCounterMode's {card_flops}")
+    check(k_flops == meter.flops,
+          f"{label}: the trace's kernel FLOPs {k_flops:.0f} differ from the "
+          f"launches' {meter.flops}")
+    extra = 0
+    if mode == "train":
+        # the unembed's matmul_f32: each of its two cotangent products runs
+        # as three bf16 products on the card, 2 x 2 x (2 B T d V) FLOPs more
+        # than the function's one product each
+        extra = 8 * B * T * cfg.d_model * cfg.vocab_size
+        with grad:
+            cpu_trace, _ = hlo.run(step, *args, device="cpu")
+        more = cost["flops"] - hlo.analyze(cpu_trace.text())["flops"]
+        print(f"{label}: (ii) the card's path computes {more:.0f} FLOPs more "
+              f"than the function (against a trace of the CPU's path); "
+              f"closed form 8 B T d V = {extra}")
+        check(more == extra, f"{label}: the card's path differs from the "
+                             f"function by {more:.0f} FLOPs, not {extra}")
+    pred = trace.memory.high_water
+    tol = COST_PEAK_REL * grow + COST_PEAK_ABS
+    print(f"{label}: (iii) predicted high-water {pred} bytes, "
+          f"max_memory_allocated grew {grow} over the step "
+          f"({(pred - grow) / max(grow, 1):+.2%}; allowed {tol:.0f} bytes)")
+    check(abs(pred - grow) <= tol,
+          f"{label}: predicted peak {pred} bytes against {grow} measured")
+    t_bytes = cost["bytes"] / H100.hbm_bw * 1e3
+    t_ops = cost["flops"] / H100.peak_flops_bf16 * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f"{label}: (iv) step {ms:.3f} ms (CUDA events, eager, median of "
+          f"{[round(t, 3) for t in times]}); bound {bound_ms:.3f} ms ("
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{cost['bytes'] / 1e9:.3f} GB, {cost['flops'] / 1e12:.3f} TFLOP)"
+          f" = {bound_ms / ms:.1%} of the step")
+    check(bound_ms <= COST_BOUND_SHARE * ms,
+          f"{label}: the walker's bound {bound_ms:.3f} ms exceeds "
+          f"{COST_BOUND_SHARE} x the step's {ms:.3f} ms")
+    rec.update(trace_s=trace_s, ops=len(ops), flops=cost["flops"],
+               kernel_flops=k_flops, card_flops=card_flops,
+               bytes=cost["bytes"],
+               transcendentals=cost["transcendental_elems"],
+               launches=launches, high_water=pred, grow=grow,
+               card_path_extra_flops=extra, step_ms=ms, times=times,
+               bound_ms=bound_ms, bound_share=bound_ms / ms)
+    del step, args, params
+    return rec
 
 
 def phase_summary(ctx):

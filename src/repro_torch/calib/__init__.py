@@ -17,7 +17,11 @@ card and gives the planner ground truth to score against
                 interpolated neighbour -> analytic fallback, the planner's
                 measured scorer)
 
-The reference's ``hlo`` module (an XLA HLO cost walker) has no twin.
+``hlo``         the static cost walker: a step traced on fake tensors,
+                one line per operation this rank dispatches, priced as
+                the reference's HLO walker prices a compiled module
+                (FLOPs, bytes, transcendentals, collectives); the dry
+                run's and the roofline's input
 
 CLI: ``python -m repro_torch.calib`` replays the smoke grid on the card
 into ``artifacts/measured_costs.json`` (``--device cpu`` for the plain

@@ -3,8 +3,12 @@ names, the launch counters every kernel entry point carries, the operand
 checks every CUDA launch wrapper makes, and the pieces the LSTM and GRU
 families share: the recurrent product of their plain sequence versions,
 the decode kernels' U operand, and the cluster plans of their decode and
-sequence kernels."""
+sequence kernels; each entry point's cost (``Cost``) and the hook through
+which a cost trace (``calib.hlo``) records it as one op."""
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -71,22 +75,102 @@ class KernelLaunchRefused(RuntimeError):
 COUNTED: list = []
 
 
-def counted(fn):
-    """Give a kernel entry point its launch counters:
+class Cost(NamedTuple):
+    """What one call of a kernel entry point computes at its shapes, the
+    function and not its implementation: ``flops``, 2·M·N·K over the
+    products it defines (as the reference's HLO walker counts a dot);
+    ``bytes``, its inputs read once and its outputs written once;
+    ``transcendentals``, the elements of its exp / sigmoid / tanh / sqrt;
+    ``pointwise``, its other arithmetic operations (an fma counted as
+    two), which with ``flops`` bound its time by operations."""
+
+    flops: int
+    bytes: int
+    transcendentals: int = 0
+    pointwise: int = 0
+
+    @property
+    def ops(self) -> int:
+        return self.flops + self.pointwise
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the tensors ``ts`` (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+#: the cost trace being recorded (``calib.hlo.Trace``), or None
+_TRACE = None
+
+
+def tracing() -> bool:
+    """True while a cost trace records on fake tensors: the entry points
+    then allocate the outputs their CUDA wrappers allocate and compute
+    nothing (fake tensors hold no values).  A meter of a real run
+    (``calib.hlo.Meter``) sees the calls and lets them compute."""
+    return _TRACE is not None and _TRACE.fake
+
+
+def trips(n: int, closed: bool = False):
+    """``range(n)`` for a loop whose trips do the same work on the same
+    shapes (a scan's steps, a blockwise attention's key blocks, gradient
+    accumulation's microbatches).  Under a cost trace on fake tensors only
+    the first trip runs, and the trace weights what it records there by n
+    (``calib.hlo.Trace.trips``), as the reference's HLO walker weights a
+    while body by its trip count: where autograd records nothing, or where
+    each trip is ``closed`` (runs its own backward, as a microbatch does).
+    Elsewhere a trip's backward would run after the loop, unweighted, so
+    every trip runs."""
+    if n <= 1 or not tracing() or (torch.is_grad_enabled() and not closed):
+        return range(n)
+    return _TRACE.trips(n)
+
+
+def card_path(t) -> bool:
+    """True where a step takes the card's path at ``t``: ``t`` is on a
+    CUDA device, or a cost trace of the card's path records (``calib.hlo``
+    tracing a sharded step on a ``"cpu"`` mesh for the card)."""
+    return t.device.type == "cuda" or bool(getattr(_TRACE, "card", False))
+
+
+def set_trace(trace):
+    """Make ``trace`` (or None) the active cost trace; returns the one it
+    replaces."""
+    global _TRACE
+    prev, _TRACE = _TRACE, trace
+    return prev
+
+
+def counted(fn=None, *, cost=None):
+    """Give a kernel entry point its launch counters and its cost:
 
     ``fn.calls`` counts every invocation on any device — structural, so CPU
     tests can hold it equal to ``DispatchPlan.launches``;
     ``fn.kernel_launches`` counts only real CUDA launches (the entry point
     adds one right after its kernel launched, a CUDA graph's replay those
-    its capture counted: ``count_launch``); and
+    its capture counted: ``count_launch``);
     ``fn.variant_launches`` splits those launches by the weight branch the
     sequence kernels took (``seq_variant``), where the entry point has
-    branches."""
-    fn.calls = 0
-    fn.kernel_launches = 0
-    fn.variant_launches = {}
-    COUNTED.append(fn)
-    return fn
+    branches; and ``fn.cost(*args, **kwargs)`` is the ``Cost`` of a call.
+
+    While a cost trace is active (``set_trace``) a call is handed to it
+    (``trace.kernel``), which records it as one op with its operands and
+    cost; the operations beneath it are not recorded."""
+    if fn is None:
+        return functools.partial(counted, cost=cost)
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        if _TRACE is None:
+            return fn(*args, **kwargs)
+        return _TRACE.kernel(entry, fn, args, kwargs)
+
+    entry.calls = 0
+    entry.kernel_launches = 0
+    entry.variant_launches = {}
+    entry.cost = cost
+    COUNTED.append(entry)
+    return entry
 
 
 def reset_counts(*entries) -> None:
@@ -242,6 +326,62 @@ def decode_u(Us, Ws):
     if Us.dtype == torch.bfloat16 and Ws.dtype == torch.float32:
         return Us.float()
     return Us
+
+
+#: operations of a cell's epilogue a hidden unit, besides its products:
+#: the gates' adds, activations' arithmetic and the state update (LSTM 4
+#: gates, GRU 3)
+CELL_POINTWISE = {4: 14, 3: 12}
+#: a cell's transcendentals a hidden unit: 3 sigmoids and 2 tanh (LSTM),
+#: 2 sigmoids and a tanh (GRU)
+CELL_TRANSCENDENTALS = {4: 5, 3: 3}
+
+
+def seq_cost(gates: int, U, xw, h0, b_valid=None, u_scales=None,
+             u_rows=None) -> Cost:
+    """A sequence kernel's walk (``gates`` 4: LSTM, 3: GRU) of G
+    recurrences of B rows over T steps, xw (G, B, T, gates, H) or (B, T,
+    gates, H): h·U over the Hr rows U holds, 2·gates·Hr·H FLOPs a row and
+    step; U (with its scales and row index), xw, h0 and the b_valid mask
+    (int32) read, hs and h_T (h0's dtype; xw's where h0 is None) written,
+    and for the LSTM c0 read and c_T written in fp32, once; the cell's
+    transcendentals and pointwise work a row and step, and the scales'
+    product where U is int8."""
+    *lead, T, _, H = xw.shape
+    rows = 1
+    for n in lead:
+        rows *= n
+    Hr = U.shape[-3]
+    h_bytes = (xw if h0 is None else h0).element_size()
+    state = rows * H * (2 * h_bytes + (8 if gates == 4 else 0))
+    steps = rows * T
+    return Cost(
+        flops=steps * 2 * gates * Hr * H,
+        bytes=(nbytes(U, u_scales, u_rows, xw) + steps * H * h_bytes + state
+               + (0 if b_valid is None else 4 * rows)),
+        transcendentals=steps * CELL_TRANSCENDENTALS[gates] * H,
+        pointwise=steps * H * (CELL_POINTWISE[gates]
+                               + (0 if u_scales is None else gates)))
+
+
+def decode_cost(gates: int, xw0, Ws, bs, Us, h0) -> Cost:
+    """A decode kernel's tick (``gates`` 4: LSTM, 3: GRU) through L layers
+    of B rows: the L recurrent and L - 1 input products, 2·gates·H² FLOPs
+    a row and matrix; Ws[1:], bs[1:] (entry 0 is unused), Us, xw0 and h0
+    read and h_n written, and for the LSTM c0 read and c_n written in
+    fp32, once; the cell's transcendentals and pointwise work a row and
+    layer."""
+    L, B, H = h0.shape
+    per = gates * H * H
+    cells = L * B * H
+    return Cost(
+        flops=B * (2 * L - 1) * 2 * per,
+        bytes=(nbytes(xw0, Us) + (L - 1) * (per * Ws.element_size()
+                                           + gates * H * bs.element_size())
+               + 2 * cells * h0.element_size()
+               + (8 * cells if gates == 4 else 0)),
+        transcendentals=CELL_TRANSCENDENTALS[gates] * cells,
+        pointwise=CELL_POINTWISE[gates] * cells)
 
 
 #: The decode kernels' cluster split (csrc/decode_cluster.cuh): the

@@ -9,8 +9,8 @@ plain PyTorch version (``decode_attention_plain``, the Pallas kernel's
 tiled online softmax in fp32); on a CUDA device it launches the
 hand-written kernel (``csrc/decode_attention.cu``) or raises.  There is no
 fallback from one to the other.  Like every kernel entry point it carries
-the ``calls`` and ``kernel_launches`` counters
-(``kernels.common.counted``).
+the ``calls`` and ``kernel_launches`` counters and its cost
+(``kernels.common.counted``, ``decode_attention_cost``).
 """
 from __future__ import annotations
 
@@ -19,9 +19,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.common import (check_operands, check_shape,
+from repro_torch.kernels.common import (Cost, check_operands, check_shape,
                                         count_launch, counted, dtype_flag,
-                                        launched, on_cuda, operand)
+                                        launched, nbytes, on_cuda, operand,
+                                        tracing)
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (NEG_INF,
                                                       decode_attention_ref)
@@ -131,10 +132,7 @@ def decode_attention_cuda(q, k_cache, v_cache, valid,
                          f"at most {MAX_HEAD_DIM}")
     q_type = dtype_flag("decode_attention", "q", q)
     kv_type = dtype_flag("decode_attention", "k_cache", k_cache)
-    out = torch.empty((B, Hq, D), device=dev,
-                      dtype=torch.float32 if return_stats else q.dtype)
-    ml = (torch.empty((B, Hq, 2), dtype=torch.float32, device=dev)
-          if return_stats else None)
+    out, ml = _outs(q, return_stats)
     launch = kernel.entry("decode_attention")
     with torch.cuda.device(dev):
         rc = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -149,7 +147,34 @@ def decode_attention_cuda(q, k_cache, v_cache, valid,
     return out
 
 
-@counted
+def _outs(q, return_stats: bool):
+    """(o, the (m, l) pairs or None), as ``decode_attention_cuda``
+    allocates them."""
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=torch.float32 if return_stats else q.dtype)
+    ml = (torch.empty(q.shape[:2] + (2,), dtype=torch.float32,
+                      device=q.device) if return_stats else None)
+    return out, ml
+
+
+def decode_attention_cost(q, k_cache, v_cache, valid, *, block_t: int = 0,
+                          return_stats: bool = False) -> Cost:
+    """Attention of B·Hq query rows over the whole ring of T slots (the
+    live count is data, which a trace on fake tensors does not have, and
+    the reference's HLO prices the whole ring too): q·K and p·V, 4·B·Hq·T·D
+    FLOPs; q, both caches and ``valid`` (int32) read and o (and (m, l))
+    written once; B·Hq·T exps."""
+    B, T = k_cache.shape[0], k_cache.shape[1]
+    Hq, D = q.shape[-2], q.shape[-1]
+    out = B * Hq * D * (4 if return_stats else q.element_size())
+    if return_stats:
+        out += 8 * B * Hq
+    return Cost(flops=4 * B * Hq * T * D,
+                bytes=nbytes(q, k_cache, v_cache) + 4 * B + out,
+                transcendentals=B * Hq * T)
+
+
+@counted(cost=decode_attention_cost)
 def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0,
                      return_stats: bool = False):
     """Flash-decode GQA attention.  q (B, Hq, D) or (B, 1, Hq, D); caches
@@ -180,7 +205,11 @@ def decode_attention(q, k_cache, v_cache, valid, *, block_t: int = 0,
     if block_t < 1 or T % block_t:
         raise ValueError(f"decode_attention: T={T} is not a multiple of "
                          f"block_t={block_t}")
-    if on_cuda("decode_attention", q.device):
+    if tracing():
+        o, ml = _outs(q, return_stats)
+        if return_stats:
+            o = (o, ml[..., 0], ml[..., 1])
+    elif on_cuda("decode_attention", q.device):
         o = decode_attention_cuda(operand(q), operand(k_cache),
                                   operand(v_cache),
                                   operand(valid.to(torch.int32)),
@@ -212,4 +241,5 @@ def max_clusters(B: int, T: int, Hk: int, G: int, D: int,
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_cuda", "decode_attention_ref",
+           "decode_attention_cost",
            "default_block_t", "splits", "max_clusters"]

@@ -13,20 +13,21 @@ raises.  There is no fallback from one to the other.
 
 Each entry point carries two counters (``kernels.common.counted``):
 ``calls`` (every invocation, any device) and ``kernel_launches`` (real
-CUDA launches only).
+CUDA launches only); and its cost (``gru_seq_cost``, ``gru_decode_cost``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (KernelLaunchRefused,
+from repro_torch.kernels.common import (Cost, KernelLaunchRefused,
                                         check_operands, check_shape,
-                                        count_launch, counted, decode_splits,
-                                        decode_u, dtype_flag, gather_index,
-                                        launched, on_cuda, operand, ptr,
-                                        ragged_b_mask, recurrent_product,
+                                        count_launch, counted, decode_cost,
+                                        decode_splits, decode_u, dtype_flag,
+                                        gather_index, launched, on_cuda,
+                                        operand, ptr, ragged_b_mask,
+                                        recurrent_product, seq_cost,
                                         seq_limit, seq_splits, seq_variant,
-                                        weight_operands)
+                                        tracing, weight_operands)
 from repro_torch.kernels.gru_cell import kernel
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 
@@ -117,8 +118,7 @@ def gru_seq_cuda(U3, xw, h0, b_mask=None, u_scales=None, u_rows=None):
             raise TypeError("gru_seq: b_mask must be int32")
     flags = (u_type, dtype_flag("gru_seq", "xw", xw),
              dtype_flag("gru_seq", "h0", h0))
-    hs = torch.empty((G, B, T, H), dtype=h0.dtype, device=dev)
-    h_n = torch.empty((G, B, H), dtype=h0.dtype, device=dev)
+    hs, h_n = _seq_outs(xw, h0)
     launch = kernel.entry("gru_seq")
     with torch.cuda.device(dev):
         rc = launch(U3.data_ptr(), ptr(u_scales), ptr(u_rows), xw.data_ptr(),
@@ -151,7 +151,7 @@ def gru_decode_cuda(xw0, Ws, bs, Us, h0):
     if flags[1] and not flags[0]:
         raise TypeError(f"gru_decode: bfloat16 Us under float32 Ws; the "
                         "entry point upcasts such a U")
-    h_n = torch.empty((L, B, H), dtype=h0.dtype, device=dev)
+    h_n = torch.empty_like(h0)
     launch = kernel.entry("gru_decode")
     with torch.cuda.device(dev):
         rc = launch(xw0.data_ptr(), Ws.data_ptr(), bs.data_ptr(),
@@ -162,12 +162,32 @@ def gru_decode_cuda(xw0, Ws, bs, Us, h0):
     return h_n
 
 
+def _seq_outs(xw, h0):
+    """(hs, h_n), as ``gru_seq_cuda`` allocates them."""
+    G, B, T, _, H = xw.shape
+    return (torch.empty((G, B, T, H), dtype=h0.dtype, device=xw.device),
+            torch.empty(h0.shape, dtype=h0.dtype, device=xw.device))
+
+
+def gru_seq_cost(U3, xw, h0=None, *, b_valid=None, u_scales=None,
+                 u_rows=None, block_t: int = 0) -> Cost:
+    """The T-step walk of G recurrences of B rows: the sequence kernels'
+    count (``kernels.common.seq_cost``) with 3 gates."""
+    return seq_cost(3, U3, xw, h0, b_valid, u_scales, u_rows)
+
+
+def gru_decode_cost(xw0, Ws, bs, Us, h0) -> Cost:
+    """One tick through L layers: ``kernels.common.decode_cost`` with 3
+    gates."""
+    return decode_cost(3, xw0, Ws, bs, Us, h0)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
 
-@counted
+@counted(cost=gru_seq_cost)
 def gru_seq(U3, xw, h0=None, *, b_valid=None, u_scales=None, u_rows=None,
             block_t: int = 0):
     """Sequence-fused GRU recurrence: ONE kernel launch for the whole T
@@ -213,7 +233,9 @@ def gru_seq(U3, xw, h0=None, *, b_valid=None, u_scales=None, u_rows=None,
     else:
         b_mask = (None if b_valid is None
                   else ragged_b_mask(G, B, b_valid, device=xw.device))
-        if on_cuda("gru_seq", xw.device):
+        if tracing():
+            out = _seq_outs(xw, h0)
+        elif on_cuda("gru_seq", xw.device):
             out = gru_seq_cuda(
                 operand(U3), operand(xw), operand(h0), b_mask,
                 None if u_scales is None else operand(u_scales.float()),
@@ -223,7 +245,7 @@ def gru_seq(U3, xw, h0=None, *, b_valid=None, u_scales=None, u_rows=None,
     return out if stacked else tuple(o[0] for o in out)
 
 
-@counted
+@counted(cost=gru_decode_cost)
 def gru_decode(xw0, Ws, bs, Us, h0):
     """One T=1 decode tick through a whole L-layer GRU stack in ONE
     launch.
@@ -235,6 +257,8 @@ def gru_decode(xw0, Ws, bs, Us, h0):
     calls with the input GEMM rounded through promote(h0.dtype, Ws.dtype)
     between them."""
     gru_decode.calls += 1
+    if tracing():
+        return torch.empty_like(h0)
     if on_cuda("gru_decode", h0.device):
         return gru_decode_cuda(operand(xw0), operand(Ws), operand(bs),
                                operand(decode_u(Us, Ws)), operand(h0))
@@ -243,4 +267,4 @@ def gru_decode(xw0, Ws, bs, Us, h0):
 
 __all__ = ["gru_seq", "gru_decode", "gru_seq_plain", "gru_decode_plain",
            "gru_seq_cuda", "gru_decode_cuda", "decode_splits", "gru_seq_ref",
-           "gru_step_ref"]
+           "gru_step_ref", "gru_seq_cost", "gru_decode_cost"]

@@ -15,21 +15,23 @@ fallback from one to the other.
 
 Each entry point carries two counters (``kernels.common.counted``):
 ``calls`` (every invocation, any device) and ``kernel_launches`` (real
-CUDA launches only).
+CUDA launches only); and its cost (``lstm_seq_cost``, ``lstm_decode_cost``,
+``lstm_cell_cost``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.autotune import table
-from repro_torch.kernels.common import (KernelLaunchRefused,
+from repro_torch.kernels.common import (Cost, KernelLaunchRefused,
                                         check_operands, check_shape,
-                                        count_launch, counted, decode_splits,
-                                        decode_u, dtype_flag, gather_index,
-                                        launched, on_cuda, operand, ptr,
-                                        ragged_b_mask, recurrent_product,
+                                        count_launch, counted, decode_cost,
+                                        decode_splits, decode_u, dtype_flag,
+                                        gather_index, launched, nbytes,
+                                        on_cuda, operand, ptr, ragged_b_mask,
+                                        recurrent_product, seq_cost,
                                         seq_limit, seq_splits, seq_variant,
-                                        weight_operands)
+                                        tracing, weight_operands)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref, lstm_seq_ref
 
@@ -139,9 +141,7 @@ def lstm_seq_cuda(U4, xw, h0, c0, b_mask=None, u_scales=None,
             raise TypeError("lstm_seq: b_mask must be int32")
     flags = (u_type, dtype_flag("lstm_seq", "xw", xw),
              dtype_flag("lstm_seq", "h0", h0))
-    hs = torch.empty((G, B, T, H), dtype=h0.dtype, device=dev)
-    h_n = torch.empty((G, B, H), dtype=h0.dtype, device=dev)
-    c_n = torch.empty((G, B, H), dtype=torch.float32, device=dev)
+    hs, h_n, c_n = _seq_outs(xw, h0)
     launch = kernel.entry("lstm_seq")
     with torch.cuda.device(dev):
         rc = launch(U4.data_ptr(), ptr(u_scales), ptr(u_rows),
@@ -179,8 +179,7 @@ def lstm_decode_cuda(xw0, Ws, bs, Us, h0, c0):
     if flags[1] and not flags[0]:
         raise TypeError(f"lstm_decode: bfloat16 Us under float32 Ws; the "
                         "entry point upcasts such a U")
-    h_n = torch.empty((L, B, H), dtype=h0.dtype, device=dev)
-    c_n = torch.empty((L, B, H), dtype=torch.float32, device=dev)
+    h_n, c_n = _state_outs(h0)
     launch = kernel.entry("lstm_decode")
     with torch.cuda.device(dev):
         rc = launch(xw0.data_ptr(), Ws.data_ptr(), bs.data_ptr(),
@@ -214,8 +213,7 @@ def lstm_cell_cuda(U4, xw_t, h_prev, c_prev, block_h: int, block_k: int):
     flags = (dtype_flag("lstm_cell", "U4", U4),
              dtype_flag("lstm_cell", "xw_t", xw_t),
              dtype_flag("lstm_cell", "h_prev", h_prev))
-    h = torch.empty((B, H), dtype=h_prev.dtype, device=dev)
-    c = torch.empty((B, H), dtype=torch.float32, device=dev)
+    h, c = _state_outs(h_prev)
     launch = kernel.entry("lstm_cell")
     with torch.cuda.device(dev):
         rc = launch(U4.data_ptr(), xw_t.data_ptr(), h_prev.data_ptr(),
@@ -226,12 +224,55 @@ def lstm_cell_cuda(U4, xw_t, h_prev, c_prev, block_h: int, block_k: int):
     return h, c
 
 
+def _seq_outs(xw, h0):
+    """(hs, h_n, c_n), as ``lstm_seq_cuda`` allocates them."""
+    G, B, T, _, H = xw.shape
+    return (torch.empty((G, B, T, H), dtype=h0.dtype, device=xw.device),
+            *_state_outs(h0))
+
+
+def _state_outs(h0):
+    """(h, c) of h0's shape, h in h0's dtype and c fp32, as the decode
+    and cell wrappers allocate them."""
+    return (torch.empty(h0.shape, dtype=h0.dtype, device=h0.device),
+            torch.empty(h0.shape, dtype=torch.float32, device=h0.device))
+
+
+# ---------------------------------------------------------------------------
+# costs (``kernels.common.Cost``)
+# ---------------------------------------------------------------------------
+
+
+def lstm_seq_cost(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
+                  u_rows=None, block_t: int = 0) -> Cost:
+    """The T-step walk of G recurrences of B rows: the sequence kernels'
+    count (``kernels.common.seq_cost``) with 4 gates and the cell state."""
+    return seq_cost(4, U4, xw, h0, b_valid, u_scales, u_rows)
+
+
+def lstm_decode_cost(xw0, Ws, bs, Us, h0, c0) -> Cost:
+    """One tick through L layers: ``kernels.common.decode_cost`` with 4
+    gates and the cell state."""
+    return decode_cost(4, xw0, Ws, bs, Us, h0)
+
+
+def lstm_cell_cost(U4, xw_t, h_prev, c_prev, **_) -> Cost:
+    """One step of B rows: h·U, 8·H² FLOPs a row; U, xw_t, h_prev and
+    c_prev read and h (h_prev's dtype) and c (fp32) written once; three
+    sigmoids and two tanh, 14·H other operations a row."""
+    B, H = h_prev.shape
+    return Cost(flops=B * 8 * H * H,
+                bytes=nbytes(U4, xw_t, h_prev, c_prev)
+                + B * H * (h_prev.element_size() + 4),
+                transcendentals=5 * B * H, pointwise=14 * B * H)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
 
-@counted
+@counted(cost=lstm_cell_cost)
 def lstm_cell(U4, xw_t, h_prev, c_prev, *, block_h: int = 0,
               block_k: int = 0):
     """Fused recurrent LSTM step, ONE launch.  U4 (H,4,H); xw_t (B,4,H)
@@ -250,6 +291,8 @@ def lstm_cell(U4, xw_t, h_prev, c_prev, *, block_h: int = 0,
         bk, bh = table().block(H, H, vmem_budget=2 * 2**20)
         block_h = block_h or min(bh, H)
         block_k = block_k or min(bk, H)
+    if tracing():
+        return _state_outs(h_prev)
     if on_cuda("lstm_cell", h_prev.device):
         return lstm_cell_cuda(operand(U4), operand(xw_t), operand(h_prev),
                               operand(c_prev.float()), block_h, block_k)
@@ -285,7 +328,7 @@ def as_seq_kernel(block_t: int = 0):
     return seq
 
 
-@counted
+@counted(cost=lstm_seq_cost)
 def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
              u_rows=None, block_t: int = 0):
     """Sequence-fused recurrence: ONE kernel launch for the whole T walk.
@@ -341,7 +384,9 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
     else:
         b_mask = (None if b_valid is None
                   else ragged_b_mask(G, B, b_valid, device=xw.device))
-        if on_cuda("lstm_seq", xw.device):
+        if tracing():
+            out = _seq_outs(xw, h0)
+        elif on_cuda("lstm_seq", xw.device):
             out = lstm_seq_cuda(
                 operand(U4), operand(xw), operand(h0), operand(c0), b_mask,
                 None if u_scales is None else operand(u_scales.float()),
@@ -351,7 +396,7 @@ def lstm_seq(U4, xw, h0=None, c0=None, *, b_valid=None, u_scales=None,
     return out if stacked else tuple(o[0] for o in out)
 
 
-@counted
+@counted(cost=lstm_decode_cost)
 def lstm_decode(xw0, Ws, bs, Us, h0, c0):
     """One T=1 decode tick through a whole L-layer stack in ONE launch.
 
@@ -362,6 +407,8 @@ def lstm_decode(xw0, Ws, bs, Us, h0, c0):
     Equal to L per-layer ``lstm_seq(..., T=1)`` calls with the input GEMM
     rounded through promote(h0.dtype, Ws.dtype) between them."""
     lstm_decode.calls += 1
+    if tracing():
+        return _state_outs(h0)
     if on_cuda("lstm_decode", h0.device):
         return lstm_decode_cuda(operand(xw0), operand(Ws), operand(bs),
                                 operand(decode_u(Us, Ws)), operand(h0),
@@ -372,4 +419,5 @@ def lstm_decode(xw0, Ws, bs, Us, h0, c0):
 __all__ = ["lstm_seq", "lstm_decode", "lstm_cell", "lstm_seq_plain",
            "lstm_decode_plain", "lstm_cell_plain", "lstm_seq_cuda",
            "lstm_decode_cuda", "lstm_cell_cuda", "decode_splits",
-           "as_cell_kernel", "as_seq_kernel", "lstm_cell_ref", "lstm_seq_ref"]
+           "as_cell_kernel", "as_seq_kernel", "lstm_cell_ref", "lstm_seq_ref",
+           "lstm_seq_cost", "lstm_decode_cost", "lstm_cell_cost"]

@@ -5,8 +5,8 @@ The device of the tensors decides how it runs: on the CPU it runs the
 plain PyTorch version (``mvm_plain``, the oracle's fp32 product); on a
 CUDA device it launches the hand-written kernel (``csrc/mvm_tile.cu``) or
 raises.  There is no fallback from one to the other.  Like every kernel
-entry point it carries the ``calls`` and ``kernel_launches`` counters
-(``kernels.common.counted``).
+entry point it carries the ``calls`` and ``kernel_launches`` counters and
+its cost (``kernels.common.counted``, ``mvm_cost``).
 """
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (cdiv, check_operands, check_shape,
-                                        count_launch, counted, dtype_flag,
-                                        launched, on_cuda, operand)
+from repro_torch.kernels.common import (Cost, cdiv, check_operands,
+                                        check_shape, count_launch, counted,
+                                        dtype_flag, launched, nbytes,
+                                        on_cuda, operand, tracing)
 from repro_torch.kernels.mvm_tile import kernel
 from repro_torch.kernels.mvm_tile.ref import mvm_ref
 
@@ -65,7 +66,7 @@ def mvm_cuda(x, W, b=None):
     S = splits(X, N)
     x_type = dtype_flag("mvm", "x", x)
     w_type = dtype_flag("mvm", "W", W)
-    y = torch.empty((B, N), dtype=x.dtype, device=dev)
+    y = _out(x, N)
     launch = kernel.entry("mvm_tile")
     with torch.cuda.device(dev):
         rc = launch(x.data_ptr(), W.data_ptr(),
@@ -90,7 +91,22 @@ def max_clusters(B: int, X: int, N: int, dtype=torch.bfloat16) -> int:
     return out.value
 
 
-@counted
+def _out(x, N):
+    """y, as ``mvm_cuda`` allocates it."""
+    return torch.empty((x.shape[0], N), dtype=x.dtype, device=x.device)
+
+
+def mvm_cost(x, W, b=None, **_) -> Cost:
+    """y = x·W (+ b) at (B, X, N): 2·B·X·N FLOPs; x, W and b read and y
+    written once; the bias add B·N operations."""
+    B = x.shape[0] if x.dim() == 2 else 1
+    X, N = W.shape
+    return Cost(flops=2 * B * X * N,
+                bytes=nbytes(x, W, b) + B * N * x.element_size(),
+                pointwise=0 if b is None else B * N)
+
+
+@counted(cost=mvm_cost)
 def mvm(x, W, b=None, *, block_n: int = 0, block_k: int = 0):
     """Tiled y = x @ W (+ b).  x (B, X) or (X,); W (X, N); b (N,) or None.
 
@@ -111,7 +127,9 @@ def mvm(x, W, b=None, *, block_n: int = 0, block_k: int = 0):
     if block_n < 0 or block_k < 0:
         raise ValueError(f"mvm: block_n={block_n}, block_k={block_k} must "
                          "be >= 0")
-    if on_cuda("mvm", x.device):
+    if tracing():
+        y = _out(x, N)
+    elif on_cuda("mvm", x.device):
         y = mvm_cuda(operand(x), operand(W),
                      None if b is None else operand(b.float()))
     else:
@@ -119,5 +137,5 @@ def mvm(x, W, b=None, *, block_n: int = 0, block_k: int = 0):
     return y[0] if squeeze else y
 
 
-__all__ = ["mvm", "mvm_plain", "mvm_cuda", "mvm_ref", "splits",
+__all__ = ["mvm", "mvm_plain", "mvm_cuda", "mvm_ref", "mvm_cost", "splits",
            "max_clusters"]

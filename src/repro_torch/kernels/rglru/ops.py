@@ -8,8 +8,8 @@ PyTorch version (``rglru_scan_plain``, the oracle's Python loop over T;
 ``rglru_scan_bwd_plain``); on a CUDA device the hand-written kernel
 (``csrc/rglru_scan.cu``, ``csrc/rglru_scan_bwd.cu``) or an error.  There
 is no fallback from one to the other.  Like every kernel entry point each
-carries the ``calls`` and ``kernel_launches`` counters
-(``kernels.common.counted``).
+carries the ``calls`` and ``kernel_launches`` counters and its cost
+(``kernels.common.counted``; ``rglru_scan_cost``, ``rglru_scan_bwd_cost``).
 
 ``rglru_scan`` is differentiable: it runs as a ``torch.autograd.Function``
 (``RglruScan``) whose forward is the dispatch above and whose backward
@@ -21,9 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (check_operands, check_shape,
+from repro_torch.kernels.common import (Cost, check_operands, check_shape,
                                         count_launch, counted, launched,
-                                        on_cuda, operand)
+                                        nbytes, on_cuda, operand, tracing)
 from repro_torch.kernels.rglru import kernel
 from repro_torch.kernels.rglru.ref import (rglru_scan_bwd_plain,
                                           rglru_scan_ref)
@@ -35,6 +35,54 @@ rglru_scan_plain = rglru_scan_ref
 #: csrc/rglru_scan.cu's tile: steps x channels of log_a (and of gx) that
 #: stream through its shared-memory ring together
 SCAN_TILE_ELEMS = 1024
+
+#: the scan's fp32 operations an element (an fma counted as two): two of
+#: XLA's exps of 26 each (clamp 2, range reduction 5, polynomial 14, the
+#: final add, 2^n 2, product 1), 2 la, 1 - a2, max, sqrt, s g and the
+#: step's fma
+SCAN_OPS = 59
+#: the backward's fp32 operations an element: the forward's two exps
+#: (52), 2 la, 1 - a2, max, sqrt, the selector (2), a2 sel, the division,
+#: its sign, g times it, q's fma (2), the chain's fma (2), s delta and
+#: delta q
+SCAN_BWD_OPS = 67
+
+
+def rglru_scan_cost(log_a, gx, h0, **_) -> Cost:
+    """The recurrence over (B, T, W): no product; log_a, gx and h0 read
+    and hs and h_T written once (fp32: 12 bytes an element and 8 a state
+    channel); a = exp(log_a), a² = exp(2·log_a) and sqrt(1 − a²), three
+    transcendentals an element; SCAN_OPS operations an element."""
+    n = log_a.numel()
+    return Cost(flops=0, bytes=nbytes(log_a, gx, h0) + 4 * (n + h0.numel()),
+                transcendentals=3 * n, pointwise=SCAN_OPS * n)
+
+
+def rglru_scan_bwd_cost(log_a, gx, h0, hs, dhs, dhT) -> Cost:
+    """The backward over (B, T, W): log_a, gx, hs, dhs, h0 and dhT read,
+    dlog_a, dgx and dh0 written once (24 bytes an element, 12 a state
+    channel); the forward's three transcendentals an element; SCAN_BWD_OPS
+    operations an element."""
+    n = log_a.numel()
+    return Cost(flops=0,
+                bytes=nbytes(log_a, gx, h0, hs, dhs, dhT)
+                + 4 * (2 * n + h0.numel()),
+                transcendentals=3 * n, pointwise=SCAN_BWD_OPS * n)
+
+
+def _scan_outs(log_a, h0):
+    """(hs, h_n), as ``rglru_scan_cuda`` allocates them."""
+    f32, dev = torch.float32, log_a.device
+    return (torch.empty(log_a.shape, dtype=f32, device=dev),
+            torch.empty(h0.shape, dtype=f32, device=dev))
+
+
+def _bwd_outs(log_a, h0):
+    """(dlog_a, dgx, dh0), as ``rglru_scan_bwd_cuda`` allocates them."""
+    f32, dev = torch.float32, log_a.device
+    return (torch.empty(log_a.shape, dtype=f32, device=dev),
+            torch.empty(log_a.shape, dtype=f32, device=dev),
+            torch.empty(h0.shape, dtype=f32, device=dev))
 
 
 def scan_tile(B: int, W: int, sms: int = 132):
@@ -61,8 +109,7 @@ def rglru_scan_cuda(log_a, gx, h0):
         if t.dtype != torch.float32:
             raise TypeError(f"rglru_scan: {arg} must be float32, got "
                             f"{t.dtype}")
-    hs = torch.empty((B, T, W), dtype=torch.float32, device=dev)
-    h_n = torch.empty((B, W), dtype=torch.float32, device=dev)
+    hs, h_n = _scan_outs(log_a, h0)
     launch = kernel.entry("rglru_scan")
     with torch.cuda.device(dev):
         rc = launch(log_a.data_ptr(), gx.data_ptr(), h0.data_ptr(),
@@ -74,6 +121,8 @@ def rglru_scan_cuda(log_a, gx, h0):
 
 
 def _scan(log_a, gx, h0):
+    if tracing():
+        return _scan_outs(log_a, h0)
     if on_cuda("rglru_scan", log_a.device):
         return rglru_scan_cuda(operand(log_a), operand(gx), operand(h0))
     return rglru_scan_plain(log_a, gx, h0)
@@ -96,7 +145,7 @@ class RglruScan(torch.autograd.Function):
         return rglru_scan_bwd(log_a, gx, h0, hs, dhs, dhT)
 
 
-@counted
+@counted(cost=rglru_scan_cost)
 def rglru_scan(log_a, gx, h0, *, block_w: int = 0):
     """The RG-LRU recurrence h = a·h + sqrt(max(1 − a², 0))·gx with
     a = exp(log_a), ONE kernel launch for all T steps.
@@ -127,9 +176,7 @@ def rglru_scan_bwd_cuda(log_a, gx, h0, hs, dhs, dhT):
         if t.dtype != torch.float32:
             raise TypeError(f"rglru_scan_bwd: {arg} must be float32, got "
                             f"{t.dtype}")
-    dla = torch.empty((B, T, W), dtype=torch.float32, device=dev)
-    dgx = torch.empty((B, T, W), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((B, W), dtype=torch.float32, device=dev)
+    dla, dgx, dh0 = _bwd_outs(log_a, h0)
     launch = kernel.entry("rglru_scan_bwd")
     with torch.cuda.device(dev):
         rc = launch(log_a.data_ptr(), gx.data_ptr(), h0.data_ptr(),
@@ -141,7 +188,7 @@ def rglru_scan_bwd_cuda(log_a, gx, h0, hs, dhs, dhT):
     return dla, dgx, dh0
 
 
-@counted
+@counted(cost=rglru_scan_bwd_cost)
 def rglru_scan_bwd(log_a, gx, h0, hs, dhs, dhT):
     """The backward of ``rglru_scan``, ONE kernel launch for all T steps:
     from the forward's inputs log_a, gx (B, T, W) and h0 (B, W), its
@@ -150,6 +197,8 @@ def rglru_scan_bwd(log_a, gx, h0, hs, dhs, dhT):
     fp32, T >= 1.  The math and its inf / nan where a rounds to 1:
     ``kernels.rglru.ref.rglru_scan_bwd_plain``."""
     rglru_scan_bwd.calls += 1
+    if tracing():
+        return _bwd_outs(log_a, h0)
     if on_cuda("rglru_scan_bwd", log_a.device):
         return rglru_scan_bwd_cuda(*(operand(t) for t in (
             log_a, gx, h0, hs, dhs, dhT)))
@@ -159,4 +208,5 @@ def rglru_scan_bwd(log_a, gx, h0, hs, dhs, dhT):
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_cuda",
            "rglru_scan_ref", "rglru_scan_bwd", "rglru_scan_bwd_plain",
            "rglru_scan_bwd_cuda", "RglruScan", "scan_tile",
-           "SCAN_TILE_ELEMS"]
+           "SCAN_TILE_ELEMS", "SCAN_OPS", "SCAN_BWD_OPS", "rglru_scan_cost",
+           "rglru_scan_bwd_cost"]

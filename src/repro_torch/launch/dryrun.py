@@ -1,53 +1,69 @@
 """Multi-pod dry run: every (arch x shape x mesh) cell's step laid out on
-a production mesh, with no device — the port of ``repro.launch.dryrun``.
+a production mesh and priced per device, with no device — the port of
+``repro.launch.dryrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b \\
         --shape decode_32k --mesh both
     REPRO_DRYRUN_SMALL=1 ...    # 16-rank meshes (4x4, 2x2x4), as the tests
 
-For each cell this proves, on a mesh described by its axis names and
-sizes alone (``sharding.MeshShape``: 16x16 = 256 ranks, or 2x16x16 = 512),
-that the partition rules lay out every argument of the step, and reports
-per device:
+For each cell this proves, on rank 0 of a fake process group of the
+mesh's size (``torch.distributed``'s ``"fake"`` backend: 256 ranks for
+16x16, 512 for 2x16x16, 16 under ``REPRO_DRYRUN_SMALL``) and under
+``FakeTensorMode`` (shapes, no storage), that the partition rules lay out
+every argument of the step (``sharding.partition``'s ``param_shardings``,
+``cache_shardings``, ``batch_spec`` on a ``DeviceMesh``) and that the
+step runs on them: DTensor inserts its collectives, the kernels run on
+the local shards (``sharding.local``).  The step is traced through
+``calib.hlo`` (one line per operation this rank dispatches), and each
+cell reports per device what the reference's reports:
 
-* ``memory``: the exact bytes of the step's arguments and outputs on one
-  device, from their specs (a sharded dim's bytes split over its axes),
-  and of the outputs that alias a donated argument.
-  ``peak_bytes_per_device_lower_bound`` is arguments + outputs - aliases:
-  a lower bound, since no compiler is asked for the step's temporaries.
-  ``lower_bound_exceeds_hbm``: that bound alone is past one H100's HBM
-  (``configs.H100.hbm_bytes``), so the cell cannot run on such a mesh
-  of H100s; False proves no fit.
-* ``cost_analysis``: ``flops_global``, the FLOPs of the whole (unsharded)
-  step as ``torch.utils.flop_counter.FlopCounterMode`` counts them over
-  the step traced on the ``meta`` device (matrix products and
-  attention; no elementwise work), and ``flops_per_device_even_split``,
-  that divided evenly over the ranks.
+* ``memory``: the reference's ``memory_analysis`` names — arguments,
+  outputs, temporaries (the high-water mark of the storages the step
+  makes, less its new outputs), aliases (outputs written into an
+  argument in place: the decode step's rings, the train step's params
+  and moments) and the peak, arguments + outputs + temporaries -
+  aliases; and whether that peak exceeds one H100's HBM
+  (``configs.H100.hbm_bytes``);
+* ``cost_analysis``: ``flops``, ``bytes accessed`` and
+  ``transcendentals`` of this rank's step (``calib.hlo.analyze``: the
+  kernels priced by their ``Cost``);
+* ``collectives``: bytes by kind, with the reference's conventions;
+* ``hlo``: the path of the saved trace (``<cell>.hlo.gz``, which
+  ``python -m repro_torch.calib.hlo`` reads); ``--no-hlo`` skips it.
 
-The skip rule is the reference's: long_500k needs sub-quadratic
-attention.  Each cell's JSON lands in ``--out`` (artifacts/dryrun/).
+The mesh is a ``"cpu"`` mesh (DTensor's indexing on a fake ``"cuda"``
+mesh makes real CUDA tensors, which a build without CUDA cannot), and the
+step is traced as the card runs it: the card's path of the products with
+fp32 results (``kernels.common.card_path``: bf16 operands as they are,
+no fp32 copies), the kernels priced by their ``Cost``, and DTensor's
+all-gather and chunk that stand in for an all-to-all on a ``"cpu"`` mesh
+recorded as the all-to-all a ``"cuda"`` mesh issues.  The skip rule is
+the reference's: long_500k needs sub-quadratic attention.  Each cell's
+JSON lands in ``--out`` (artifacts/dryrun/).
 """
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
-import math
 import os
 import time
 import traceback
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch import tree as tr
+from repro_torch.calib import hlo
 from repro_torch.configs import (H100, SHAPES, get_config, list_archs,
                                  supports_shape)
 from repro_torch.launch.steps import (TrainSettings, input_specs,
                                       make_prefill_step, make_serve_step,
                                       make_train_step)
-from repro_torch.sharding.partition import (MeshShape, axis_sizes,
-                                            batch_spec, cache_specs,
-                                            param_specs)
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers.common import sharding_ctx
+from repro_torch.sharding.partition import (MeshShape, NamedSharding,
+                                            batch_spec, cache_shardings,
+                                            distribute, param_shardings)
+from repro_torch import tree as tr
 
 _SMALL = bool(os.environ.get("REPRO_DRYRUN_SMALL"))  # test mode: 16 ranks
 
@@ -58,6 +74,24 @@ def mesh_for(multi_pod: bool) -> MeshShape:
                 else MeshShape((4, 4), ("data", "model")))
     return (MeshShape((2, 16, 16), ("pod", "data", "model")) if multi_pod
             else MeshShape((16, 16), ("data", "model")))
+
+
+def fake_mesh(shape: MeshShape, device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` seen from rank 0 of a fake process
+    group of its size (formed here; a group of another size is taken
+    down first).  Its collectives move nothing."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized() and (dist.get_world_size() != shape.size
+                                  or dist.get_backend() != "fake"):
+        dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=shape.size)
+    return init_device_mesh(device_type, shape.shape,
+                            mesh_dim_names=shape.axis_names)
 
 
 def settings_for(cfg, shape) -> TrainSettings:
@@ -71,48 +105,33 @@ def settings_for(cfg, shape) -> TrainSettings:
     return TrainSettings(microbatches=micro)
 
 
-def specs_for(cfg, shape, mesh, specs):
-    """(argument specs, output specs, donated argument indices) of the
-    cell's step, as the reference's ``shardings_for`` lays them out: decode
-    keeps weights stationary (TP only) unless the model is too big to be
-    16-way resident; prefill and train keep FSDP."""
+def shardings_for(cfg, shape, mesh, specs, settings):
+    """(argument shardings, output shardings, donated argument indices) of
+    the cell's step, the reference's rules: decode keeps weights
+    stationary (TP only) unless the model is too big to be 16-way
+    resident; prefill and train keep FSDP."""
+    def ns(spec_tree):
+        return tr.tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
     tp_only = shape.mode == "decode" and cfg.num_params() <= 70e9
-    p_spec = param_specs(specs["params"], mesh, multi_pod_fsdp=True,
-                         fsdp=not tp_only)
+    p_sh = param_shardings(specs["params"], mesh, multi_pod_fsdp=True,
+                           fsdp=not tp_only)
     if shape.mode == "train":
-        o_spec = param_specs(specs["opt_state"], mesh)
-        b_spec = batch_spec(mesh, specs["batch"])
-        return (p_spec, o_spec, b_spec), (p_spec, o_spec, None), (0, 1)
+        o_sh = param_shardings(specs["opt_state"], mesh)
+        b_sh = ns(batch_spec(mesh, specs["batch"]))
+        return (p_sh, o_sh, b_sh), (p_sh, o_sh, None), (0, 1)
     if shape.mode == "prefill":
-        b_spec = batch_spec(mesh, specs["batch"])
-        return (p_spec, b_spec), (None, "cache"), ()
-    c_spec = cache_specs(specs["cache"], mesh)
-    b_spec = batch_spec(mesh, specs["batch"])
-    return (p_spec, c_spec, b_spec), (None, c_spec), (1,)
+        b_sh = ns(batch_spec(mesh, specs["batch"]))
+        cache = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
+                              device="meta")
+        return (p_sh, b_sh), (None, cache_shardings(cache, mesh)), ()
+    c_sh = cache_shardings(specs["cache"], mesh)
+    b_sh = ns(batch_spec(mesh, specs["batch"]))
+    return (p_sh, c_sh, b_sh), (None, c_sh), (1,)
 
 
-def local_bytes(leaf, spec, mesh) -> int:
-    """Bytes of ``leaf`` on one device under ``spec`` (None: replicated)."""
-    n = leaf.numel() * leaf.element_size()
-    if spec is None:
-        return n
-    sizes = axis_sizes(mesh)
-    for entry in spec:
-        for a in (() if entry is None else
-                  (entry,) if isinstance(entry, str) else entry):
-            n //= sizes[a]
-    return n
-
-
-def tree_bytes(tree, spec_tree, mesh) -> int:
-    leaves = tr.leaves(tree)
-    specs = ([None] * len(leaves) if spec_tree is None
-             else tr.leaves(spec_tree))
-    return sum(local_bytes(x, s, mesh) for x, s in zip(leaves, specs))
-
-
-def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             outdir: str) -> dict:
+def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
+             save_hlo: bool = True) -> dict:
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -121,11 +140,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return {"cell": cell, "status": "skipped",
                 "reason": "long_500k needs sub-quadratic attention"}
 
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     t0 = time.time()
-    mesh = mesh_for(multi_pod)
+    mshape = mesh_for(multi_pod)
+    mesh = fake_mesh(mshape)
     settings = settings_for(cfg, shape)
     specs = input_specs(cfg, shape, settings)
-    in_specs, out_specs, donate = specs_for(cfg, shape, mesh, specs)
+    in_sh, _, _ = shardings_for(cfg, shape, mesh, specs, settings)
     if shape.mode == "train":
         step = make_train_step(cfg, settings)
         args = (specs["params"], specs["opt_state"], specs["batch"])
@@ -135,43 +157,52 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     else:
         step = make_serve_step(cfg)
         args = (specs["params"], specs["cache"], specs["batch"])
-    counter = FlopCounterMode(display=False)
-    with counter:
-        outs = step(*args)
-    if shape.mode == "prefill":  # its cache is laid out by cache_specs
-        out_specs = (None, cache_specs(outs[1], mesh))
-
-    arg_bytes = sum(tree_bytes(a, s, mesh) for a, s in zip(args, in_specs))
-    out_bytes = sum(tree_bytes(o, s, mesh) for o, s in zip(outs, out_specs))
-    alias = sum(tree_bytes(args[i], in_specs[i], mesh) for i in donate)
-    n_dev = mesh.size
-    flops = int(counter.get_total_flops())
-    peak_lb = arg_bytes + out_bytes - alias
+    fake = FakeTensorMode(allow_non_fake_inputs=True)  # the mesh's ranks
+    args = hlo.fake_args(args, fake, device="cpu")
+    with fake:
+        args = tuple(distribute(a, s) for a, s in zip(args, in_sh))
+    with sharding_ctx(mesh), torch.set_grad_enabled(shape.mode == "train"):
+        trace, _ = hlo.run(step, *args, rank=0, world=mshape.size,
+                           label=cell, card=True)
+    text = trace.text()
+    cost = hlo.analyze(text)
+    mem = trace.memory
+    n_dev = mshape.size
     result = {
         "cell": cell,
         "status": "ok",
         "arch": arch,
         "shape": shape_name,
         "mesh": mesh_name,
-        "mesh_shape": list(mesh.shape),
+        "mesh_shape": list(mshape.shape),
         "n_devices": n_dev,
         "mode": shape.mode,
         "microbatches": settings.microbatches,
         "trace_s": round(time.time() - t0, 1),
         "memory": {
-            "argument_bytes_per_device": arg_bytes,
-            "output_bytes_per_device": out_bytes,
-            "alias_bytes_per_device": alias,
-            "peak_bytes_per_device_lower_bound": peak_lb,
+            "argument_bytes_per_device": mem.argument_bytes,
+            "output_bytes_per_device": mem.output_bytes,
+            "temp_bytes_per_device": mem.temp_bytes,
+            "alias_bytes_per_device": mem.alias_bytes,
+            "peak_bytes_per_device": mem.peak_bytes,
             "hbm_bytes_per_device": H100.hbm_bytes,
-            "lower_bound_exceeds_hbm": peak_lb > H100.hbm_bytes,
+            "peak_exceeds_hbm": mem.peak_bytes > H100.hbm_bytes,
         },
         "cost_analysis": {
-            "flops_global": flops,
-            "flops_per_device_even_split": math.ceil(flops / n_dev),
+            "flops": cost["flops"],
+            "bytes accessed": cost["bytes"],
+            "transcendentals": cost["transcendental_elems"],
         },
+        "collectives": cost["collectives"],
+        "collective_bytes": cost["collective_bytes"],
+        "kernel_ops": dict(trace.kernels),
     }
     os.makedirs(outdir, exist_ok=True)
+    if save_hlo:
+        path = os.path.join(outdir, f"{cell}.hlo.gz")
+        with gzip.open(path, "wt") as f:
+            f.write(text)
+        result["hlo"] = path
     with open(os.path.join(outdir, f"{cell}.json"), "w") as f:
         json.dump(result, f, indent=1)
     return result
@@ -186,8 +217,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--no-hlo", action="store_true",
-                    help="exists only for parity with the reference's CLI "
-                         "and changes nothing: no HLO is made here")
+                    help="do not save each cell's trace")
     args = ap.parse_args(argv)
 
     archs = list_archs() if (args.all or not args.arch) else [args.arch]
@@ -195,13 +225,14 @@ def main(argv=None):
     meshes = {"pod": [False], "multipod": [True],
               "both": [False, True]}[args.mesh]
 
+    t_all = time.time()
     results = []
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
                 try:
-                    with torch.no_grad():
-                        r = run_cell(arch, shape, mp, args.out)
+                    r = run_cell(arch, shape, mp, args.out,
+                                 save_hlo=not args.no_hlo)
                 except Exception as e:  # a failing cell is a bug: surface it
                     mesh_name = "2x16x16" if mp else "16x16"
                     r = {"cell": f"{arch}__{shape}__{mesh_name}",
@@ -216,11 +247,12 @@ def main(argv=None):
                 status = r["status"]
                 extra = ""
                 if status == "ok":
-                    gb = (r["memory"]["peak_bytes_per_device_lower_bound"]
-                          / 2**30)
-                    over = ("  > HBM" if r["memory"]["lower_bound_exceeds_hbm"]
+                    gb = r["memory"]["peak_bytes_per_device"] / 2**30
+                    over = ("  > HBM" if r["memory"]["peak_exceeds_hbm"]
                             else "")
-                    extra = (f"peak >= {gb:6.2f} GiB/dev{over}  "
+                    tf_ = r["cost_analysis"]["flops"] / 1e12
+                    extra = (f"peak {gb:6.2f} GiB/dev{over}  "
+                             f"{tf_:9.3f} TFLOP/dev  traced in "
                              f"{r['trace_s']}s")
                 elif status == "FAILED":
                     extra = r["error"][:120]
@@ -230,7 +262,7 @@ def main(argv=None):
     n_skip = sum(r["status"] == "skipped" for r in results)
     n_fail = sum(r["status"] == "FAILED" for r in results)
     print(f"\n== dry-run: {n_ok} ok, {n_skip} skipped (documented), "
-          f"{n_fail} FAILED ==")
+          f"{n_fail} FAILED in {time.time() - t_all:.1f}s ==")
     if n_fail:
         raise SystemExit(1)
 

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import tree as tr
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels.common import trips
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (AdamWConfig, CompressionConfig, apply_updates,
                                compress, init_error_state, init_state)
@@ -90,7 +91,7 @@ def make_train_step(cfg: ModelConfig, settings: TrainSettings = TrainSettings())
             g_acc = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tr.leaves(params)]
             loss_sum = None
-            for i in range(n_micro):
+            for i in trips(n_micro, closed=True):
                 mb = {k: micro(v, i) for k, v in batch.items()}
                 (loss, _), g = value_and_grad(cfg, params, mb)
                 for a, b in zip(g_acc, tr.leaves(g)):

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.common import trips
 from repro_torch.kernels.decode_attention import ops as decode_kernel
 from repro_torch.models.layers.common import on_mesh
 from repro_torch.sharding.partition import is_dtensor
@@ -108,9 +109,9 @@ def blockwise_attention(q, k, v, *, q_chunk: int = 512, kv_chunk: int = 1024):
                                 device=dev))
         o = on_mesh(torch.zeros((B, Hk, G, q_chunk, D), dtype=torch.float32,
                                 device=dev))
-        for j in range(nk):
-            if j * kv_chunk > (i + 1) * q_chunk - 1:
-                break  # wholly above the diagonal (module doc)
+        # the key blocks up to the diagonal: those wholly above it are
+        # skipped (module doc)
+        for j in trips(min(nk, ((i + 1) * q_chunk - 1) // kv_chunk + 1)):
             kj = k[:, j * kv_chunk:(j + 1) * kv_chunk]
             vj = v[:, j * kv_chunk:(j + 1) * kv_chunk]
             s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj.float()) * scale

@@ -19,8 +19,9 @@ import threading
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.common import torch_dtype
+from repro_torch.kernels.common import card_path, torch_dtype, trips
 from repro_torch.kernels.mvm_tile.ops import mvm
 from repro_torch.sharding.partition import (P, axis_sizes, is_dtensor,
                                             placements)
@@ -172,10 +173,67 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mirrors the reference's cotangents (fp32, rounded to bf16 once) with
     bf16 products.  On the CPU, where ``aten::mm.dtype`` has no kernel,
     and for fp32 operands, both are upcast to fp32 and multiplied (and
-    autograd differentiates that)."""
-    if a.device.type != "cuda" or a.dtype == torch.float32:
+    autograd differentiates that).  A cost trace of the card's path
+    (``calib.hlo``) takes the CUDA form on any device.  Batched DTensor
+    operands (the MoE experts under a mesh) are upcast too: DTensor has
+    no sharding rule for ``aten::bmm.dtype``."""
+    if (not card_path(a) or a.dtype == torch.float32
+            or (a.dim() == 3 and is_dtensor(a, b))):
         return torch.matmul(a.float(), b.float())
     return _MatmulF32.apply(a, b)
+
+
+def _on_local(fn, t: torch.Tensor, dim: Optional[int] = None):
+    """``fn(t)`` for an ``fn`` that keeps ``t``'s shape and works along
+    ``dim`` at most (elementwise otherwise); on a DTensor, on each rank's
+    local shard, a partial sum reduced and ``dim`` gathered first, where
+    DTensor has no rule for ``fn`` or a wrong backward."""
+    if not is_dtensor(t):
+        return fn(t)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding import local
+
+    def spread(p):
+        return p.is_partial() or (dim is not None and p == Shard(dim))
+
+    if any(spread(p) for p in t.placements):
+        t = t.redistribute(t.device_mesh, [Replicate() if spread(p) else p
+                                           for p in t.placements])
+    return local.wrap(fn(t.to_local()), t.device_mesh, t.placements,
+                      t.shape)
+
+
+def log_sigmoid(t: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid`` (DTensor has no sharding rule for it)."""
+    return _on_local(F.logsigmoid, t)
+
+
+def cummax(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cummax(t, dim).values`` (under a mesh DTensor's backward of
+    it mixes plain and distributed tensors)."""
+    dim %= t.dim()
+    return _on_local(lambda x: torch.cummax(x, dim=dim).values, t, dim)
+
+
+def split_last(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``t`` with its last dim split into ``sizes`` (heads and head dim,
+    or a head's gates).  Under a mesh whose axes on that dim do not divide
+    ``sizes[0]`` (RecurrentGemma-2B's 10 query heads, xlstm-125m's 4 heads
+    on a 4- or 16-way model axis), the dim is gathered first: DTensor cuts
+    no head in two (XLA's partitioner pads instead)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = Shard(t.dim() - 1)
+        n = 1
+        for i, pl in enumerate(t.placements):
+            if pl == last:
+                n *= t.device_mesh.size(i)
+        if sizes[0] % n:
+            t = t.redistribute(t.device_mesh, [Replicate() if pl == last
+                                               else pl for pl in t.placements])
+    return t.reshape(*t.shape[:-1], *sizes)
 
 
 def _at(xs, t):
@@ -201,9 +259,11 @@ def chunked_scan(step, carry, xs, chunk: int = 128, remat: bool = True):
     scan's values, in the same order)."""
     T = (xs[0] if isinstance(xs, (tuple, list)) else xs).shape[0]
     ys = []
-    for t in range(T):
+    for t in trips(T):
         carry, y = step(carry, _at(xs, t))
         ys.append(y)
+    if len(ys) < T:  # a cost trace ran one step for T (``trips``)
+        ys = ys * T
     return carry, _stack(ys)
 
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import card_path
 from repro_torch.models.layers.common import (dense_init, matmul_f32,
                                               shard_act)
 from repro_torch.sharding.partition import is_dtensor
@@ -48,9 +49,11 @@ def unembed(params, x):
     2560 x 256000); its backward takes the reference's cotangents with
     bf16 products too (``common.matmul_f32``).  On the CPU, where
     ``aten::mm.dtype`` has no kernel, both operands are upcast to fp32 and
-    multiplied (TF32 stays off on the card, ``rnn.resolve_device``)."""
+    multiplied (TF32 stays off on the card, ``rnn.resolve_device``).  A
+    cost trace of the card's path (``calib.hlo``) takes the CUDA form on
+    any device."""
     w = params["unembed"] if "unembed" in params else params["table"].T
-    if x.device.type != "cuda":
+    if not card_path(x):
         y = torch.matmul(x.float(), w.float())
     else:
         lead = x.shape[:-1]

@@ -139,7 +139,10 @@ def apply_moe(params, x, *, k: int, capacity_factor: float,
     B, S, d = x.shape
     E = params["router"].shape[1]
     T = B * S
-    xt = x.reshape(T, d)
+    # laid out over the batch here so that its two cotangents (the router's
+    # and the dispatch's) come back to the view in one layout: DTensor's
+    # sum of them may keep a nested Shard(0) that the view back cannot cut
+    xt = shard_act(x.reshape(T, d), "batch", None)
     C = deterministic_capacity or _capacity(T, k, E, capacity_factor)
 
     logits = torch.matmul(xt.float(), params["router"])

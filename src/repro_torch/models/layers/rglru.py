@@ -24,13 +24,12 @@ carries a JAX ``init_rglru`` tree over one to one.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.common import torch_dtype
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import xla_exp
-from repro_torch.models.layers.common import (dense_init, on_mesh,
-                                              promoted_matmul)
+from repro_torch.models.layers.common import (dense_init, log_sigmoid,
+                                              on_mesh, promoted_matmul)
 from repro_torch.sharding.partition import is_dtensor
 
 C_EXP = 8.0
@@ -62,7 +61,7 @@ def gate_inputs(params, x):
         (promoted_matmul(x, params["w_a"]) + params["b_a"]).float())
     i = torch.sigmoid(
         (promoted_matmul(x, params["w_x"]) + params["b_x"]).float())
-    log_a = C_EXP * r * F.logsigmoid(params["Lambda"])
+    log_a = C_EXP * r * log_sigmoid(params["Lambda"])
     gx = i * x.float()
     return log_a, gx
 

@@ -26,8 +26,10 @@ import torch.nn.functional as F
 
 from repro_torch import tree as tr
 from repro_torch.models.layers.common import (matmul_f32, chunked_scan,
-                                              dense_init, on_mesh, project,
-                                              shard_act)
+                                              cummax, dense_init,
+                                              log_sigmoid,
+                                              on_mesh, project, shard_act,
+                                              split_last)
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -59,12 +61,12 @@ def mlstm_inputs(params, x, n_heads: int, *, decode: bool = False):
     dh = di // n_heads
     xv = project(x, params["w_up_v"], decode=decode)
     xg = project(x, params["w_up_g"], decode=decode)
-    q = project(xv, params["w_q"], decode=decode).reshape(B, T, n_heads, dh)
+    q = split_last(project(xv, params["w_q"], decode=decode), n_heads, dh)
     # the reference divides by sqrt(dh) rounded to x's dtype
     scale = float(torch.tensor(float(dh)).sqrt().to(x.dtype))
-    k = project(xv, params["w_k"], decode=decode).reshape(
-        B, T, n_heads, dh) / scale
-    v = project(xv, params["w_v"], decode=decode).reshape(B, T, n_heads, dh)
+    k = split_last(project(xv, params["w_k"], decode=decode), n_heads,
+                   dh) / scale
+    v = split_last(project(xv, params["w_v"], decode=decode), n_heads, dh)
     i_pre = torch.matmul(xv.float(), params["w_i"]) + params["b_i"]
     f_pre = torch.matmul(xv.float(), params["w_f"]) + params["b_f"]
     return q, k, v, i_pre, f_pre, xg
@@ -83,7 +85,7 @@ def mlstm_state_init(B: int, n_heads: int, dh: int, device="cpu"):
 def mlstm_cell(state, q_t, k_t, v_t, i_pre, f_pre):
     """One recurrent step.  q/k/v_t (B,H,dh); i/f_pre (B,H)."""
     C, n, m = state["C"], state["n"], state["m"]
-    log_f = F.logsigmoid(f_pre)
+    log_f = log_sigmoid(f_pre)
     m_new = torch.maximum(log_f + m, i_pre)
     f_sc = torch.exp(log_f + m - m_new)[..., None, None]
     i_sc = torch.exp(i_pre - m_new)[..., None]
@@ -171,11 +173,11 @@ def apply_mlstm_chunked(params, x, n_heads: int, state=None,
         qf = qt.float()
         kf = kt.float()
         vf = vt.float()
-        log_f = F.logsigmoid(ft)                            # (B,H,L)
+        log_f = log_sigmoid(ft)                             # (B,H,L)
         Fc = torch.cumsum(log_f, dim=-1)
         a = it - Fc                                         # (B,H,L)
         M = torch.maximum(m0[..., None],
-                          torch.cummax(a, dim=2).values)    # (B,H,L)
+                          cummax(a, 2))                     # (B,H,L)
         m_t = Fc + M
         inter = torch.exp(m0[..., None] - M)                # (B,H,L)
         D = torch.exp(a[:, :, None, :] - M[..., None]) * tri  # [t, s]
@@ -236,19 +238,19 @@ def slstm_cell(state, x_pre, R, n_heads: int):
     B = x_pre.shape[0]
     d = x_pre.shape[1] // 4
     dh = d // n_heads
-    h_prev = state["h"].reshape(B, n_heads, dh)
+    h_prev = split_last(state["h"], n_heads, dh)
     # einsum("bhd,hdk->bhk") with an fp32 result, one product per head
     rec = matmul_f32(h_prev.to(R.dtype).transpose(0, 1), R).transpose(0, 1)
-    pre = x_pre.float().reshape(B, n_heads, 4 * dh) + rec
+    pre = split_last(x_pre.float(), n_heads, 4 * dh) + rec
     # the gate axis over 'model', as R's
     pre = shard_act(pre, "batch", None, "ff")
     # gate layout per head-block: (z, i, f, o), each dh wide
-    pre4 = pre.reshape(B, n_heads, 4, dh)
+    pre4 = split_last(pre, 4, dh)
     z = torch.tanh(pre4[:, :, 0]).reshape(B, d)
     i_pre = pre4[:, :, 1].reshape(B, d)
     f_pre = pre4[:, :, 2].reshape(B, d)
     o = torch.sigmoid(pre4[:, :, 3]).reshape(B, d)
-    log_f = F.logsigmoid(f_pre)
+    log_f = log_sigmoid(f_pre)
     m_new = torch.maximum(log_f + state["m"], i_pre)
     i_sc = torch.exp(i_pre - m_new)
     f_sc = torch.exp(log_f + state["m"] - m_new)

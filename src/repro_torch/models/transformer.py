@@ -60,7 +60,7 @@ from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.common import (current_mesh, dense_init,
                                               device_mesh, on_mesh,
                                               param_dtype, project,
-                                              shard_act)
+                                              shard_act, split_last)
 from repro_torch.models.layers.embedding import embed, init_embedding, unembed
 from repro_torch.models.layers.mlp import apply_mlp, init_mlp
 from repro_torch.models.layers.moe import apply_moe, init_moe
@@ -301,12 +301,12 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
     B, S, d = x.shape
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     decode = mode == "decode"
-    q = project(x, p["w_q"], decode=decode).reshape(B, S, Hq, D)
+    q = split_last(project(x, p["w_q"], decode=decode), Hq, D)
     kv = project(x, p["w_kv"], decode=decode)
     k, v = kv.split(cfg.kv_dim, dim=-1)
     cos, sin = rope_cs
     q = apply_rope(q, cos, sin)
-    k = apply_rope(k.reshape(B, S, Hk, D), cos, sin).reshape(B, S, Hk * D)
+    k = apply_rope(split_last(k, Hk, D), cos, sin).reshape(B, S, Hk * D)
 
     new_cache = cache
     if decode:
@@ -331,8 +331,8 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
             q, k_cache.reshape(B, T, Hk, D), v_cache.reshape(B, T, Hk, D),
             valid, window=0 if ring else cfg.window)
     else:
-        k4 = k.reshape(B, S, Hk, D)
-        v4 = v.reshape(B, S, Hk, D)
+        k4 = split_last(k, Hk, D)
+        v4 = split_last(v, Hk, D)
         k4, v4 = _repeat_kv_for_mesh(cfg, k4, v4)
         if cfg.window and S > cfg.window:
             o = attn_lib.local_attention(q, k4, v4, window=cfg.window)

@@ -42,8 +42,6 @@ import math
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
 
 
 def _contiguous_stride(shape):
@@ -97,10 +95,22 @@ def all_gather_over(t: torch.Tensor, mesh, i: int, dim: int):
 
 
 def _offset(t: DTensor, dim: int) -> int:
-    """Where this rank's shard of ``t`` starts along ``dim``."""
-    _, off = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
-                                                   t.placements)
-    return off[dim]
+    """Where this rank's shard of ``t`` starts along ``dim``, in Python
+    ints from the rank's mesh coordinate: each mesh dim that shards
+    ``dim`` (in mesh order, the first the major one) cuts what the ones
+    before it left into chunks of ceil(size / n), as ``torch.chunk``
+    does.  No tensor is read, so this also runs under fake tensors
+    (``calib.hlo``)."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    size, off = t.shape[dim], 0
+    for i, p in enumerate(t.placements):
+        if p == Shard(dim):
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            off += start
+            size = min(chunk, size - start)
+    return off
 
 
 # ---------------------------------------------------------------------------

@@ -243,3 +243,21 @@ def test_sharding_and_the_dry_run_load_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), \
         out.stderr
+
+
+def test_cost_walker_imports_neither_jax_nor_repro():
+    """The static cost walker (``calib.hlo``) stands alone, tracing a
+    step included."""
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.calib import hlo\n"
+        "text = hlo.trace(torch.mm, torch.empty(4, 8), torch.empty(8, 2))\n"
+        "assert hlo.analyze(text)['flops'] == 2 * 4 * 8 * 2\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
