@@ -26,9 +26,7 @@ runs:
     ``rnn/``, ``serving/``, ``runtime/``).  Timing and fencing go through
     the obs module's ``measure_samples`` / ``measure_us`` /
     ``monotonic_s`` / ``fence``, so every measurement shares one fenced
-    clock — the calibration replay included: its measured tables are only
-    comparable to the tracer's launch costs because both come off the
-    same clock.  Launch-side modules (``launch/``) legitimately stamp
+    clock — the calibration replay included.  Launch-side modules (``launch/``) legitimately stamp
     wall-clock metadata and fence a served batch, and are out of scope.
 
 ``RL004`` slot-field-read

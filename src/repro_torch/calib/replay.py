@@ -20,8 +20,8 @@ median + p90 land in a ``MeasuredCostTable`` beside the perfmodel's
 analytic estimate for the same shape.
 
 The input hoist (the X-GEMM) is not replayed: the executor runs it
-outside the slot's launch, so the measured µs and the traced launch costs
-describe the same region.
+outside the slot's launch (its own ``hoist`` span in a trace), so the
+measured µs describe the launch alone.
 """
 from __future__ import annotations
 

@@ -160,9 +160,8 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     ``on_fault``/``check_finite``/``inject``/``report`` drive the guarded
     execution ladder (module doc).  ``tracer`` (optional
     ``runtime.obs.Tracer``): every slot gets a ``hoist`` span and a
-    *fenced* ``slot_launch`` span fed to the per-signature launch-latency
-    histogram and the predicted-vs-measured table; None binds the shared
-    no-op tracer — no events, no fencing, outputs bit-identical.
+    ``slot_launch`` span, each the host's time to issue its work; None
+    binds the shared no-op tracer — no events, outputs bit-identical.
     """
     tracer = as_tracer(tracer)
     if on_fault not in ("raise", "fallback"):
@@ -267,7 +266,7 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
                               prepared=prepared,
                               on_fault=on_fault, check_finite=check_finite,
                               inject=inject, report=report,
-                              tracer=tracer, macs=plan.macs)
+                              tracer=tracer)
             continue
         gates = GATES[slot.family]
         with tracer.span("hoist", slot=slot.index):
@@ -301,17 +300,13 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
         uids = sorted({c.uid for grp in slot.groups for c in grp})
         sig = slot.signature() if tracer.enabled else ""
         with tracer.span("slot_launch", slot=slot.index, sig=sig,
-                         uids=uids) as sp:
+                         uids=uids):
             out, h_n, c_n = _guarded_launch(
                 slot.index, uids,
                 _seq_ladder(slot, U, xw, h0, c0, b_valid,
                             u_scales=u_scales, u_rows=u_rows),
                 on_fault=on_fault, inject=inject, report=report,
                 tracer=tracer)
-            out, h_n, c_n = tracer.fence((out, h_n, c_n))
-        if tracer.enabled:
-            tracer.observe_launch(sig, _slot_est_cycles(slot, plan.macs),
-                                  sp.dur_us)
 
         bad: List[int] = []
         for g, grp in enumerate(slot.groups):
@@ -358,22 +353,6 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
                 states[uid] = _dir_state(st, it, "fwd")
 
     return (outputs, states) if collect_state else outputs
-
-
-def _slot_est_cycles(slot, macs: int, X: int = 0) -> float:
-    """The perfmodel's estimate for ONE slot launch — the predicted half
-    of the launch-cost table's predicted-vs-measured pair."""
-    from repro_torch.core.perfmodel import (Design, decode_plan_cycles,
-                                            slot_launch_cycles)
-    from repro_torch.dispatch.planner import DEFAULT_MACS
-
-    design = Design(macs=macs or DEFAULT_MACS, schedule="unfolded")
-    if slot.chained:
-        return decode_plan_cycles(slot.family, slot.H, X or slot.H,
-                                  len(slot.groups), design)
-    return slot_launch_cycles(slot.family, slot.H, slot.chunk_len,
-                              list(slot.group_b), design,
-                              precision=slot.precision)
 
 
 def _slot_weights(slot, params, live, cache: dict):
@@ -479,16 +458,12 @@ def _guarded_launch(slot_index: int, uids, ladder, *, on_fault: str,
                 tracer.instant("launch_fault", slot=slot_index,
                                rung=FALLBACK_LEVELS[level],
                                error=type(err).__name__)
-                tracer.metrics.counter("launch_faults").add()
             if on_fault != "fallback" or level == last:
                 raise fault from err
             cause = fault
             continue
-        if level > 0:
-            if report is not None:
-                report.record(slot_index, level, cause)
-            if tracer.enabled:
-                tracer.metrics.counter("degraded_launches").add()
+        if level > 0 and report is not None:
+            report.record(slot_index, level, cause)
         return result
     raise LaunchError(
         f"guarded ladder for slot {slot_index} exhausted every rung "
@@ -669,7 +644,7 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
                       check_finite: bool = False,
                       inject: Optional[FaultInjector] = None,
                       report: Optional[ExecutionReport] = None,
-                      tracer=NULL_TRACER, macs: int = 0):
+                      tracer=NULL_TRACER):
     """Execute a chained decode slot: ONE launch for a whole T=1 tick.
 
     The slot's groups are the L serially dependent layer cells, each the
@@ -705,16 +680,11 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
     uids = sorted({c.uid for c in row_cells})
     sig = slot.signature() if tracer.enabled else ""
     with tracer.span("slot_launch", slot=slot.index, sig=sig,
-                     uids=uids) as sp:
+                     uids=uids):
         h_n, c_n = _guarded_launch(
             slot.index, uids,
             _chained_ladder(slot.family, xw0, Ws, bs, Us, h0, c0),
             on_fault=on_fault, inject=inject, report=report, tracer=tracer)
-        h_n, c_n = tracer.fence((h_n, c_n))
-    if tracer.enabled:
-        X = stack[0]["W"].shape[0]
-        tracer.observe_launch(sig, _slot_est_cycles(slot, macs, X=X),
-                              sp.dur_us)
 
     off = 0
     bad: List[int] = []

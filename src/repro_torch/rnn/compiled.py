@@ -271,8 +271,9 @@ class CompiledStack:
                 f"{sorted(widths)}")
         self.stats = StackStats()
         #: the observability surface (policy ``trace=True``): a
-        #: runtime.obs.Tracer recording plan/hoist/launch/decode-tick spans
-        #: + metrics; the shared no-op tracer when tracing is off
+        #: runtime.obs.Tracer recording plan/verify/execute/hoist/launch/
+        #: decode-tick spans and their totals; the shared no-op tracer when
+        #: tracing is off
         self.tracer = Tracer() if policy.trace else NULL_TRACER
         #: test/chaos hook: arm with plan slot indices to make launches
         #: raise (see runtime.errors.FaultInjector); disarmed = no-op
@@ -346,14 +347,15 @@ class CompiledStack:
     def _cached(self, key, build) -> DispatchPlan:
         p = self._plans.get(key)
         if p is None:
-            p = build()
-            if self.policy.verify == "plan":
-                # verify ONCE per cache miss, before the plan is ever
-                # executable from the cache
-                from repro_torch.analysis.plancheck import check_plan
-                with self.tracer.span("verify", slots=len(p.slots)):
-                    check_plan(p, device_model=self.device_model)
-                self.stats.plans_verified += 1
+            with self.tracer.span("plan_miss", kind=key[0]):
+                p = build()
+                if self.policy.verify == "plan":
+                    # verify ONCE per cache miss, before the plan is ever
+                    # executable from the cache
+                    from repro_torch.analysis.plancheck import check_plan
+                    with self.tracer.span("verify", slots=len(p.slots)):
+                        check_plan(p, device_model=self.device_model)
+                    self.stats.plans_verified += 1
             while len(self._plans) >= self.MAX_CACHED_PLANS:
                 self._plans.pop(next(iter(self._plans)))
             self._plans[key] = p
@@ -451,11 +453,11 @@ class CompiledStack:
         with tr.span("forward", B=B, T=T) as sp:
             p = self.lower(B, T, dtype_name(xs.dtype))
             rep, guard = self._guard()
-            outs = execute(p, {0: self.params}, {0: xs},
-                           quant_cache=self._quant_cache, **guard)
-            outs = tr.fence(outs)
+            with tr.span("execute"):
+                outs = execute(p, {0: self.params}, {0: xs},
+                               quant_cache=self._quant_cache, **guard)
             if tr.enabled:
-                sp.tag(plan=tr.plan_id(p), launches=p.launches)
+                sp.tag(launches=p.launches)
         self._account(p, report=rep)
         ys = outs[0]
         return ys[0] if squeeze else ys
@@ -503,12 +505,13 @@ class CompiledStack:
                 tuple((x.shape[0], x.shape[1], dtype_name(x.dtype))
                       for x in inputs.values()), tuple(prios))
             rep, guard = self._guard()
-            outs, states = execute(p, {i: self.params for i in inputs},
-                                   inputs, collect_state=True,
-                                   quant_cache=self._quant_cache, **guard)
-            outs, states = tr.fence((outs, states))
+            with tr.span("execute"):
+                outs, states = execute(p, {i: self.params for i in inputs},
+                                       inputs, collect_state=True,
+                                       quant_cache=self._quant_cache,
+                                       **guard)
             if tr.enabled:
-                sp.tag(plan=tr.plan_id(p), launches=p.launches)
+                sp.tag(launches=p.launches)
         self._account(p, report=rep)
         res = []
         for i, (_, squeeze) in enumerate(prepped):
@@ -559,9 +562,10 @@ class CompiledStack:
                         # so the precision round-trip here is an exact
                         # idempotent no-op — passed anyway to keep the
                         # surfaces honest about what decode computes with
-                        self._prepared = prepare_decode_stack(
-                            self.params, self.families[0],
-                            precision=self.policy.precision)
+                        with tr.span("prepare"):
+                            self._prepared = prepare_decode_stack(
+                                self.params, self.families[0],
+                                precision=self.policy.precision)
                     prepared = {0: self._prepared}
                 else:
                     # the measured cost model flipped this tick to the
@@ -584,16 +588,15 @@ class CompiledStack:
                     device_model=self.device_model))
                 prepared = None
             rep, guard = self._guard()
-            outs, states = execute(p, {0: self.params}, {0: x_t},
-                                   collect_state=True,
-                                   init_state={0: state},
-                                   prepared=prepared,
-                                   quant_cache=self._quant_cache, **guard)
-            outs, states = tr.fence((outs, states))
+            with tr.span("execute"):
+                outs, states = execute(p, {0: self.params}, {0: x_t},
+                                       collect_state=True,
+                                       init_state={0: state},
+                                       prepared=prepared,
+                                       quant_cache=self._quant_cache,
+                                       **guard)
             if tr.enabled:
-                sp.tag(plan=tr.plan_id(p), launches=p.launches)
-        if tr.enabled:
-            tr.metrics.histogram("decode_tick_us").observe(sp.dur_us)
+                sp.tag(launches=p.launches)
         self._account(p, decode=True, report=rep)
         return outs[0], states[0]
 

@@ -106,12 +106,13 @@ class ExecutionPolicy:
     cost_table: path to the measured-cost JSON; None = the default
                ``artifacts/measured_costs.json``.  Only read when
                ``cost_model="measured"``.
-    trace:     record wall-clock spans + metrics for every plan/launch/
-               decode tick on ``CompiledStack.tracer`` (a
-               ``runtime.obs.Tracer`` — Chrome-trace export, latency
-               histograms, predicted-vs-measured launch costs).  Off (the
-               default) binds the shared no-op tracer: no events, no
-               fencing, outputs bit-identical to the untraced path.
+    trace:     record host-clock spans of every plan, verification,
+               execution, launch and decode tick on
+               ``CompiledStack.tracer`` (a ``runtime.obs.Tracer`` — per-
+               span-name totals, Chrome-trace export on the profiler's
+               clock).  Spans never wait on the device, traced or not.
+               Off (the default) binds the shared no-op tracer: no
+               events, outputs bit-identical to the traced path.
     """
 
     schedule: str = "auto"

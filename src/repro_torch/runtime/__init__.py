@@ -5,6 +5,5 @@ from repro_torch.runtime.errors import (  # noqa: F401
 from repro_torch.runtime.ft import (  # noqa: F401
     FTConfig, StragglerWatchdog, TrainLoop)
 from repro_torch.runtime.obs import (  # noqa: F401
-    LAUNCH_COSTS_PATH, Counter, Histogram, LaunchCostTable, MetricsRegistry,
     NULL_TRACER, NullTracer, Span, Tracer, as_tracer, fence, measure_us,
     measure_samples, monotonic_s, slot_signature)

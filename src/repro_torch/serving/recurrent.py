@@ -166,10 +166,10 @@ class RecurrentServingEngine:
             device=device)
         self.device = self.compiled.device
         #: the compiled stack's tracer (runtime.obs) — the engine folds its
-        #: serving events (admit spans, per-request admit->retire spans on
-        #: the "requests" track, queue/occupancy histograms, watchdog
-        #: instants) into the SAME trace the executor's launch spans land
-        #: in; the shared no-op tracer when ``trace=False``
+        #: serving spans (each step and its pieces, admit and splice spans,
+        #: per-request admit->retire spans on the "requests" track,
+        #: watchdog instants) into the SAME trace the executor's launch
+        #: spans land in; the shared no-op tracer when ``trace=False``
         self.tracer = self.compiled.tracer
         if self.compiled.families != (rnn_family,) * L:
             raise PlanRejected(
@@ -303,7 +303,8 @@ class RecurrentServingEngine:
             self.naive_launches += p.naive_launches
             self.last_plan = p
             for (slot, req), (out_b, st) in zip(pairs, results):
-                self._splice(slot, req, out_b, st)
+                with self.tracer.span("serve.splice", uid=req.uid):
+                    self._splice(slot, req, out_b, st)
 
     def _arm_injected_prefill_fault(self, pairs) -> bool:
         """``fail_prefill_of`` hook: for waves containing a targeted uid,
@@ -338,7 +339,6 @@ class RecurrentServingEngine:
         if self.tracer.enabled:
             self.tracer.instant("request_failed", track="requests",
                                 uid=req.uid, error=error)
-            self.tracer.metrics.counter("requests_failed").add()
         self.done.append(RecurrentCompletion(
             uid=req.uid, prompt_len=len(req.frames),
             outputs=np.zeros((0, self.H), np.float32),
@@ -399,70 +399,73 @@ class RecurrentServingEngine:
         plan).  Per-row finiteness quarantine after the launch fails only
         poisoned requests; the co-batched rows are independent and keep
         their values."""
+        tr = self.tracer
         active = [s for s in range(self.max_batch)
                   if self.slots[s] is not None]
-        # poison_slot_at hook: corrupt the targeted request's live state
-        # just before its poisoned tick, so quarantine handles real NaN
-        # propagation through the kernels
-        for s in active:
-            if self.poison_slot_at.get(
-                    self.slots[s].uid) == self.slot_ticks[s]:
-                self.h[:, s] = float("nan")
-        idx = torch.as_tensor(active, device=self.device)
-        state = {"h": self.h[:, idx]}
-        if self.c is not None:
-            state["c"] = self.c[:, idx]
+        with tr.span("serve.gather", rows=len(active)):
+            # poison_slot_at hook: corrupt the targeted request's live
+            # state just before its poisoned tick, so quarantine handles
+            # real NaN propagation through the kernels
+            for s in active:
+                if self.poison_slot_at.get(
+                        self.slots[s].uid) == self.slot_ticks[s]:
+                    self.h[:, s] = float("nan")
+            idx = torch.as_tensor(active, device=self.device)
+            state = {"h": self.h[:, idx]}
+            if self.c is not None:
+                state["c"] = self.c[:, idx]
+            x_t = self.last_y[idx]
         t0 = obs.monotonic_s()
-        y, st = self.compiled.decode(self.last_y[idx], state)
+        y, st = self.compiled.decode(x_t, state)
         p = self.compiled.last_decode_plan
-        # the dispatch claim, verified every tick: k active slots plan
-        # exactly k-row cells — empty slots are never computed — in a
-        # chained slot the stack's device admits
-        check_decode_tick(p, len(active),
-                          device_model=self.compiled.device_model)
+        with tr.span("serve.check"):
+            # the dispatch claim, verified every tick: k active slots plan
+            # exactly k-row cells — empty slots are never computed — in a
+            # chained slot the stack's device admits
+            check_decode_tick(p, len(active),
+                              device_model=self.compiled.device_model)
         self.decode_ticks += 1
         self.decode_launches += p.launches
         self.last_decode_plan = p
-        if self.tracer.enabled:
-            # serving-level distributions: how full the pool runs and how
-            # deep admissions back up, one observation per tick
-            self.tracer.metrics.histogram("slot_occupancy").observe(
-                len(active))
-            self.tracer.metrics.histogram("queue_depth").observe(
-                len(self.queue))
         if self.watchdog is not None and self.watchdog.observe(
                 self.decode_ticks, obs.monotonic_s() - t0):
             self.straggler_ticks.append(self.decode_ticks)
-            if self.tracer.enabled:
-                self.tracer.instant("straggler", tick=self.decode_ticks)
-                self.tracer.metrics.counter("straggler_ticks").add()
+            if tr.enabled:
+                tr.instant("straggler", tick=self.decode_ticks)
 
-        self.h[:, idx] = st["h"].float()
-        if self.c is not None:
-            self.c[:, idx] = st["c"]
-        frames = y[:, 0].float()                        # (k, H)
-        self.last_y[idx, 0] = frames
-        # one host copy per tick: the frames and a per-row finiteness flag
-        rows_ok = (torch.isfinite(st["h"]).all(dim=2).all(dim=0)
-                   & torch.isfinite(frames).all(dim=1))
-        if self.c is not None:
-            rows_ok &= torch.isfinite(st["c"]).all(dim=2).all(dim=0)
-        rows_ok = rows_ok.tolist()
-        frames_np = frames.cpu().numpy()
-        poisoned = []
-        for i, s in enumerate(active):
-            if rows_ok[i]:
-                self.generated[s].append(frames_np[i])
-                self.slot_ticks[s] += 1
-            else:
-                poisoned.append(s)
-        for s in poisoned:
-            uid = self.slots[s].uid
-            self.quarantined += 1
-            self._finish(s, status="failed", error=str(NonFiniteStateError(
-                f"request {uid}: non-finite decode state/frame at tick "
-                f"{self.slot_ticks[s]} — quarantined, slot freed",
-                uids=(uid,), slot=s, where="decode frame")))
+        with tr.span("serve.scatter"):
+            self.h[:, idx] = st["h"].float()
+            if self.c is not None:
+                self.c[:, idx] = st["c"]
+            frames = y[:, 0].float()                        # (k, H)
+            self.last_y[idx, 0] = frames
+            # one host copy per tick: the frames and a per-row finiteness
+            # flag
+            rows_ok = (torch.isfinite(st["h"]).all(dim=2).all(dim=0)
+                       & torch.isfinite(frames).all(dim=1))
+            if self.c is not None:
+                rows_ok &= torch.isfinite(st["c"]).all(dim=2).all(dim=0)
+        with tr.span("serve.readback"):
+            # the tick's wait on the device
+            rows_ok = rows_ok.tolist()
+            frames_np = frames.cpu().numpy()
+        with tr.span("serve.deliver"):
+            poisoned = []
+            for i, s in enumerate(active):
+                if rows_ok[i]:
+                    self.generated[s].append(frames_np[i])
+                    self.slot_ticks[s] += 1
+                else:
+                    poisoned.append(s)
+            for s in poisoned:
+                uid = self.slots[s].uid
+                self.quarantined += 1
+                self._finish(s, status="failed", error=str(
+                    NonFiniteStateError(
+                        f"request {uid}: non-finite decode state/frame at "
+                        f"tick {self.slot_ticks[s]} — quarantined, slot "
+                        "freed", uids=(uid,), slot=s,
+                        where="decode frame")))
 
     def _finish(self, slot: int, status: str = "ok",
                 error: Optional[str] = None):
@@ -479,7 +482,6 @@ class RecurrentServingEngine:
                 "request", start if start is not None else now, now,
                 track="requests", uid=req.uid, slot=slot, status=status,
                 ticks=self.slot_ticks[slot], frames=len(gen))
-            self.tracer.metrics.counter(f"requests_{status}").add()
         self.done.append(RecurrentCompletion(
             uid=req.uid, prompt_len=len(req.frames),
             outputs=self.prefill_out[slot], generated=gen,
@@ -494,37 +496,39 @@ class RecurrentServingEngine:
         decode-tick deadline (``max_ticks``), and wall-time deadline
         (``deadline_s``, measured from admission) — expired requests
         retire as ``status="timeout"`` carrying their partial output."""
-        now = obs.monotonic_s()
-        for slot, req in enumerate(self.slots):
-            if req is None:
-                continue
-            if len(self.generated[slot]) >= req.max_new_frames:
-                self._finish(slot)
-            elif (req.max_ticks is not None
-                  and self.slot_ticks[slot] >= req.max_ticks):
-                self._finish(slot, status="timeout", error=(
-                    f"request {req.uid}: max_ticks={req.max_ticks} expired "
-                    f"with {len(self.generated[slot])}/"
-                    f"{req.max_new_frames} frames"))
-            elif (req.deadline_s is not None
-                  and self.admitted_at[slot] is not None
-                  and now - self.admitted_at[slot] > req.deadline_s):
-                self._finish(slot, status="timeout", error=(
-                    f"request {req.uid}: wall-time deadline "
-                    f"{req.deadline_s}s expired with "
-                    f"{len(self.generated[slot])}/"
-                    f"{req.max_new_frames} frames"))
+        with self.tracer.span("serve.retire"):
+            now = obs.monotonic_s()
+            for slot, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                if len(self.generated[slot]) >= req.max_new_frames:
+                    self._finish(slot)
+                elif (req.max_ticks is not None
+                      and self.slot_ticks[slot] >= req.max_ticks):
+                    self._finish(slot, status="timeout", error=(
+                        f"request {req.uid}: max_ticks={req.max_ticks} "
+                        f"expired with {len(self.generated[slot])}/"
+                        f"{req.max_new_frames} frames"))
+                elif (req.deadline_s is not None
+                      and self.admitted_at[slot] is not None
+                      and now - self.admitted_at[slot] > req.deadline_s):
+                    self._finish(slot, status="timeout", error=(
+                        f"request {req.uid}: wall-time deadline "
+                        f"{req.deadline_s}s expired with "
+                        f"{len(self.generated[slot])}/"
+                        f"{req.max_new_frames} frames"))
 
     # ------------------------------------------------------------------
     def step(self):
         """One engine tick: admit (packed prefill) -> planned decode ->
-        retire."""
-        self._admit()
-        if not any(s is not None for s in self.slots):
-            return
-        self._decode_tick()
-        self.steps += 1
-        self._retire()
+        retire, inside one ``serve.step`` span."""
+        with self.tracer.span("serve.step"):
+            self._admit()
+            if not any(s is not None for s in self.slots):
+                return
+            self._decode_tick()
+            self.steps += 1
+            self._retire()
 
     def run_to_completion(self, max_ticks: int = 10_000
                           ) -> List[RecurrentCompletion]:
