@@ -4,28 +4,63 @@ kernels.
 The port of ``repro.dispatch.executor``.  The packed slot timeline
 executes in order; each ``Slot`` becomes exactly one G-batched
 sequence-fused launch (``kernels.lstm_cell.lstm_seq`` or
-``kernels.gru_cell.gru_seq``), with each cell's hoisted input GEMM issued
-in the same slot.  Per-(item, layer, direction) recurrent state lives in
-device tensors between slots and in shared memory within a launch; the
-final chunk of every layer is launched at its true remainder length, so
-the state left behind after the last slot is the exact t=T state — which
-is what the serving engine splices into its decode slots.
+``kernels.gru_cell.gru_seq``).  The final chunk of every layer is
+launched at its true remainder length, so the state left behind after
+the last slot is the exact t=T state — which is what the serving engine
+splices into its decode slots.
 
-Cross-B packing executes here too: a slot row may be several parameter-
-sharing cells' batches concatenated (same U — the WorkItem.share
-contract), and rows narrower than the slot's width are zero-padded and
-masked in-kernel (``b_valid``) to exact no-ops.  ``chained`` slots (T=1
-decode) run a whole tick's dependent layer chain in ONE ``lstm_decode`` /
-``gru_decode`` launch.  A mixed lstm/gru stack's cells pack into
-per-family slots of one timeline; its gru layers carry no cell state.
+A slot's operands take a fixed number of tensor operations, whatever
+the number of cells it packs.  Each call lays its packed items into
+device buffers, one set per pool of items that share (H, dtype):
+
+  * recurrent state: one tensor of h rows (the items' dtype) and, when a
+    layer is an LSTM, one of c rows (fp32); a row per (item, direction,
+    layer, batch row);
+  * layer outputs: one tensor of H-wide rows holding every layer's
+    output of every item, laid (batch row, t, direction) within each
+    (item, layer) in the item's own T — packed ragged time, no padding
+    to the longest item — so a bidirectional layer's fwd‖bwd output is
+    one 2H-wide row of the same tensor to the next layer;
+  * layer 0's input products: ONE GEMM per parameter stack over every
+    input frame of the call (a bidirectional stack's two directions' W
+    side by side), before the first slot.
+
+Per plan (``_PlanOperands``: built once with numpy, sent to the device in
+one transfer and kept in the caller's cache, so a plan-cache hit reuses
+it) each slot holds index tensors into those buffers: every group's
+source rows — in descending time for a "bwd" cell, so nothing is
+flipped —, its state rows and its output rows.  A padding row reads a
+zero row and is written to a sink row nothing reads.  A slot gathers xw
+(one gather a source; for deeper layers one batched product with W), h0
+and c0, launches, and scatters out, h_n and c_n with one operation each.
+Weights come from banks kept for the cache's lifetime (``_Bank``): the
+recurrent matrices under the slot's precision and block sparsity, and W
+and b cast once to the product's dtype.  A slot takes a view of a bank
+where its groups' layers lie consecutively in it, one gather otherwise.
+
+Slots that do not depend on each other run at once on the card: the plan
+gives each slot a lane (a stream) and the slots on other lanes it waits
+for — those that wrote its cells' previous chunks and the layer below
+(``_PlanOperands._lanes``) — so a bidirectional batch's ragged
+utterances, each a chain of launches of its own length, fill the card
+side by side instead of one after another.
+
+Cross-B packing: a slot row may be several parameter-sharing cells'
+batches concatenated (same U and W — the WorkItem.share contract), and
+rows narrower than the slot's width are padded and masked in-kernel
+(``b_valid``) to exact no-ops.  ``chained`` slots (T=1 decode) run a
+whole tick's dependent layer chain in ONE ``lstm_decode`` /
+``gru_decode`` launch, straight from the caller's (L, B, H) state.  A
+mixed lstm/gru stack's cells pack into per-family slots of one
+timeline; its gru layers carry no cell state.
 
 Bidirectional cells execute in the packed timeline: a "bwd" cell walks
-its chunk in descending time — the executor feeds the sequence kernel the
-time-reversed chunk slice and flips the produced stripe back into original
-time order before storing it (pre-launch reversal; exact, remainder chunks
-included).  Each direction carries its own recurrent state and its own
-parameter half (layer["fwd"] / layer["bwd"]), and a deeper cell's input is
-the chunk of the previous layer's fwd‖bwd feature concat.
+its chunk in descending time — its rows are gathered in that order, and
+its produced stripe is scattered back to the same rows (exact,
+remainder chunks included).  Each direction carries its own recurrent
+state and its own parameter half (layer["fwd"] / layer["bwd"]), and a
+deeper cell's input is the chunk of the previous layer's fwd‖bwd
+output.
 
 Fault isolation: every packed/chained launch runs behind the guarded
 execution ladder.  Under ``on_fault="fallback"`` a launch that raises (or
@@ -45,13 +80,13 @@ clusters).  ``check_finite`` raises ``NonFiniteStateError`` naming
 exactly the poisoned items.
 
 Recurrent-weight precision and block sparsity (a slot's ``precision``,
-its items' ``tile_map``): ``_slot_weights`` hoists each cell's U once per
-plan — bf16 round-tripped, int8 quantized per gate (the payload plus
-(G, gates) scales) and/or row-compacted to the slot's one active-row
-width Ha (plus a (G, Ha) row index) — and every kernel rung receives the
-same operands; the CPU reference rung dequantizes and expands them back to
-dense.  Decode ticks run the dense decode kernels on the fake-quantized
-weights (``prepare_decode_stack(precision=)``).
+its items' ``tile_map``): a bank holds every layer's U of one stack and
+family transformed once — bf16 round-tripped, int8 quantized per gate
+(the payload plus (gates,) scales) and/or row-compacted to the slot's
+one active-row width Ha (plus an (Ha,) row index) — and every kernel
+rung receives the same operands; the CPU reference rung dequantizes and
+expands them back to dense.  Decode ticks run the dense decode kernels
+on the fake-quantized weights (``prepare_decode_stack(precision=)``).
 
 Items the planner routes off the packed timeline (the reference
 schedules, per_step, T=0 items, and single-layer rglru items, which run
@@ -61,17 +96,21 @@ one at a time (``_run_reference``, ``_run_stack_collect``,
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.perfmodel import MXU_ROWS
 from repro_torch.core.schedules import stack_families
-from repro_torch.dispatch.planner import (REFERENCE_SCHEDULES, DispatchPlan,
-                                          ItemPlan)
+from repro_torch.dispatch.planner import REFERENCE_SCHEDULES, DispatchPlan
 from repro_torch.dispatch.workitem import GATES
-from repro_torch.kernels.common import (MAX_H, KernelBuildError,
-                                        KernelLaunchRefused, cdiv)
+from repro_torch.kernels.common import (_SEQ_ROWS, MAX_H, KernelBuildError,
+                                        KernelLaunchRefused, cdiv,
+                                        seq_splits, torch_dtype)
 from repro_torch.kernels.gru_cell.ops import gru_decode, gru_seq
 from repro_torch.kernels.gru_cell.ref import gru_seq_ref, gru_step_ref
 from repro_torch.kernels.lstm_cell.ops import lstm_decode, lstm_seq
@@ -84,6 +123,30 @@ from repro_torch.runtime.errors import (FALLBACK_LEVELS, ExecutionReport,
                                         FaultInjector, LaunchError,
                                         NonFiniteStateError)
 from repro_torch.runtime.obs import NULL_TRACER, as_tracer
+
+#: bytes of per-plan index tensors a caller-owned cache keeps, the
+#: oldest plan's dropped first (the newest is always kept)
+PLAN_OPERAND_BYTES = 64 * 2**20
+
+#: the cache entry holding the per-plan operands (an LRU by plan)
+_PLANS = "plans"
+
+#: every input product of a sequence slot runs as a batched product of at
+#: least 2 entries of at least 32 rows (zero rows and a zero entry pad
+#: it): the card's batched fp32 GEMM gives a row the same bits at every
+#: such shape (NVIDIA H100, K 340-1024, N 1020-4096, 17-6000 rows, 2-4
+#: entries), where a plain one picks other kernels by its row count, so a
+#: request's rows do not depend on what shares its launches
+PRODUCT_ROWS, PRODUCT_ENTRIES = 32, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _promote(*dtypes):
+    """The dtype JAX's einsum promotes its operands to."""
+    out = dtypes[0]
+    for dt in dtypes[1:]:
+        out = torch.promote_types(out, dt)
+    return out
 
 
 def _hoist(layer_params, src, gates: int):
@@ -98,8 +161,7 @@ def _hoist(layer_params, src, gates: int):
     B, bt, _ = src.shape
     W, b = layer_params["W"], layer_params["b"]
     H = layer_params["U"].shape[0]
-    dt = torch.promote_types(torch.promote_types(src.dtype, W.dtype),
-                             b.dtype)
+    dt = _promote(src.dtype, W.dtype, b.dtype)
     x = src.to(dt)
     if B * bt == 1 and _on_card(x):
         xw = torch.matmul(torch.cat([x, x]), W.to(dt))[:1] + b.to(dt)
@@ -114,7 +176,7 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
             collect_state: bool = False,
             init_state: Optional[Dict[int, dict]] = None,
             prepared: Optional[Dict[int, dict]] = None,
-            quant_cache: Optional[dict] = None,
+            operand_cache: Optional[dict] = None,
             on_fault: str = "raise",
             check_finite: bool = False,
             inject: Optional[FaultInjector] = None,
@@ -132,11 +194,13 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     {"fwd": {...}, "bwd": {...}} (fwd is the exact t=T state, bwd the
     exact t=0 state — the end of its walk), or ``None`` for items that
     expose no (h[, c]) state: rglru items and items executed through an
-    external stateless schedule.
+    external stateless schedule.  A packed item's outputs and states may
+    be views of tensors the call allocated for all its items.
 
     ``init_state`` optionally seeds the recurrent state of packed items:
     init_state[uid] = {"h": (L,B,H)[, "c": (L,B,H)]} replaces the zero
-    initial state (the serving engine's decode ticks resume from it).
+    initial state (the serving engine's decode ticks resume from it; a
+    chained tick launches on these tensors as they are).
     External items reject it (their schedule surfaces start from zeros),
     and so do bidirectional items: their two walks start from opposite
     sequence ends, so there is no mid-stream resume point.
@@ -145,12 +209,14 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     (see ``prepare_decode_stack``) so steady-state decode ticks don't
     restack unchanged parameters every tick.
 
-    ``quant_cache`` memoizes per-(item, layer, direction, precision, Ha)
-    quantized / row-compacted recurrent-weight operands across slots (and
-    across calls, when the caller owns the dict — ``CompiledStack`` keeps
-    one for its lifetime).  None builds a per-call cache, so each layer is
-    still transformed at most once per execute().  Only consulted for
-    slots whose ``precision != "fp32"`` or whose items carry a tile_map.
+    ``operand_cache`` memoizes, across calls when the caller owns the dict
+    (``CompiledStack`` keeps one for its lifetime, its parameters never
+    changing), what depends only on the parameters or only on the plan:
+    per stack the weight banks (U under each precision and active-row
+    width, W and b cast to the product's dtype, the decode operands), and
+    per plan its operand indices (the newest plans' up to
+    ``PLAN_OPERAND_BYTES``).  None builds a per-call cache, so each
+    layer's weights are still transformed at most once per execute().
 
     ``collect_state`` reroutes external unidirectional items through the
     per-layer fused path (``_run_stack_collect``) — the only surface that
@@ -160,8 +226,11 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
     ``on_fault``/``check_finite``/``inject``/``report`` drive the guarded
     execution ladder (module doc).  ``tracer`` (optional
     ``runtime.obs.Tracer``): every slot gets a ``hoist`` span and a
-    ``slot_launch`` span, each the host's time to issue its work; None
-    binds the shared no-op tracer — no events, outputs bit-identical.
+    ``slot_launch`` span, each the host's time to issue its work, and
+    layer 0's products one ``hoist`` span (tag ``layer=0``) before them;
+    each ``hoist`` is tagged with ``cells`` (the cells whose operands it
+    assembled) and ``gemms`` (the input products it issued).  None binds
+    the shared no-op tracer — no events, outputs bit-identical.
     """
     tracer = as_tracer(tracer)
     if on_fault not in ("raise", "fallback"):
@@ -184,11 +253,18 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
             f"init_state given for external-fallback items {dropped}: their "
             "schedule surfaces start from zero state — plan them onto the "
             "packed timeline (e.g. schedule='wavefront') to resume")
+    for ip in plan.items:
+        if (ip.item.bidirectional
+                and (init_state or {}).get(ip.uid) is not None):
+            raise ValueError(
+                f"init_state given for bidirectional item {ip.uid}: the "
+                "fwd/bwd walks start from opposite sequence ends, so there "
+                "is no mid-stream state to resume from")
 
     outputs: Dict[int, torch.Tensor] = {}
     states: Dict[int, dict] = {}
-    if quant_cache is None:
-        quant_cache = {}  # per-call memo: each layer transforms at most once
+    owned = operand_cache is not None
+    cache = operand_cache if owned else {}
 
     # ---- external items (reference schedules / per_step / rglru / T=0) —
     # bidirectional items land here only under a forced stateless
@@ -219,197 +295,816 @@ def execute(plan: DispatchPlan, params: Dict[int, dict],
             states[it.uid] = None  # stateless external schedule
 
     # ---- the packed slot timeline ---------------------------------------
-    # live state is keyed (layer, direction): unidirectional items only
-    # ever touch direction "fwd"; a bidirectional item's two walks carry
-    # independent state and parameter halves
-    live: Dict[int, dict] = {}
-    for ip in plan.items:
-        if ip.uid in plan.external:
-            continue
-        it = ip.item
-        dirs = ("fwd", "bwd") if it.bidirectional else ("fwd",)
-        x = inputs[it.uid]
-        st0 = (init_state or {}).get(it.uid)
-        if st0 is not None and it.bidirectional:
-            raise ValueError(
-                f"init_state given for bidirectional item {it.uid}: the "
-                "fwd/bwd walks start from opposite sequence ends, so there "
-                "is no mid-stream state to resume from")
-
-        def _h0(l):
-            if st0 is not None:
-                return st0["h"][l]
-            return torch.zeros((it.B, it.H), dtype=x.dtype, device=x.device)
-
-        def _c0(l):
-            # cell state exists per LSTM layer only; a mixed stack's gru
-            # layers carry None (their slots never read or write c)
-            if it.families[l] != "lstm":
-                return None
-            if st0 is not None and "c" in st0:
-                return st0["c"][l]
-            return torch.zeros((it.B, it.H), dtype=torch.float32,
-                               device=x.device)
-
-        live[it.uid] = {
-            "plan": ip,
-            "h": {(l, d): _h0(l) for l in range(it.L) for d in dirs},
-            "c": ({(l, d): _c0(l) for l in range(it.L) for d in dirs}
-                  if "lstm" in it.families else None),
-            "outs": {(l, d): [None] * ip.nk
-                     for l in range(it.L) for d in dirs},
-        }
-
-    for slot in plan.slots:
-        if slot.chained:
-            _run_chained_slot(slot, params, inputs, live,
-                              prepared=prepared,
-                              on_fault=on_fault, check_finite=check_finite,
-                              inject=inject, report=report,
-                              tracer=tracer)
-            continue
-        gates = GATES[slot.family]
-        with tracer.span("hoist", slot=slot.index):
-            xws, hs, cs = [], [], []
-            for grp in slot.groups:
-                xw_rows, h_rows, c_rows = [], [], []
-                for cell in grp:
-                    st = live[cell.uid]
-                    layer = _cell_layer_params(params, st, cell)
-                    src = _cell_src(inputs, st, cell, slot.chunk_len)
-                    xw_rows.append(_hoist(layer, src, gates))
-                    h_rows.append(st["h"][(cell.layer, cell.direction)])
-                    if slot.family == "lstm":
-                        c_rows.append(st["c"][(cell.layer, cell.direction)])
-                # cross-B row: parameter-sharing cells concatenate on B
-                # (same U by the share contract — take the lead cell's);
-                # rows narrower than the slot's width pad with zeros,
-                # masked in-kernel to exact no-ops
-                xws.append(_cat_pad(xw_rows, slot.B))
-                hs.append(_cat_pad(h_rows, slot.B))
-                if slot.family == "lstm":
-                    cs.append(_cat_pad(c_rows, slot.B))
-
-            xw = torch.stack(xws)          # (G, B, bt, gates, H)
-            U, u_scales, u_rows = _slot_weights(slot, params, live,
-                                                quant_cache)
-            h0 = torch.stack(hs)           # (G, B, H)
-            c0 = torch.stack(cs) if slot.family == "lstm" else None
-        b_valid = (list(slot.group_b)
-                   if any(b < slot.B for b in slot.group_b) else None)
-        uids = sorted({c.uid for grp in slot.groups for c in grp})
-        sig = slot.signature() if tracer.enabled else ""
-        with tracer.span("slot_launch", slot=slot.index, sig=sig,
-                         uids=uids):
-            out, h_n, c_n = _guarded_launch(
-                slot.index, uids,
-                _seq_ladder(slot, U, xw, h0, c0, b_valid,
-                            u_scales=u_scales, u_rows=u_rows),
-                on_fault=on_fault, inject=inject, report=report,
-                tracer=tracer)
-
-        bad: List[int] = []
-        for g, grp in enumerate(slot.groups):
-            off = 0
-            for cell in grp:
-                st = live[cell.uid]
-                nb = st["plan"].item.B
-                key = (cell.layer, cell.direction)
-                st["h"][key] = h_n[g, off:off + nb].to(h0.dtype)
-                if c_n is not None:
-                    st["c"][key] = c_n[g, off:off + nb]
-                if check_finite and not _rows_finite(
-                        h_n[g, off:off + nb],
-                        None if c_n is None else c_n[g, off:off + nb]):
-                    bad.append(cell.uid)
-                chunk = out[g, off:off + nb].to(inputs[cell.uid].dtype)
-                if cell.direction == "bwd":
-                    # the kernel walked the chunk in reversed time; store
-                    # the stripe back in original time order
-                    chunk = torch.flip(chunk, dims=[1])
-                st["outs"][key][cell.chunk] = chunk
-                off += nb
-        if bad:
-            bad = sorted(set(bad))
-            raise NonFiniteStateError(
-                f"non-finite recurrent state after slot {slot.index} "
-                f"(uids {bad})", uids=bad, slot=slot.index,
-                where="slot state")
-
-    for uid, st in live.items():
-        it = st["plan"].item
-        top = torch.cat(st["outs"][(it.L - 1, "fwd")], dim=1)
-        if it.bidirectional:
-            bwd = torch.cat(st["outs"][(it.L - 1, "bwd")], dim=1)
-            top = torch.cat([top, bwd], dim=-1)
-        outputs[uid] = top
-        if collect_state:
-            if it.bidirectional:
-                # per-direction state: fwd's walk ends at t=T, bwd's at
-                # t=0 — two exact end-of-walk states, no single t=T one
-                states[uid] = {d: _dir_state(st, it, d)
-                               for d in ("fwd", "bwd")}
+    guard = dict(on_fault=on_fault, check_finite=check_finite,
+                 inject=inject, report=report, tracer=tracer)
+    run = None
+    if any(not s.chained for s in plan.slots):
+        ops = _plan_operands(plan, params, inputs, cache, owned)
+        with tracer.span("hoist", layer=0, cells=ops.x0_cells,
+                         gemms=ops.x0_gemms):
+            run = _Run(ops, inputs, init_state, cache)
+    try:
+        for slot in plan.slots:
+            if slot.chained:
+                _run_chained_slot(slot, plan, params, inputs, init_state,
+                                  prepared, cache, outputs,
+                                  states if collect_state else None,
+                                  **guard)
             else:
-                states[uid] = _dir_state(st, it, "fwd")
-
+                run.slot(slot, **guard)
+    finally:
+        if run is not None:
+            run.join()
+    if run is not None:
+        run.collect(outputs, states if collect_state else None)
     return (outputs, states) if collect_state else outputs
 
 
-def _slot_weights(slot, params, live, cache: dict):
-    """Stack one sequence slot's per-group recurrent-weight operands under
-    the slot's precision and its items' block-sparsity tile maps.
+# ---------------------------------------------------------------------------
+# weight banks: per stack, for the cache's lifetime
+# ---------------------------------------------------------------------------
 
-    Returns ``(U, u_scales, u_rows)``: dense ``(G, H, gates, H)`` with None
-    markers for a plain fp32 slot; bf16 round-trips the values (still fp32
-    storage — exact); int8 swaps in the per-gate quantized payload plus
-    ``u_scales (G, gates)``; a tile_map row-compacts to the slot's one
-    active-row width ``Ha`` plus ``u_rows (G, Ha)``.  Groups without a
-    tile_map in a sparse slot ride along dense (all-ones bitmap).
-    Per-(item, layer, direction, precision, Ha) transforms memoize in
-    ``cache``, so the chunk slots of one layer transform the weights ONCE
-    per plan."""
-    gates = GATES[slot.family]
-    leads = [grp[0] for grp in slot.groups]
-    quant = slot.precision == "int8"
 
-    def _bitmap(cell):
-        tm = live[cell.uid]["plan"].item.tile_map
-        if tm is None:
-            return (1,) * cdiv(slot.H, MXU_ROWS)
-        return tm[cell.layer]
+class _Bank:
+    """Operands of one stack's (layer, direction) cells stacked on a
+    leading axis: ``pos[(layer, direction)]`` is a cell's row in each of
+    ``tensors`` (None entries stay None).  ``take`` gives a slot its
+    groups' rows: a view where they are consecutive, else the rows to
+    gather at launch time."""
 
-    sparse = any(live[c.uid]["plan"].item.tile_map is not None
-                 for c in leads)
-    Ha = 0
-    if sparse:
-        # one padded row count for the launch: the stacked (G, Ha) gather
-        # index needs one Ha; padding rows are exact no-ops (kernels.quant)
-        Ha = max(max(len(active_row_indices(_bitmap(c), slot.H))
-                     for c in leads), 1)
+    def __init__(self, pos: dict, *tensors):
+        self.pos = pos
+        self.tensors = tensors
+        self._views: dict = {}
 
-    us, scales, rows = [], [], []
-    for cell in leads:
-        key = (cell.uid, cell.layer, cell.direction, slot.precision,
-               Ha if sparse else -1)
-        entry = cache.get(key)
-        if entry is None:
-            U = _cell_layer_params(params, live[cell.uid], cell)["U"] \
-                .reshape(slot.H, gates, slot.H)
-            if slot.precision == "bf16":
-                U = bf16_roundtrip(U)
-            s = None
-            if quant:
-                U, s = quantize_per_gate(U)
-            r = None
-            if sparse:
-                U, r = compact_rows(U, _bitmap(cell), pad_to=Ha)
-            entry = cache[key] = (U, s, r)
-        us.append(entry[0])
-        scales.append(entry[1])
-        rows.append(entry[2])
-    return (torch.stack(us),
-            torch.stack(scales) if quant else None,
-            torch.stack(rows) if sparse else None)
+    def take(self, rows: List[int]):
+        lo = rows[0]
+        if rows == list(range(lo, lo + len(rows))):
+            key = (lo, len(rows))
+            views = self._views.get(key)
+            if views is None:
+                views = self._views[key] = tuple(
+                    None if t is None else t[lo:lo + len(rows)]
+                    for t in self.tensors)
+            return _Take(views, None)
+        return _Take(None, self, rows)
+
+    @staticmethod
+    def joint(banks) -> "_Bank":
+        """The rows of several banks in one: ``pos`` keyed (bank index,
+        layer, direction)."""
+        pos, off = {}, 0
+        for i, bank in enumerate(banks):
+            for key, row in bank.pos.items():
+                pos[(i,) + key] = off + row
+            off += len(bank.tensors[0])
+        return _Bank(pos, *(None if ts[0] is None else torch.cat(ts)
+                            for ts in zip(*(b.tensors for b in banks))))
+
+
+class _Take:
+    """A slot's rows of a bank: ``views`` ready, or ``bank`` rows to
+    gather with the index ``idx`` (a device tensor once uploaded)."""
+
+    __slots__ = ("views", "bank", "idx")
+
+    def __init__(self, views, bank, idx=None):
+        self.views, self.bank, self.idx = views, bank, idx
+
+    def get(self):
+        if self.views is not None:
+            return self.views
+        return tuple(None if t is None else t.index_select(0, self.idx)
+                     for t in self.bank.tensors)
+
+
+def _memo(cache: dict, key, owner, build):
+    """``cache[key]``, built once per owner: the entry holds the owner,
+    so the id() in the key cannot be reused while the entry lives."""
+    hit = cache.get(key)
+    if hit is None or hit[0] is not owner:
+        hit = cache[key] = (owner, build())
+    return hit[1]
+
+
+def _halves(stack: dict, layer: int) -> list:
+    """A layer's parameter dicts by direction: [layer] or [fwd, bwd]."""
+    p = stack["layers"][layer]
+    return [p["fwd"], p["bwd"]] if "fwd" in p else [p]
+
+
+def _bitmap(tile_map, layer: int, H: int) -> tuple:
+    """A layer's 8-row tile occupancy (all ones for a dense item)."""
+    if tile_map is None:
+        return (1,) * cdiv(H, MXU_ROWS)
+    return tile_map[layer]
+
+
+@functools.lru_cache(maxsize=4096)
+def _active_rows(bitmap: tuple, H: int) -> int:
+    return len(active_row_indices(bitmap, H))
+
+
+def _u_bank(cache: dict, stack: dict, families, family: str,
+            precision: str, Ha: int, tile_map) -> _Bank:
+    """Every ``family`` layer's recurrent matrix of ``stack`` as a launch
+    takes it: (n, H, gates, H) — bf16 round-tripped, int8 quantized per
+    gate (plus (n, gates) scales), row-compacted to ``Ha`` rows (plus
+    (n, Ha) row indices; only the layers with at most Ha active rows)
+    when Ha >= 0."""
+
+    def build():
+        gates = GATES[family]
+        pos, us, scales, rows = {}, [], [], []
+        for l, fam in enumerate(families):
+            if fam != family:
+                continue
+            for d, half in enumerate(_halves(stack, l)):
+                H = half["U"].shape[0]
+                bitmap = _bitmap(tile_map, l, H)
+                if Ha >= 0 and _active_rows(bitmap, H) > Ha:
+                    continue
+                U = half["U"].reshape(H, gates, H)
+                if precision == "bf16":
+                    U = bf16_roundtrip(U)
+                s = r = None
+                if precision == "int8":
+                    U, s = quantize_per_gate(U)
+                if Ha >= 0:
+                    U, r = compact_rows(U, bitmap, pad_to=Ha)
+                pos[(l, d)] = len(us)
+                us.append(U)
+                scales.append(s)
+                rows.append(r)
+        return _Bank(pos, torch.stack(us),
+                     torch.stack(scales) if precision == "int8" else None,
+                     torch.stack(rows) if Ha >= 0 else None)
+
+    return _memo(cache, ("u", id(stack), family, precision, Ha, tile_map),
+                 stack, build)
+
+
+def _w_bank(cache: dict, stack: dict, families, family: str,
+            dt: torch.dtype) -> _Bank:
+    """Every deeper ``family`` layer's input half of ``stack`` cast once
+    to the product's dtype ``dt``: W (n, X, gates·H) and b (n, 1,
+    gates·H), for one batched product a slot."""
+
+    def build():
+        pos, ws, bs = {}, [], []
+        for l, fam in enumerate(families):
+            if l == 0 or fam != family:
+                continue
+            for d, half in enumerate(_halves(stack, l)):
+                pos[(l, d)] = len(ws)
+                ws.append(half["W"].to(dt))
+                bs.append(half["b"].to(dt).reshape(1, -1))
+        return _Bank(pos, torch.stack(ws), torch.stack(bs))
+
+    return _memo(cache, ("w", id(stack), family, dt), stack, build)
+
+
+def _w0(cache: dict, stack: dict, dt: torch.dtype):
+    """Layer 0's W and b of ``stack`` cast once to ``dt``, the directions
+    side by side: (X, dirs·gates·H), (dirs·gates·H,)."""
+
+    def build():
+        halves = _halves(stack, 0)
+        W = [h["W"].to(dt) for h in halves]
+        b = [h["b"].to(dt) for h in halves]
+        if len(halves) == 1:
+            return W[0], b[0]
+        return torch.cat(W, dim=1), torch.cat(b)
+
+    return _memo(cache, ("w0", id(stack), dt), stack, build)
+
+
+# ---------------------------------------------------------------------------
+# per plan: the buffers' layout and every slot's index tensors
+# ---------------------------------------------------------------------------
+
+
+class _Item:
+    """One packed item's place in its pool's buffers (rows of the layer-0
+    products ``x0``, of each layer's output ``y[l]`` and of its state
+    ``s``)."""
+
+    def __init__(self, k, ip, stack, pool, x0key):
+        it = ip.item
+        self.k, self.ip, self.it, self.stack = k, ip, it, stack
+        self.pool, self.x0key = pool, x0key
+        self.dirs = 2 if it.bidirectional else 1
+        self.wset = (id(stack), it.tile_map)   # one set of U banks
+        self.x0 = self.s = 0
+        self.y: List[int] = []
+
+
+class _Pool:
+    """The buffers of the items that share (H, dtype): the layer-0
+    products by (family, dtype) (``x0``: per stack a segment of rows and
+    its cast W), the layer outputs' rows (``n_y``: each item's non-top
+    layers, then every item's top layer in [top_lo, top_hi), two zero
+    rows at ``y_zero``, sink rows) and the state rows (``n_s``: the
+    items' rows, a zero row ``s_zero``, sink rows)."""
+
+    def __init__(self, H: int, dtype: torch.dtype):
+        self.H, self.dtype = H, dtype
+        self.items: List[_Item] = []
+        self.x0: Dict[tuple, dict] = {}
+        self.has_c = False
+        self.n_y = self.y_zero = self.top_lo = self.top_hi = 0
+        self.n_s = self.s_zero = 0
+
+
+class _Class:
+    """The groups of one slot that read one source: layer 0's products
+    (``w`` None: a gather is their xw) or a layer's outputs, 1 or 2
+    directions wide (``w``: the groups' W and b for one batched product
+    in ``dt`` of ``rows`` rows a group, padded by ``pad``, a
+    ``constant_pad_nd`` of (rows, entries), to the product's least
+    shape)."""
+
+    __slots__ = ("source", "g", "rows", "X", "dt", "w", "pad", "gidx")
+
+    def __init__(self, source, g, rows, X, dt, w):
+        self.source, self.g, self.rows, self.X, self.dt, self.w = (
+            source, g, rows, X, dt, w)
+        more = (max(rows, PRODUCT_ROWS) - rows,
+                max(g, PRODUCT_ENTRIES) - g)
+        self.pad = (0, 0, 0, more[0], 0, more[1]) if any(more) else None
+        self.gidx = None
+
+
+class _SlotOps:
+    """One sequence slot's operands: its classes, its U rows, and index
+    tensors for the state rows read (``sread``) and written
+    (``swrite``), the output rows written (``oidx``) and the valid rows
+    among the launch's (``vpos``; ``vuid`` their uids).  A slot without
+    padding rows writes the rows it reads, and all its rows are valid
+    (``vpos`` None)."""
+
+    __slots__ = ("pool", "G", "B", "bt", "gates", "H", "lstm", "classes",
+                 "u", "b_valid", "sread", "swrite", "oidx", "vpos", "vuid",
+                 "nvalid", "nseg", "uids", "cells", "gemms", "lane",
+                 "waits", "signal")
+
+
+def _expand(base, sb, sj, nb, bt):
+    """Rows of segments: segment i gives nb[i]·bt[i] rows base[i] +
+    b·sb[i] + j·sj[i], for b < nb[i] outer and j < bt[i] inner."""
+    seg = np.repeat(np.arange(len(nb)), nb)           # a row's segment
+    b = np.arange(len(seg)) - (np.cumsum(nb) - nb)[seg]
+    first = base[seg] + b * sb[seg]                  # each row's j = 0
+    w, step = bt[seg], sj[seg]
+    start = np.cumsum(w) - w
+    return (np.repeat(first - start * step, w)
+            + np.arange(int(w.sum())) * np.repeat(step, w))
+
+
+def _upload(arrays, dtype, device, sizes):
+    """numpy int arrays as one device tensor, split into views of
+    ``sizes``: one transfer, which does not wait for the device (from
+    pageable memory the driver stages the bytes before it returns)."""
+    flat = torch.from_numpy(np.concatenate(arrays).astype(dtype,
+                                                          copy=False))
+    if device.type != "cpu":
+        flat = flat.to(device, non_blocking=True)
+    return flat.split(sizes), flat.numel() * flat.element_size()
+
+
+class _PlanOperands:
+    """Everything about a plan's sequence slots that the plan and the
+    stacks' parameters decide: the pools' layout and each slot's
+    ``_SlotOps``, for one device."""
+
+    def __init__(self, plan: DispatchPlan, params, device, cache: dict):
+        self.plan, self.device = plan, device
+        seq = [s for s in plan.slots if not s.chained]
+        used = {c.uid for s in seq for grp in s.groups for c in grp}
+        self.items: Dict[int, _Item] = {}
+        self.pools: List[_Pool] = []
+        pool_of: Dict[tuple, int] = {}
+        for ip in plan.items:
+            if ip.uid not in used:
+                continue
+            it = ip.item
+            key = (it.H, it.dtype)
+            if key not in pool_of:
+                pool_of[key] = len(self.pools)
+                self.pools.append(_Pool(it.H, torch_dtype(it.dtype)))
+            pool = self.pools[pool_of[key]]
+            stack = params[ip.uid]
+            half = _halves(stack, 0)[0]
+            dt = _promote(pool.dtype, half["W"].dtype, half["b"].dtype)
+            li = _Item(len(self.items), ip, stack, pool_of[key],
+                       (it.families[0], dt))
+            self.items[ip.uid] = li
+            pool.items.append(li)
+            pool.has_c |= "lstm" in it.families
+            src = pool.x0.setdefault(li.x0key, {"segs": {}, "rows": 0})
+            seg = src["segs"].setdefault(id(stack), {
+                "items": [], "frames": 0, "dirs": li.dirs,
+                "X": it.X, "w": _w0(cache, stack, dt)})
+            li.x0 = seg["frames"]   # frame offset; rows once laid below
+            seg["items"].append(li)
+            seg["frames"] += it.B * it.T
+        self.uids = tuple(self.items)
+        self.stacks = tuple(id(params[u]) for u in self.uids)
+        self.x0_cells = sum(len(grp) for s in seq for grp in s.groups
+                            if grp[0].layer == 0)
+        self.x0_gemms = 0
+        for pool in self.pools:
+            self._lay(pool)
+            self.x0_gemms += sum(len(src["segs"]) for src in pool.x0.values())
+        self._joints: Dict[tuple, _Bank] = {}
+        self.slots: Dict[int, _SlotOps] = {}
+        self.nbytes = 0
+        self._build(seq, cache)
+
+    def _lay(self, pool: _Pool) -> None:
+        for src in pool.x0.values():
+            for seg in src["segs"].values():
+                seg["row0"] = src["rows"]
+                for li in seg["items"]:
+                    li.x0 = src["rows"] + li.x0 * seg["dirs"]
+                # one batched product of PRODUCT_ENTRIES entries
+                seg["entry"] = max(cdiv(seg["frames"], PRODUCT_ENTRIES),
+                                   PRODUCT_ROWS)
+                src["rows"] += PRODUCT_ENTRIES * seg["entry"] * seg["dirs"]
+            src["zero"] = src["rows"]   # one zero row after them
+        n = 0
+        for top in (False, True):
+            if top:
+                pool.top_lo = n
+            for li in pool.items:
+                it = li.it
+                size = it.B * it.T * li.dirs
+                layers = [it.L - 1] if top else range(it.L - 1)
+                for _ in layers:
+                    n += n % 2      # a 2H-wide row starts at an even row
+                    li.y.append(n)
+                    n += size
+        pool.top_hi = n
+        pool.y_zero = n + n % 2
+        n = 0
+        for li in pool.items:
+            li.s = n
+            n += li.dirs * li.it.L * li.it.B
+        pool.s_zero = n
+
+    def _lead(self, key, li, layer, d, family, precision, Ha, pool):
+        """A group's U bank and row, its source class, its W bank (deeper
+        layers) and its place in the slot: classes contiguous, layer 0's
+        first, then bank order."""
+        ubank = _u_bank(self.cache, li.stack, li.it.families, family,
+                        precision, Ha, li.it.tile_map)
+        if layer == 0:
+            cls, wbank = ("x0",) + li.x0key, None
+        else:
+            half = _halves(li.stack, layer)[d]
+            dt = _promote(pool.dtype, half["W"].dtype, half["b"].dtype)
+            cls = ("y", li.dirs, dt)
+            wbank = _w_bank(self.cache, li.stack, li.it.families, family, dt)
+        rank = (cls[0] != "x0", str(cls), ubank.pos[(layer, d)])
+        hit = self._memo[key] = (rank, ubank, (layer, d), cls, wbank)
+        return hit
+
+    def _build(self, seq, cache: dict) -> None:
+        self.cache, self._memo = cache, {}
+        segs = []   # (k, layer, d, t_first, step, nb, bt, pad, zero, pad_y,
+        #             pad_s, x0): a cell's rows, or a group's padding rows
+        memo = self._memo
+        metas = []
+        for slot in seq:
+            before = len(segs)
+            so = _SlotOps()
+            groups = slot.groups
+            lead = [self.items[grp[0].uid] for grp in groups]
+            pool = self.pools[lead[0].pool]
+            so.pool, so.G, so.B, so.bt = lead[0].pool, len(groups), slot.B, \
+                slot.chunk_len
+            so.H, so.gates = slot.H, GATES[slot.family]
+            so.lstm = slot.family == "lstm"
+            so.cells = sum(len(grp) for grp in groups)
+            so.uids = sorted({c.uid for grp in groups for c in grp})
+            # U: one bank per stack under the slot's precision and, where
+            # any lead carries a tile map, the slot's one active-row width
+            Ha = -1
+            if any(li.it.tile_map is not None for li in lead):
+                Ha = max(max(_active_rows(
+                    _bitmap(li.it.tile_map, grp[0].layer, slot.H), slot.H)
+                    for li, grp in zip(lead, groups)), 1)
+            order = []
+            for g, (li, grp) in enumerate(zip(lead, groups)):
+                c = grp[0]
+                key = (li.wset, c.layer, c.direction, slot.family,
+                       slot.precision, Ha)
+                info = memo.get(key) or self._lead(
+                    key, li, c.layer, int(c.direction == "bwd"),
+                    slot.family, slot.precision, Ha, pool)
+                order.append((info[0], g, info[1:]))
+            order.sort()
+            so.u = self._take([o[2][:2] for o in order])
+            runs, bvalid = [], []
+            pad_y = pad_s = 0
+            for _, g, info in order:
+                cls = info[2]
+                if not runs or runs[-1][0] != cls:
+                    runs.append((cls, []))
+                runs[-1][1].append(info)
+                x0 = int(cls[0] == "x0")
+                for c in groups[g]:
+                    li = self.items[c.uid]
+                    d = int(c.direction == "bwd")
+                    t0 = c.chunk * li.ip.block_t
+                    segs.append((li.k, c.layer, d,
+                                 t0 + so.bt - 1 if d else t0, 1 - 2 * d,
+                                 li.it.B, so.bt, 0, 0, 0, 0, x0))
+                gb = slot.group_b[g]
+                if gb < so.B:
+                    zero = (pool.x0[cls[1:]]["zero"] if x0
+                            else pool.y_zero // cls[1])
+                    segs.append((0, 0, 0, 0, 0, so.B - gb, so.bt, 1, zero,
+                                 pad_y, pad_s, x0))
+                    pad_y += (so.B - gb) * so.bt
+                    pad_s += so.B - gb
+                bvalid.append(gb)
+            pool.n_y = max(pool.n_y, pad_y)
+            pool.n_s = max(pool.n_s, pad_s)
+            so.b_valid = bvalid if any(b < so.B for b in bvalid) else None
+            so.nvalid = sum(bvalid)
+            so.classes = [
+                _Class(cls[:2] if cls[0] == "y" else cls, len(infos),
+                       so.B * so.bt, pool.H * cls[1] if cls[0] == "y"
+                       else 0, cls[-1],
+                       None if cls[0] == "x0" else
+                       self._take([(i[3], i[1]) for i in infos]))
+                for cls, infos in runs]
+            so.gemms = sum(1 for c in so.classes if c.w is not None)
+            so.nseg = len(segs) - before
+            metas.append(so)
+            self.slots[slot.index] = so
+        del self.cache, self._memo
+        self._lanes(seq, metas)
+        for pool in self.pools:
+            # sinks after the zero rows; an even count keeps the 2H view
+            pool.n_y = pool.y_zero + 2 + pool.n_y
+            pool.n_y += pool.n_y % 2
+            pool.n_s = pool.s_zero + 1 + pool.n_s
+        self._index(segs, metas)
+
+    def _lanes(self, seq, metas) -> None:
+        """Which stream (lane) each slot issues on, and the slots on other
+        lanes it waits for.  A slot waits for the slots that wrote what it
+        reads: its cells' previous chunks (the state rows) and the layer
+        below's chunks (the source rows).  It issues on the lane of the
+        latest of them, so a chain of dependent slots stays on one lane;
+        a slot that depends on none takes the next lane in turn."""
+        self.n_lanes = _lane_count(self.device, seq)
+        where = {}
+        for pos, slot in enumerate(seq):
+            for grp in slot.groups:
+                for c in grp:
+                    where[(c.uid, c.layer, c.chunk, c.direction)] = pos
+        turn = 0
+        for pos, (slot, so) in enumerate(zip(seq, metas)):
+            preds = set()
+            for grp in slot.groups:
+                for c in grp:
+                    step = 1 if c.direction == "bwd" else -1
+                    deps = [(c.uid, c.layer, c.chunk + step, c.direction)]
+                    if c.layer:
+                        deps += [(c.uid, c.layer - 1, c.chunk, d)
+                                 for d in ("fwd", "bwd")]
+                    preds.update(where[k] for k in deps if k in where)
+            preds.discard(pos)
+            if preds:
+                so.lane = metas[max(preds)].lane
+            else:
+                so.lane, turn = turn % self.n_lanes, turn + 1
+            waits = sorted(p for p in preds if metas[p].lane != so.lane)
+            so.waits = [seq[p].index for p in waits]
+            so.signal = False
+            for p in waits:
+                metas[p].signal = True
+
+    def _take(self, rows) -> "_Take":
+        """One ``_Take`` of cells given as (bank, (layer, direction))."""
+        bank = rows[0][0]
+        if all(r[0] is bank for r in rows):
+            return bank.take([bank.pos[cell] for _, cell in rows])
+        banks = []
+        for b, _ in rows:
+            if all(b is not x for x in banks):
+                banks.append(b)
+        ids = tuple(id(b) for b in banks)
+        joint = self._joints.get(ids)
+        if joint is None:
+            joint = self._joints[ids] = _Bank.joint(banks)
+            self.nbytes += sum(t.numel() * t.element_size()
+                               for t in joint.tensors if t is not None)
+        return joint.take([joint.pos[(ids.index(id(b)),) + cell]
+                           for b, cell in rows])
+
+    def _index(self, segs, metas) -> None:
+        """Every slot's index tensors, from the segments in one pass."""
+        A = np.array(segs, dtype=np.int64).reshape(-1, 12)
+        k, l, d, tf, step, nb, bt, pad, zero, pad_y, pad_s, x0 = A.T
+        items = list(self.items.values())
+
+        def per_item(values):
+            return np.array(values, np.int64)[k]
+
+        T, B, L = (per_item([li.it.T for li in items]),
+                   per_item([li.it.B for li in items]),
+                   per_item([li.it.L for li in items]))
+        dirs = per_item([li.dirs for li in items])
+        ycat = np.array([y for li in items for y in li.y], np.int64)
+        yfirst = per_item(np.cumsum([0] + [li.it.L for li in items])[:-1])
+        y_out = ycat[yfirst + l]
+        y_in = ycat[yfirst + np.maximum(l - 1, 0)] // dirs
+        pools = [self.pools[li.pool] for li in items]
+        y_sink = per_item([p.y_zero + 2 for p in pools])
+        s_zero = per_item([p.s_zero for p in pools])
+        cell = pad == 0
+        one, nil = np.ones_like(nb), np.zeros_like(nb)
+        # sources: layer 0's products, a row per (frame, direction); a
+        # deeper layer's, a row per frame of the layer below's output
+        xb = per_item([li.x0 for li in items]) + tf * dirs + d
+        gather = _expand(
+            np.where(cell, np.where(x0 == 1, xb, y_in + tf), zero),
+            np.where(cell, np.where(x0 == 1, T * dirs, T), 0),
+            np.where(cell, np.where(x0 == 1, step * dirs, step), 0), nb, bt)
+        out = _expand(np.where(cell, y_out + tf * dirs + d, y_sink + pad_y),
+                      np.where(cell, T * dirs, bt),
+                      np.where(cell, step * dirs, 1), nb, bt)
+        srow = per_item([li.s for li in items]) + (d * L + l) * B
+        sread = _expand(np.where(cell, srow, s_zero), cell * one, nil, nb,
+                        one)
+        swrite = _expand(np.where(cell, srow, s_zero + 1 + pad_s), one, nil,
+                         nb, one)
+        # a slot with padding rows: the rows it writes, and the valid rows
+        # among its launch's G·B state rows (their uids for every slot)
+        padded = np.array([so.b_valid is not None for so in metas])
+        swrite = swrite[np.repeat(padded, [so.G * so.B for so in metas])]
+        first = np.cumsum([0] + [so.G * so.B for so in metas])[:-1]
+        at = np.cumsum(nb) - nb - np.repeat(first, [so.nseg for so in metas])
+        keep = cell & np.repeat(padded, [so.nseg for so in metas])
+        vpos = _expand(at[keep], one[keep], nil[keep], nb[keep], one[keep])
+        vuid = np.repeat(per_item([li.it.uid for li in items])[cell],
+                         nb[cell])
+        takes = [t for so in metas for t in [so.u] + [c.w for c in so.classes]
+                 if t is not None and t.views is None]
+        pads = [so for so in metas if so.b_valid is not None]
+        sizes = ([c.g * so.B * so.bt for so in metas for c in so.classes]
+                 + [so.G * so.B * so.bt for so in metas]
+                 + [so.G * so.B for so in metas]
+                 + [so.G * so.B for so in pads] + [so.nvalid for so in pads]
+                 + [len(t.idx) for t in takes])
+        views, nbytes = _upload(
+            [gather, out, sread, swrite, vpos]
+            + [np.asarray(t.idx, np.int64) for t in takes], np.int64,
+            self.device, sizes)
+        self.nbytes += nbytes
+        views = iter(views)
+        for so in metas:
+            for c in so.classes:
+                c.gidx = next(views)
+        for so in metas:
+            so.oidx = next(views)
+        for so in metas:
+            so.sread = so.swrite = next(views)
+            so.vpos = None
+        for name in ("swrite", "vpos"):
+            for so in pads:
+                setattr(so, name, next(views))
+        for t in takes:
+            t.idx = next(views)
+        v0 = 0
+        for so in metas:
+            so.vuid = vuid[v0:v0 + so.nvalid]
+            v0 += so.nvalid
+        bv = [so for so in metas if so.b_valid is not None]
+        if bv:
+            views = _upload([np.concatenate([so.b_valid for so in bv])],
+                            np.int32, self.device, [so.G for so in bv])[0]
+            for so, v in zip(bv, views):
+                so.b_valid = v
+
+
+def _lane_count(device, seq) -> int:
+    """How many lanes a plan's sequence slots issue on: on the card, as
+    many of the plan's smallest launch as its SMs hold at once (a launch
+    takes a cluster of S CTAs a recurrence and ``_SEQ_ROWS`` rows);
+    elsewhere one, the current stream."""
+    if device.type != "cuda":
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ctas = min(s.g * cdiv(s.B, _SEQ_ROWS)
+               * seq_splits(s.H, GATES[s.family], 2, s.H) for s in seq)
+    return max(1, sms // ctas)
+
+
+def _plan_operands(plan: DispatchPlan, params, inputs, cache: dict,
+                   owned: bool) -> _PlanOperands:
+    """The plan's operands on its items' device: from the cache when the
+    same plan ran there with the same stacks bound, else built (and kept,
+    in a caller-owned cache, up to ``PLAN_OPERAND_BYTES``)."""
+    seq_uid = next(c.uid for s in plan.slots if not s.chained
+                   for c in s.cells)
+    x = inputs[seq_uid]
+    device = x.device
+    key = (id(plan), str(device))
+    plans = cache.setdefault(_PLANS, OrderedDict())
+    ops = plans.get(key)
+    if (ops is not None and ops.plan is plan
+            and ops.stacks == tuple(id(params[u]) for u in ops.uids)):
+        plans.move_to_end(key)
+        return ops
+    ops = _PlanOperands(plan, params, device, cache)
+    if owned:
+        plans[key] = ops
+        total = sum(o.nbytes for o in plans.values())
+        while len(plans) > 1 and total > PLAN_OPERAND_BYTES:
+            total -= plans.popitem(last=False)[1].nbytes
+    return ops
+
+
+class _Run:
+    """One call's buffers (per pool: the layer-0 products, the layer
+    outputs, the h and c rows) and its sequence slots, issued on the
+    plan's lanes: on the card each lane is a stream of the caller's
+    cache, which waits for the caller's stream's work before the first
+    slot and which the caller's stream waits for after the last
+    (``join``); elsewhere the one lane is the current stream."""
+
+    def __init__(self, ops: _PlanOperands, inputs, init_state,
+                 cache: dict):
+        self.ops = ops
+        self.lanes: list = [None]
+        self.events: dict = {}
+        self.bufs = []
+        dev = ops.device
+        for pool in ops.pools:
+            H = pool.H
+            y = torch.empty((pool.n_y, H), dtype=pool.dtype, device=dev)
+            y[pool.y_zero:pool.y_zero + 2].zero_()
+            h = torch.zeros((pool.n_s, H), dtype=pool.dtype, device=dev)
+            c = (torch.zeros((pool.n_s, H), dtype=torch.float32,
+                             device=dev) if pool.has_c else None)
+            for li in pool.items:
+                st0 = (init_state or {}).get(li.it.uid)
+                if st0 is None:
+                    continue
+                it = li.it
+                n = it.L * it.B
+                h[li.s:li.s + n].view(it.L, it.B, H).copy_(st0["h"])
+                if "c" not in st0 or "lstm" not in it.families:
+                    continue
+                rows = c[li.s:li.s + n].view(it.L, it.B, H)
+                if "gru" not in it.families:
+                    rows.copy_(st0["c"])
+                    continue
+                for l, fam in enumerate(it.families):
+                    if fam == "lstm":   # a gru layer's c rows stay zeros
+                        rows[l].copy_(st0["c"][l])
+            src = {("y", 1): y, ("y", 2): y.view(-1, 2 * H)}
+            for (family, dt), x0 in pool.x0.items():
+                gH = GATES[family] * H
+                buf = torch.empty((x0["rows"] + 1, gH), dtype=dt,
+                                  device=dev)
+                buf[x0["zero"]].zero_()
+                for seg in x0["segs"].values():
+                    n, X = PRODUCT_ENTRIES * seg["entry"], seg["X"]
+                    xs = [inputs[li.it.uid].reshape(-1, X)
+                          for li in seg["items"]]
+                    xs.append(xs[0].new_zeros((n - seg["frames"], X)))
+                    x = torch.cat(xs).to(dt).view(PRODUCT_ENTRIES, -1, X)
+                    part = buf[seg["row0"]:seg["row0"] + n * seg["dirs"]]
+                    part = part.view(PRODUCT_ENTRIES, seg["entry"], -1)
+                    W, b = seg["w"]
+                    torch.bmm(x, W.expand(PRODUCT_ENTRIES, -1, -1),
+                              out=part)
+                    part.add_(b)
+                src[("x0", family, dt)] = buf
+            self.bufs.append((src, y, h, c))
+        if ops.n_lanes > 1:
+            pool = cache.setdefault(("lanes", str(dev)), [])
+            while len(pool) < ops.n_lanes:
+                pool.append(torch.cuda.Stream(device=dev))
+            self.lanes = pool[:ops.n_lanes]
+            main = torch.cuda.current_stream(dev)
+            for lane in self.lanes:
+                lane.wait_stream(main)
+
+    def join(self) -> None:
+        """The caller's stream waits for every lane's work."""
+        if self.lanes[0] is not None:
+            main = torch.cuda.current_stream(self.ops.device)
+            for lane in self.lanes:
+                main.wait_stream(lane)
+
+    def slot(self, slot, **guard) -> None:
+        so = self.ops.slots[slot.index]
+        lane = self.lanes[so.lane]
+        for p in so.waits:
+            lane.wait_event(self.events[p])
+        with (contextlib.nullcontext() if lane is None
+              else torch.cuda.stream(lane)):
+            self._slot(slot, so, **guard)
+            if so.signal:
+                self.events[slot.index] = lane.record_event()
+
+    def _slot(self, slot, so, *, on_fault, check_finite, inject, report,
+              tracer) -> None:
+        src, y, h, c = self.bufs[so.pool]
+        with tracer.span("hoist", slot=slot.index, cells=so.cells,
+                         gemms=so.gemms):
+            parts = []
+            for cl in so.classes:
+                x = src[cl.source].index_select(0, cl.gidx)
+                if cl.w is not None:
+                    W, b = cl.w.get()
+                    x = x.view(cl.g, cl.rows, cl.X).to(cl.dt)
+                    if cl.pad is not None:
+                        x = torch.constant_pad_nd(x, cl.pad)
+                        W = W.expand(x.shape[0], -1, -1)
+                    x = torch.bmm(x, W).add_(b)
+                    if cl.pad is not None:
+                        x = x[:cl.g, :cl.rows].contiguous()
+                parts.append(x)
+            xw = (parts[0] if len(parts) == 1 else
+                  torch.cat([p.view(-1, so.gates * so.H) for p in parts]))
+            xw = xw.view(so.G, so.B, so.bt, so.gates, so.H)
+            U, u_scales, u_rows = so.u.get()
+            h0 = h.index_select(0, so.sread).view(so.G, so.B, so.H)
+            c0 = (c.index_select(0, so.sread).view(so.G, so.B, so.H)
+                  if so.lstm else None)
+        sig = slot.signature() if tracer.enabled else ""
+        with tracer.span("slot_launch", slot=slot.index, sig=sig,
+                         uids=so.uids):
+            out, h_n, c_n = _guarded_launch(
+                slot.index, so.uids,
+                _seq_ladder(slot, U, xw, h0, c0, so.b_valid,
+                            u_scales=u_scales, u_rows=u_rows),
+                on_fault=on_fault, inject=inject, report=report,
+                tracer=tracer)
+        h_n = h_n.reshape(-1, so.H)
+        c_n = None if c_n is None else c_n.reshape(-1, so.H)
+        y.index_copy_(0, so.oidx, out.reshape(-1, so.H))
+        h.index_copy_(0, so.swrite, h_n)
+        if c_n is not None:
+            c.index_copy_(0, so.swrite, c_n)
+        if check_finite:
+            if so.vpos is not None:
+                h_n = h_n.index_select(0, so.vpos)
+                c_n = None if c_n is None else c_n.index_select(0, so.vpos)
+            bad = _nonfinite_uids(h_n, c_n, so.vuid)
+            if bad:
+                raise NonFiniteStateError(
+                    f"non-finite recurrent state after slot {slot.index} "
+                    f"(uids {bad})", uids=bad, slot=slot.index,
+                    where="slot state")
+
+    def collect(self, outputs, states) -> None:
+        """Each item's top-layer output (one copy a pool, out of the
+        buffers) and, with ``states``, its end-of-walk state rows."""
+        for pool, (_, y, h, c) in zip(self.ops.pools, self.bufs):
+            top = y[pool.top_lo:pool.top_hi].clone()
+            for li in pool.items:
+                it = li.it
+                a = li.y[-1] - pool.top_lo
+                outputs[it.uid] = top[a:a + it.B * it.T * li.dirs].view(
+                    it.B, it.T, li.dirs * it.H)
+                if states is None:
+                    continue
+                n = it.L * it.B
+
+                def one(d, li=li, it=it, n=n):
+                    s = li.s + d * n
+                    st = {"h": h[s:s + n].view(it.L, it.B, it.H)}
+                    if "lstm" in it.families:
+                        st["c"] = c[s:s + n].view(it.L, it.B, it.H)
+                    return st
+
+                states[it.uid] = ({"fwd": one(0), "bwd": one(1)}
+                                  if it.bidirectional else one(0))
+
+
+def _nonfinite_uids(h_rows, c_rows, row_uids) -> List[int]:
+    """The uids of the rows (2-D, a row each) of h and c that hold a
+    non-finite value: one reduction, and the per-row one only when it
+    finds one."""
+    ok = torch.isfinite(h_rows).all()
+    if c_rows is not None:
+        ok = ok & torch.isfinite(c_rows).all()
+    if bool(ok):
+        return []
+    fin = torch.isfinite(h_rows).all(dim=1)
+    if c_rows is not None:
+        fin &= torch.isfinite(c_rows).all(dim=1)
+    return sorted({int(u) for u in np.asarray(row_uids)[
+        ~fin.cpu().numpy()]})
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +1184,8 @@ def _seq_ladder(slot, U, xw, h0, c0, b_valid, *, u_scales=None,
     """The launch strategies for a packed sequence slot, shallowest first:
     the planned fused launch; per-step — the same kernel at block_t=1, one
     launch per timestep; and, on the CPU only, the plain reference.  All
-    consume the identical pre-hoisted ``xw`` (bwd cells arrive
-    pre-flipped), so the scatter after the launch is rung-agnostic.
+    consume the identical pre-hoisted ``xw`` (bwd cells' rows gathered in
+    walk order), so the scatter after the launch is rung-agnostic.
     Quantized / row-compacted slots pass their operands down the kernel
     rungs unchanged; the reference rung dequantizes and expands them back
     to the dense matrix (value-identical to what the kernel computes with,
@@ -538,69 +1233,6 @@ def _seq_ladder(slot, U, xw, h0, c0, b_valid, *, u_scales=None,
     return _rungs(_on_card(xw), [fused, per_step], reference)
 
 
-def _rows_finite(h_rows, c_rows=None) -> bool:
-    """True when one cell's slice of post-launch state is all-finite."""
-    ok = bool(torch.isfinite(h_rows).all())
-    if ok and c_rows is not None:
-        ok = bool(torch.isfinite(c_rows).all())
-    return ok
-
-
-def _dir_state(st, item, direction: str) -> dict:
-    """Stack one direction's per-layer end-of-walk state into the
-    documented {"h": (L,B,H)[, "c": (L,B,H)]} shape ("c" whenever any
-    layer is an LSTM; a mixed stack's gru rows are fp32 zeros)."""
-    out = {"h": torch.stack([st["h"][(l, direction)]
-                             for l in range(item.L)])}
-    if st["c"] is not None:
-        zeros = torch.zeros((item.B, item.H), dtype=torch.float32,
-                            device=out["h"].device)
-        out["c"] = torch.stack(
-            [zeros if st["c"][(l, direction)] is None
-             else st["c"][(l, direction)] for l in range(item.L)])
-    return out
-
-
-def _cell_layer_params(params, st, cell):
-    """The parameter dict one cell's launch row binds: the cell's layer,
-    and for bidirectional items the cell's direction half."""
-    layer = params[cell.uid]["layers"][cell.layer]
-    if st["plan"].item.bidirectional:
-        layer = layer[cell.direction]
-    return layer
-
-
-def _cell_src(inputs, st, cell, chunk_len: int):
-    """One cell's input chunk, in the cell's own walk order.
-
-    Layer 0 reads the item's input slice; deeper layers read the previous
-    layer's just-produced chunk — for bidirectional items the fwd‖bwd
-    feature concat (both stored in original time order).  "bwd" cells walk
-    descending time: the chunk slice is flipped before the hoist."""
-    ip: ItemPlan = st["plan"]
-    it = ip.item
-    if cell.layer == 0:
-        t0 = cell.chunk * ip.block_t
-        src = inputs[cell.uid][:, t0:t0 + chunk_len]
-    elif it.bidirectional:
-        src = torch.cat(
-            [st["outs"][(cell.layer - 1, "fwd")][cell.chunk],
-             st["outs"][(cell.layer - 1, "bwd")][cell.chunk]], dim=-1)
-    else:
-        src = st["outs"][(cell.layer - 1, "fwd")][cell.chunk]
-    if cell.direction == "bwd":
-        src = torch.flip(src, dims=[1])
-    return src
-
-
-def _cat_pad(rows, B: int):
-    """Concatenate row tensors on the batch axis, zero-padding to width B
-    (the padded rows are masked to exact no-ops in-kernel)."""
-    cat = torch.cat(rows) if len(rows) > 1 else rows[0]
-    if cat.shape[0] == B:
-        return cat
-    return torch.cat([cat, cat.new_zeros((B - cat.shape[0],)
-                                         + tuple(cat.shape[1:]))])
 
 
 def prepare_decode_stack(stack_params: dict, family: str,
@@ -639,7 +1271,9 @@ def prepare_decode_stack(stack_params: dict, family: str,
     }
 
 
-def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
+
+def _run_chained_slot(slot, plan, params, inputs, init_state, prepared,
+                      cache: dict, outputs, states, *,
                       on_fault: str = "raise",
                       check_finite: bool = False,
                       inject: Optional[FaultInjector] = None,
@@ -650,64 +1284,96 @@ def _run_chained_slot(slot, params, inputs, live, *, prepared=None,
     The slot's groups are the L serially dependent layer cells, each the
     B-concatenation of the tick's parameter-sharing items; the decode
     kernel walks the layers inside the launch.  Layer 0's input GEMM is
-    hoisted here (it exists before launch); deeper layers' input GEMMs
-    run in-kernel off the chain.  Runs behind the same guarded ladder as
-    sequence slots — the per_step rung here is per-*layer*: L separate
-    T=1 sequence-kernel launches chaining the inter-layer value on the
-    host.
+    hoisted here (it exists before launch; ``_hoist``, W and b cast once
+    a stack); deeper layers' input GEMMs run in-kernel off the chain.
+    One item (every tick of the serving engine) launches on its
+    ``init_state`` tensors as they are and gets ``h_n`` / ``c_n`` back as
+    its state, ``h_n[L-1]`` as its frame; several items concatenate on B.
+    Runs behind the same guarded ladder as sequence slots — the per_step
+    rung here is per-*layer*: L separate T=1 sequence-kernel launches
+    chaining the inter-layer value on the host.
     """
     gates = GATES[slot.family]
-    row_cells = slot.groups[0]      # request row order, fixed across layers
-    lead_uid = row_cells[0].uid
-    stack = params[lead_uid]["layers"]
+    rows = slot.groups[0]           # request row order, fixed across layers
+    lead = rows[0].uid
+    stack = params[lead]
     L = len(slot.groups)
-
-    with tracer.span("hoist", slot=slot.index):
-        xw0 = _cat_pad([_hoist(stack[0], inputs[c.uid], gates)[:, 0]
-                        for c in row_cells], slot.B)    # (B, gates, H)
-        prep = ((prepared or {}).get(lead_uid)
-                or prepare_decode_stack(params[lead_uid], slot.family,
-                                        precision=slot.precision))
-        Ws, bs, Us = prep["Ws"], prep["bs"], prep["Us"]
-        h0 = torch.stack([_cat_pad([live[c.uid]["h"][(l, "fwd")]
-                                    for c in row_cells], slot.B)
-                          for l in range(L)])   # (L, B, H)
-        c0 = None
-        if slot.family == "lstm":
-            c0 = torch.stack([_cat_pad([live[c.uid]["c"][(l, "fwd")]
-                                        for c in row_cells], slot.B)
-                              for l in range(L)])
-    uids = sorted({c.uid for c in row_cells})
+    lstm = slot.family == "lstm"
+    items = {ip.uid: ip.item for ip in plan.items}
+    with tracer.span("hoist", slot=slot.index, cells=len(slot.cells),
+                     gemms=1):
+        xs = [inputs[c.uid] for c in rows]
+        x = xs[0] if len(xs) == 1 else torch.cat(xs)
+        xw0 = _hoist(_layer0(cache, stack, x.dtype), x, gates)[:, 0]
+        prep = ((prepared or {}).get(lead)
+                or _memo(cache, ("decode", id(stack), slot.family,
+                                 slot.precision), stack,
+                         lambda: prepare_decode_stack(
+                             stack, slot.family, precision=slot.precision)))
+        hs, cs = [], []
+        for cell in rows:
+            it = items[cell.uid]
+            st0 = (init_state or {}).get(cell.uid)
+            hs.append(st0["h"] if st0 is not None else
+                      x.new_zeros((L, it.B, it.H)))
+            if lstm:
+                cs.append(st0["c"] if st0 is not None and "c" in st0 else
+                          torch.zeros((L, it.B, it.H), dtype=torch.float32,
+                                      device=x.device))
+        h0 = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+        c0 = (cs[0] if len(cs) == 1 else torch.cat(cs, dim=1)) if lstm \
+            else None
+        if h0.shape[1] < slot.B:    # rows past the items' are zeros
+            pad = slot.B - h0.shape[1]
+            xw0 = torch.cat([xw0, xw0.new_zeros((pad,) + xw0.shape[1:])])
+            h0 = torch.cat([h0, h0.new_zeros((L, pad, slot.H))], dim=1)
+            if lstm:
+                c0 = torch.cat([c0, c0.new_zeros((L, pad, slot.H))], dim=1)
+    uids = sorted({c.uid for c in rows})
     sig = slot.signature() if tracer.enabled else ""
     with tracer.span("slot_launch", slot=slot.index, sig=sig,
                      uids=uids):
         h_n, c_n = _guarded_launch(
             slot.index, uids,
-            _chained_ladder(slot.family, xw0, Ws, bs, Us, h0, c0),
+            _chained_ladder(slot.family, xw0, prep["Ws"], prep["bs"],
+                            prep["Us"], h0, c0),
             on_fault=on_fault, inject=inject, report=report, tracer=tracer)
 
+    if check_finite:
+        B = h_n.shape[1]
+        bad = _nonfinite_uids(
+            h_n.transpose(0, 1).reshape(B, -1),
+            None if c_n is None else c_n.transpose(0, 1).reshape(B, -1),
+            [c.uid for c in rows for _ in range(items[c.uid].B)]
+            + [-1] * (B - sum(items[c.uid].B for c in rows)))
+        bad = [u for u in bad if u >= 0]
+        if bad:
+            raise NonFiniteStateError(
+                f"non-finite recurrent state after chained slot "
+                f"{slot.index} (uids {bad})", uids=bad, slot=slot.index,
+                where="decode tick")
     off = 0
-    bad: List[int] = []
-    for cell in row_cells:
-        st = live[cell.uid]
-        nb = st["plan"].item.B
-        dtype = inputs[cell.uid].dtype
-        if check_finite and not _rows_finite(
-                h_n[:, off:off + nb],
-                None if c_n is None else c_n[:, off:off + nb]):
-            bad.append(cell.uid)
-        for l in range(L):
-            st["h"][(l, "fwd")] = h_n[l, off:off + nb].to(h0.dtype)
-            if c_n is not None:
-                st["c"][(l, "fwd")] = c_n[l, off:off + nb]
-            # layer l's new h IS its T=1 output frame
-            st["outs"][(l, "fwd")][0] = h_n[l, off:off + nb, None].to(dtype)
-        off += nb
-    if bad:
-        bad = sorted(set(bad))
-        raise NonFiniteStateError(
-            f"non-finite recurrent state after chained slot {slot.index} "
-            f"(uids {bad})", uids=bad, slot=slot.index, where="decode tick")
+    for cell in rows:
+        it = items[cell.uid]
+        h, c = h_n, c_n
+        if it.B != slot.B:
+            h = h_n[:, off:off + it.B]
+            c = None if c_n is None else c_n[:, off:off + it.B]
+        off += it.B
+        # layer L-1's new h IS the tick's output frame
+        outputs[cell.uid] = h[L - 1][:, None].to(inputs[cell.uid].dtype)
+        if states is not None:
+            states[cell.uid] = {"h": h} if c is None else {"h": h, "c": c}
+
+
+def _layer0(cache: dict, stack: dict, x_dtype: torch.dtype) -> dict:
+    """Layer 0's parameters with W and b cast once to the dtype its input
+    product takes for inputs of ``x_dtype`` (``_hoist`` then casts
+    nothing)."""
+    layer = stack["layers"][0]
+    dt = _promote(x_dtype, layer["W"].dtype, layer["b"].dtype)
+    return _memo(cache, ("layer0", id(stack), dt), stack, lambda: {
+        "W": layer["W"].to(dt), "b": layer["b"].to(dt), "U": layer["U"]})
 
 
 def _chained_ladder(family: str, xw0, Ws, bs, Us, h0, c0):

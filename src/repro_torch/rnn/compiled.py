@@ -301,10 +301,12 @@ class CompiledStack:
         self._tile_map: Optional[tuple] = None
         if policy.sparsity == "block":
             self._tile_map = stack_tile_maps(params)
-        #: memo of quantized / row-compacted weight operands — valid for
-        #: this stack's lifetime (the bound parameters never change), so
-        #: each layer is transformed at most once across every call
-        self._quant_cache: dict = {}
+        #: the executor's operand memo (``dispatch.executor.execute``'s
+        #: ``operand_cache``): weight banks valid for this stack's lifetime
+        #: (the bound parameters never change, so each layer is transformed
+        #: and cast at most once across every call), and the newest plans'
+        #: operand indices, reused on a plan-cache hit
+        self._operand_cache: dict = {}
         self.last_decode_plan: Optional[DispatchPlan] = None
         self._last_plan: Optional[DispatchPlan] = None
         self._plans: Dict[tuple, DispatchPlan] = {}
@@ -455,7 +457,7 @@ class CompiledStack:
             rep, guard = self._guard()
             with tr.span("execute"):
                 outs = execute(p, {0: self.params}, {0: xs},
-                               quant_cache=self._quant_cache, **guard)
+                               operand_cache=self._operand_cache, **guard)
             if tr.enabled:
                 sp.tag(launches=p.launches)
         self._account(p, report=rep)
@@ -508,7 +510,7 @@ class CompiledStack:
             with tr.span("execute"):
                 outs, states = execute(p, {i: self.params for i in inputs},
                                        inputs, collect_state=True,
-                                       quant_cache=self._quant_cache,
+                                       operand_cache=self._operand_cache,
                                        **guard)
             if tr.enabled:
                 sp.tag(launches=p.launches)
@@ -593,7 +595,7 @@ class CompiledStack:
                                        collect_state=True,
                                        init_state={0: state},
                                        prepared=prepared,
-                                       quant_cache=self._quant_cache,
+                                       operand_cache=self._operand_cache,
                                        **guard)
             if tr.enabled:
                 sp.tag(launches=p.launches)

@@ -393,13 +393,14 @@ def test_wavefront_slot_pads_layers_to_one_active_row_width():
     mixed = [s for s in cs.plan.slots
              if len({c.layer for g in s.groups for c in g}) > 1]
     assert mixed, "expected a slot that packs two layers"
-    # the cache keys carry each slot's Ha: layer 0 (24 active rows) was
-    # compacted at a wider Ha too, padded with zero rows
-    has = {(k[1], k[4]) for k in cs._quant_cache}
+    # the recurrent-weight banks are keyed by each slot's Ha: layer 0 (24
+    # active rows) was compacted at a wider Ha too, padded with zero rows
+    banks = {k: v[1] for k, v in cs._operand_cache.items() if k[0] == "u"}
+    has = {(l, k[4]) for k, bank in banks.items() for l, _ in bank.pos}
     assert (0, 24) in has and any(l == 0 and ha > 24 for l, ha in has)
-    rows = [v[2] for k, v in cs._quant_cache.items() if k[1] == 0
-            and k[4] > 24]
-    assert all(int(r[24:].abs().sum()) == 0 for r in rows)
+    rows = [bank.tensors[2][bank.pos[(0, 0)]] for k, bank in banks.items()
+            if k[4] > 24 and (0, 0) in bank.pos]
+    assert rows and all(int(r[24:].abs().sum()) == 0 for r in rows)
     oracle = sch.reference_stack(tq.fake_quant_stack(stack, "int8"),
                                  torch.from_numpy(xs))
     assert _rel_err(got, oracle) <= KERNEL_GAP + INT8_REL_BOUND(L)
@@ -434,21 +435,25 @@ def test_ragged_multirequest_prefill_matches_solo(family, bidir):
 
 
 def test_quant_cache_transforms_each_layer_once():
-    """One transform per (item, layer, direction, precision, Ha), kept for
-    the stack's lifetime: a second forward adds no entry."""
+    """One recurrent-weight bank per (stack, family, precision, Ha), each
+    layer transformed in it once and kept for the stack's lifetime: a
+    second forward adds no entry."""
     stack = from_jax(_zero_tiles(_jstack("lstm", L=3), {1: (2,)}))
     cs = rnn.compile(stack, rnn.ExecutionPolicy(precision="int8",
                                                 sparsity="block"),
                      device="cpu")
     xs = _xs(T=12)
     cs.forward(xs)
-    keys = set(cs._quant_cache)
-    assert {k[1] for k in keys} == {0, 1, 2}
-    assert all(k[3] == "int8" for k in keys)
-    entry = next(iter(cs._quant_cache.values()))
-    assert entry[0].dtype == torch.int8 and entry[1].dtype == torch.float32
+    keys = set(cs._operand_cache)
+    banks = {k: v[1] for k, v in cs._operand_cache.items() if k[0] == "u"}
+    assert {l for bank in banks.values() for l, _ in bank.pos} == {0, 1, 2}
+    assert banks and all(k[3] == "int8" for k in banks)
+    for bank in banks.values():
+        assert sorted(bank.pos.values()) == list(range(len(bank.pos)))
+        assert bank.tensors[0].dtype == torch.int8
+        assert bank.tensors[1].dtype == torch.float32
     cs.forward(xs)
-    assert set(cs._quant_cache) == keys
+    assert set(cs._operand_cache) == keys
 
 
 @pytest.mark.parametrize("family", ["lstm", "gru"])

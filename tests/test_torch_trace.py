@@ -280,3 +280,39 @@ def test_chrome_trace_is_stamped_on_the_epoch(tmp_path, params):
     names = {e["name"] for e in xs}
     assert {"serve.step", "request", "slot_launch"} <= names
     assert all(abs(e["ts"] - now_us) < 60e6 for e in xs)
+
+
+def test_hoist_spans_tag_the_cells_and_products_they_assemble(params):
+    """Every ``hoist`` span carries ``cells`` (the cells whose operands it
+    assembled) and ``gemms`` (the input products it issued): one span for
+    layer 0's products, one GEMM for the stack, before the slots; a
+    slot's, one batched product when it holds a deeper layer's cells and
+    none otherwise; a decode tick's, the tick's layer-0 product."""
+    cs = rnn.compile(params, rnn.ExecutionPolicy(trace=True, block_t=2),
+                     device="cpu")
+    rng = np.random.default_rng(3)
+    seqs = [torch.from_numpy(rng.standard_normal((1, T, H))
+                             .astype(np.float32)) for T in (4, 9, 5)]
+    res = cs.prefill(seqs)
+    p = cs.plan
+    hoists = [sp for sp in _timed(cs.tracer.events) if sp.name == "hoist"]
+    first = [sp for sp in hoists if sp.tags.get("layer") == 0]
+    assert len(first) == 1 and first[0].tags["gemms"] == 1
+    assert first[0].tags["cells"] == sum(
+        1 for s in p.slots for c in s.cells if c.layer == 0)
+    by_slot = {sp.tags["slot"]: sp for sp in hoists if "slot" in sp.tags}
+    assert sorted(by_slot) == [s.index for s in p.slots]
+    packed = 0
+    for s in p.slots:
+        tags = by_slot[s.index].tags
+        assert tags["cells"] == len(s.cells)
+        assert tags["gemms"] == int(any(c.layer > 0 for c in s.cells))
+        packed = max(packed, tags["cells"])
+    assert packed > 1            # a slot assembled several cells at once
+    assert cs.tracer.totals()["hoist"]["count"] == len(p.slots) + 1
+    state = {k: torch.cat([st[k] for _, st in res], dim=1)
+             for k in ("h", "c")}
+    cs.decode(torch.zeros(3, 1, H), state)
+    tick = [sp for sp in cs.tracer.events if sp.name == "hoist"][-1]
+    assert tick.tags["cells"] == CFG.n_layers * 1
+    assert tick.tags["gemms"] == 1
