@@ -1,7 +1,8 @@
 """Readings that set a cell's correctness limits: its compared numbers on
 many seeds, from the program as the configuration states it and from
-the control, the program's own next-lower precision (int8 recurrent
-weights), all in one process.
+the control, the program's own next-lower precision, which the
+configuration names (``"control"``: ``int8``, the LSTM stacks' int8
+recurrent weights), all in one process.
 
     python3 sharpbench/control.py --workload <name> --seconds <s> \\
         --seeds <n>... [--control-seeds <n>...]
@@ -32,8 +33,9 @@ def main(argv=None) -> int:
 
     from sharpbench import run
 
+    control = run.cell_parts(ROOT, args.workload)[2]["control"]
     runs = ([(s, "fp32") for s in args.seeds]
-            + [(s, "int8") for s in args.control_seeds])
+            + [(s, control) for s in args.control_seeds])
     for seed, precision in runs:
         res = run.run_cell(ROOT, args.workload, seed, args.seconds, False,
                            precision=precision)

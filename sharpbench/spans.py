@@ -30,7 +30,7 @@ from collections import defaultdict
 
 import torch
 
-from sharpbench import roofline
+from sharpbench import families, roofline
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -41,7 +41,11 @@ TOP = 10
 
 def call_work(cfg: dict, kind: str, args):
     """(FLOPs, bytes) of one call from its arguments: a prefill's list of
-    (B, T, X) requests (or one), or a decode tick's (B, 1, X) input."""
+    (B, T, X) requests (or one), or a decode tick's (B, 1, X) input.  A
+    family other than the LSTM stacks counts its own calls
+    (``families/<family>.py``)."""
+    if cfg["family"] != "lstm":
+        return families.module(cfg["family"]).call_work(cfg, kind, args)
     if kind == "prefill":
         seqs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
         items = sum(int(s.shape[-3] if s.ndim == 3 else 1) * int(s.shape[-2])

@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from sharpbench.conftest import ROOT, run_tiny
+from sharpbench.conftest import ROOT, run_tiny, workloads
 
 
 def _env(**extra):
@@ -19,7 +19,7 @@ def _env(**extra):
     return env
 
 
-@pytest.mark.parametrize("workload", ["rldradspr.stream", "eesen.offline"])
+@pytest.mark.parametrize("workload", workloads())
 @pytest.mark.parametrize("trace", [False, True])
 def test_sharpbench_cell_runs_on_cpu_and_is_correct(workload, trace):
     res = run_tiny(workload, trace=trace)
@@ -42,13 +42,13 @@ def test_sharpbench_cell_runs_on_cpu_and_is_correct(workload, trace):
 
 
 def test_sharpbench_run_loads_no_jax_and_no_jax_package():
-    """A CPU run in a fresh process: afterwards no module's top-level name
-    is jax, jaxlib, flax or repro (compared whole: the program is
-    repro_torch)."""
+    """A CPU run of every cell in a fresh process: afterwards no module's
+    top-level name is jax, jaxlib, flax or repro (compared whole: the
+    program is repro_torch)."""
     code = ("import sys; sys.path[:0] = [{root!r}, {src!r}]\n"
-            "from sharpbench.conftest import run_tiny\n"
+            "from sharpbench.conftest import run_tiny, workloads\n"
             "from sharpbench.run import forbidden_modules\n"
-            "for w in ('rldradspr.stream', 'eesen.offline'):\n"
+            "for w in workloads():\n"
             "    assert run_tiny(w, seconds=0.2)['correct']\n"
             "print(sorted({{m.split('.')[0] for m in sys.modules}} & "
             "{{'repro_torch', 'jax', 'repro'}}), forbidden_modules())\n"

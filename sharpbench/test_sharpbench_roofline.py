@@ -1,12 +1,16 @@
-"""The work counts against hand-computed FLOPs and bytes."""
+"""The work counts against hand-computed FLOPs and bytes, and the
+harness's calls and weights against them."""
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 
 import pytest
+import torch
 
-from sharpbench import roofline
+from sharpbench import generate, roofline, spans, weights
+from sharpbench.conftest import tiny_parts, workloads
 
 HERE = Path(__file__).resolve().parent
 
@@ -47,3 +51,49 @@ def test_sharpbench_eesen_work_by_hand():
 def test_sharpbench_peaks_are_the_data_sheet():
     assert roofline.PEAK_FLOPS["bfloat16"] == 989e12
     assert roofline.PEAK_BYTES_PER_S == 3.35e12
+
+
+@pytest.mark.parametrize("workload", workloads("lstm"))
+def test_sharpbench_lstm_calls_and_weights_keep_their_formulas(workload):
+    """At each LSTM cell's CPU twin: ``spans.call_work`` prices a call by
+    ``roofline.call_work``, and ``weights.draw`` gives every layer the
+    shapes of ``roofline.layer_inputs``, the bytes of
+    ``roofline.weight_bytes`` and the values its docstring states, so
+    that the family lookup in front of both changes nothing for them."""
+    cfg = tiny_parts(workload)[2]
+    X, H, G = cfg["input"], cfg["hidden"], roofline.GATES
+    prompts = [torch.zeros((1, T, X)) for T in (5, 3)]
+    assert spans.call_work(cfg, "prefill", (prompts,)) == roofline.call_work(
+        cfg, 8, 2, reads_state=False)
+    assert spans.call_work(cfg, "prefill", (torch.zeros((2, 6, X)),)) == (
+        roofline.call_work(cfg, 12, 2, reads_state=False))
+    assert spans.call_work(cfg, "decode", (torch.zeros((4, 1, X)),)) == (
+        roofline.call_work(cfg, 4, 4, reads_state=True))
+
+    seed = 2**40 + 17
+    layers = weights.draw(cfg, seed, "cpu")["layers"]
+    halves = [(n, layer[d]) for n, layer in enumerate(layers)
+              for d in (("fwd", "bwd") if cfg["bidirectional"] else ())
+              ] or list(enumerate(layers))
+    assert len(halves) == cfg["n_layers"] * roofline.dirs(cfg)
+    inputs = roofline.layer_inputs(cfg)
+    for n, half in halves:
+        assert half["W"].shape == (inputs[n], G * H)
+        assert half["U"].shape == (H, G * H) and half["b"].shape == (G * H,)
+    assert sum(t.numel() * t.element_size() for _, half in halves
+               for t in half.values()) == roofline.weight_bytes(cfg)
+    # the first W: the head of one truncated normal over every weight,
+    # drawn from the seed, times weight_gain / sqrt(fan_in), bound as bf16
+    gen = torch.Generator().manual_seed(generate.torch_seed(seed, 7))
+    flat = torch.empty(roofline.weight_bytes(cfg)
+                       // roofline.DTYPE_BYTES[cfg["weight_dtype"]])
+    torch.nn.init.trunc_normal_(flat, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    n = inputs[0] * G * H
+    want = (flat[:n] * (cfg["weight_gain"] / math.sqrt(inputs[0]))).to(
+        weights.DTYPES[cfg["weight_dtype"]]).view(inputs[0], G * H)
+    assert torch.equal(halves[0][1]["W"], want)
+    again = weights.draw(cfg, seed, "cpu")["layers"][-1]
+    last = layers[-1]
+    if cfg["bidirectional"]:
+        again, last = again["bwd"], last["bwd"]
+    assert torch.equal(again["U"], last["U"])

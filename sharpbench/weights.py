@@ -15,16 +15,17 @@ import math
 
 import torch
 
-from sharpbench import generate, roofline
+from sharpbench import families, generate, roofline
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
 def draw(cfg: dict, seed: int, device) -> dict:
+    """The LSTM stack's weights; a family other than the LSTM stacks
+    draws its own (``families/<family>.py``)."""
     if cfg["family"] != "lstm":
-        raise ValueError(f"family {cfg['family']!r}: the reference and the "
-                         "work counts cover LSTM stacks alone")
+        return families.module(cfg["family"]).draw(cfg, seed, device)
     H, G = cfg["hidden"], roofline.GATES
     shapes = []  # (layer, direction, name, shape, scale)
     for l, X in enumerate(roofline.layer_inputs(cfg)):
