@@ -8,7 +8,7 @@ Phases, one line (or a few) of output each:
 
   1 card       the card's name and power limit (nvidia-smi), torch and
                CUDA
-  2 build      nvcc builds all nine kernels from src/repro_torch/csrc
+  2 build      nvcc builds all ten kernels from src/repro_torch/csrc
                (sm_90a), one process per source, all started together
   3 kernels    each CUDA kernel against its plain PyTorch version on the
                card, at the main path's shapes; median times (CUDA events)
@@ -356,7 +356,24 @@ Phases, one line (or a few) of output each:
                high-water mark within COST_PEAK_REL + COST_PEAK_ABS of
                max_memory_allocated's growth; its bound at most
                COST_BOUND_SHARE x the step's CUDA-event time
- 21 summary    one JSON line {"kernels": [...]} with each kernel's (and
+ 21 ssm        ssm_update, the Mamba-2 decode step's state update,
+               against its plain version at granite-4.0-h-micro's shape
+               (B = 1, 32) and at a ragged P with groups for each N: one
+               launch a call, bit-equal run to run and a row alone
+               against the batch's; timed cold in a CUDA graph of 36
+               launches on distinct states at B = 1 and 32 beside the
+               plain version (within twice its bytes bound at B = 32);
+               mvm at granite's six projections at B = 32 and 29, and
+               decode_attention at (Hq, Hk, D) = (32, 8, 64) on rings of
+               5,120 slots at B = 32, each against its plain version;
+               then granite-4.0-h-micro served at full width at the
+               cell's max_batch 32 and max_seq 5,120 (36 requests, 12
+               new tokens): 36 launches a decode step, no plain call,
+               up to four requests' sampled logits within TOL_SSM_SERVE
+               of the plain fp32 reference (models/plain_hybrid.py),
+               teacher forced; the summary counts the serve's launches
+               alone
+ 22 summary    one JSON line {"kernels": [...]} with each kernel's (and
                each lstm_seq / gru_seq weight branch's) launches, max
                error, times and bound (each bound from the kernel's
                Cost: kernels.common.Cost)
@@ -386,7 +403,7 @@ SRC = os.path.join(ROOT, "src")
 PHASES = ("card", "build", "kernels", "serve", "forward", "paper",
           "serve_gru", "offpath", "rglru", "precision", "serve_lm",
           "serve_dense", "serve_moe", "serve_xlstm", "train", "calib",
-          "figures", "chaos", "mesh", "cost", "summary")
+          "figures", "chaos", "mesh", "cost", "ssm", "summary")
 #: kernel entry point -> the TPU kernel it replaces
 KERNELS = {
     "lstm_seq": "src/repro/kernels/lstm_cell/kernel.py:205",
@@ -399,6 +416,8 @@ KERNELS = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:63",
     # no TPU kernel: jax.grad differentiates the reference's lax.scan
     "rglru_scan_bwd": "src/repro/models/layers/rglru.py:50",
+    # no TPU kernel: the JAX package has no Mamba-2 block
+    "ssm_update": "none (src/repro_torch/models/layers/mamba2.py)",
 }
 #: entry points whose source file (csrc/<name>.cu) has another name
 SOURCES = {"mvm": "mvm_tile"}
@@ -645,7 +664,8 @@ def entries():
 
     return (kernels.lstm_seq, kernels.lstm_decode, kernels.lstm_cell,
             kernels.gru_seq, kernels.gru_decode, kernels.rglru_scan,
-            kernels.mvm, kernels.decode_attention, kernels.rglru_scan_bwd)
+            kernels.mvm, kernels.decode_attention, kernels.rglru_scan_bwd,
+            kernels.ssm_update)
 
 
 def tally(ctx, *fns) -> None:
@@ -3968,6 +3988,308 @@ def phase_serve_lm(ctx):
     torch.cuda.empty_cache()
 
 
+#: ssm_update's card cases: (B, H, P, N, G): granite's shape at both ends
+#: of the batch, a ragged P with groups, every N
+SSM_CASES = ((1, 64, 64, 128, 1), (32, 64, 64, 128, 1), (3, 8, 24, 64, 2),
+             (5, 4, 16, 32, 4), (2, 4, 40, 256, 1))
+#: ssm_update against its plain version, relative to the largest |output|:
+#: the lanes' fp32 partial sums of y meet in a shuffle tree where torch
+#: reduces in another order, the state's decay is one fma where torch
+#: rounds the product first, and exp / log1p come from other libraries: a
+#: few fp32 ulps.
+TOL_SSM = 1e-5
+#: the full-width serve's logits against the plain fp32 reference,
+#: relative to the reference's RMS: the program rounds activations to bf16
+#: between its blocks (the reference runs fp32 throughout)
+TOL_SSM_SERVE = 0.25
+SSM_LAYERS = 36  # granite-4.0-h-micro's Mamba-2 layers
+#: granite-4.0-h-micro's decode projections (X, N): the Mamba-2 block's
+#: in_proj and out_proj, the MLP's w_gate / w_up and w_down, the attention
+#: block's w_q / w_o and w_kv
+GRANITE_MVM = ((2048, 8512), (4096, 2048), (2048, 8192), (8192, 2048),
+               (2048, 2048), (2048, 1024))
+#: the cell's batched tick: 32 rows (eight of mvm's groups of 4 rows) and
+#: attention rings of 5,120 slots at (Hq, Hk, D) = (32, 8, 64)
+GRANITE_B, GRANITE_T, GRANITE_HEADS = 32, 5120, (32, 8, 64)
+
+
+def _ssm_case(B, H, P, N, G, seed, dev):
+    """(state, xbc, dt, dt_bias, A, D) of one step, drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    state = rnd(B, H, P, N)
+    xbc = rnd(B, H * P + 2 * G * N, scale=0.5)
+    dt = rnd(B, H)
+    dt_bias = rnd(H, scale=0.5) - 3.0
+    A = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=dev))
+    D = rnd(H)
+    return state, xbc, dt, dt_bias, A, D
+
+
+def _ssm_dims(H, P, N, G):
+    return dict(heads=H, head_dim=P, groups=G, d_state=N)
+
+
+def _kernels_ssm(ctx, dev):
+    import torch
+
+    from repro_torch.kernels.ssm.ops import (ssm_update, ssm_update_cost,
+                                             ssm_update_plain)
+
+    worst = 0.0
+    for i, (B, H, P, N, G) in enumerate(SSM_CASES):
+        args = _ssm_case(B, H, P, N, G, 100 + i, dev)
+        dims = _ssm_dims(H, P, N, G)
+        s_k, s_p = args[0].clone(), args[0].clone()
+        before = ssm_update.kernel_launches
+        y_k = ssm_update(s_k, *args[1:], **dims)
+        check(ssm_update.kernel_launches == before + 1,
+              "ssm_update: one call is not one launch")
+        y_p = ssm_update_plain(s_p, *args[1:], **dims)
+        torch.cuda.synchronize()
+        err_y = float((y_k - y_p).abs().max() / y_p.abs().max())
+        err_s = float((s_k - s_p).abs().max() / s_p.abs().max())
+        print(f"ssm_update B={B} H={H} P={P} N={N} G={G}: y {err_y:.2e}, "
+              f"state {err_s:.2e} of the largest (limit {TOL_SSM:.0e})")
+        check(err_y <= TOL_SSM and err_s <= TOL_SSM,
+              f"ssm_update B={B} N={N}: off its plain version")
+        worst = max(worst, err_y)
+        # run to run, and a row alone against the same row in the batch
+        s_2 = args[0].clone()
+        y_2 = ssm_update(s_2, *args[1:], **dims)
+        check(torch.equal(y_2, y_k) and torch.equal(s_2, s_k),
+              f"ssm_update B={B}: two runs differ")
+        r = B // 2
+        s_1 = args[0][r:r + 1].clone()
+        y_1 = ssm_update(s_1, args[1][r:r + 1], args[2][r:r + 1],
+                         *args[3:], **dims)
+        check(torch.equal(y_1[0], y_k[r]) and torch.equal(s_1[0], s_k[r]),
+              f"ssm_update B={B}: row {r} alone differs from the batch's")
+    ctx["ssm_update"] = {"max_abs_err": worst}
+
+    # cold in a CUDA graph: one launch a layer on 36 distinct states
+    # (granite's Mamba-2 layers: 2.4 GB at B = 32, far past the 50 MB L2)
+    H, P, N, G = 64, 64, 128, 1
+    dims = _ssm_dims(H, P, N, G)
+    rows = {}
+    for B in (1, 32):
+        layers = [_ssm_case(B, H, P, N, G, 200 + l, dev)
+                  for l in range(SSM_LAYERS)]
+
+        def run(fn, layers=layers):
+            for args in layers:
+                fn(*args, **dims)
+
+        ms = graph_ms(lambda: run(ssm_update)) / SSM_LAYERS
+        plain = graph_ms(lambda: run(ssm_update_plain)) / SSM_LAYERS
+        nbytes = ssm_update_cost(*layers[0], **dims).bytes
+        bound_ms = nbytes / 3.35e12 * 1e3
+        rows[B] = (ms, plain, bound_ms)
+        print(f"ssm_update cold in a graph of {SSM_LAYERS} launches on "
+              f"distinct states, B={B}: {ms:.4f} ms a launch, plain "
+              f"{plain:.4f}, bound {bound_ms:.4f} ({nbytes / 1e6:.1f} MB); "
+              f"{bound_ms / ms * 100:.1f}% of the bound, {ms / bound_ms:.2f}x")
+        del layers
+        torch.cuda.empty_cache()
+    ms, plain, bound_ms = rows[32]
+    ctx["ssm_update"].update(ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                             bound_by="bytes", b1_ms=rows[1][0],
+                             b1_bound_ms=rows[1][2])
+    check(ms <= 2.0 * bound_ms, f"ssm_update at B=32: {ms:.4f} ms, past "
+          f"twice its bound {bound_ms:.4f}")
+
+
+def _kernels_granite_tick(ctx, dev):
+    """mvm and decode_attention at the shapes of the cell's batched tick,
+    each against its plain version: mvm at GRANITE_MVM at B = 32 (eight
+    groups of 4 rows) and B = 29 (a ragged last group); decode_attention
+    at GRANITE_HEADS on rings of GRANITE_T slots at B = 32, with valid
+    counts across the ring and with every slot live.  Two runs bit-equal,
+    and rows of a batch bit-equal to their B = 1 calls."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as aops
+    from repro_torch.kernels.mvm_tile import ops
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(400)
+    mvm_err = 0.0
+    for X, N in GRANITE_MVM:
+        for B in (GRANITE_B, GRANITE_B - 3):
+            x = torch.randn((B, X), generator=g).to(dev, bf16)
+            W = (torch.randn((X, N), generator=g) * X ** -0.5).to(dev, bf16)
+            ref = ops.mvm_plain(x, W)
+            out, again = ops.mvm(x, W), ops.mvm(x, W)
+            rows = (0, B // 2 + 1, B - 1)
+            alone = [ops.mvm(x[r:r + 1].contiguous(), W) for r in rows]
+            torch.cuda.synchronize()
+            err = max_err((out,), (ref,))
+            tol = ULP_BF16 * float(ref.float().abs().max())
+            same = bool(torch.equal(out, again))
+            batch = all(torch.equal(out[r:r + 1], a)
+                        for r, a in zip(rows, alone))
+            print(f"kernels: mvm (granite tick) B={B} X={X} N={N} bf16: "
+                  f"max_abs_err {err:.3e} (tol {tol:g}); two runs bit-equal "
+                  f"{same}; rows {rows} == their B=1 calls {batch}")
+            check(err <= tol, f"mvm B={B} X={X} N={N} disagrees with its "
+                              f"plain version: {err:.3e} > {tol:g}")
+            check(same and batch, f"mvm B={B} X={X} N={N}: not bit-equal run "
+                                  "to run, or a row differs from its B=1 "
+                                  "call")
+            mvm_err = max(mvm_err, err)
+    ctx.setdefault("mvm", {})["max_abs_err"] = max(
+        ctx.get("mvm", {}).get("max_abs_err", 0.0), mvm_err)
+
+    Hq, Hk, D = GRANITE_HEADS
+    B, T = GRANITE_B, GRANITE_T
+    R = aops.splits(T) * aops.TILE
+    # 32 valid counts over the ring: the kernel's tile edges, the end of
+    # its cluster's first round of tiles, the cell's prompt range and the
+    # end of the ring
+    spread = [1, 2, aops.TILE - 1, aops.TILE, aops.TILE + 1, R - 1, R, R + 1,
+              64, 256, 700, 1024, 1025, 2048, 3000, 4096, T - 1, T]
+    spread += [int(v) for v in torch.linspace(5, T - 2, B - len(spread))]
+    worst, attn_err = 0.0, 0.0
+    for i, valid in enumerate((spread, [T] * B)):
+        args = _attn_case(B, T, Hq, Hk, D, bf16, valid, 410 + i, dev)
+        ref = aops.decode_attention_plain(*args,
+                                          block_t=aops.default_block_t(T))
+        out, again = aops.decode_attention(*args), \
+            aops.decode_attention(*args)
+        rows = (0, 7, B - 1)
+        alone = [aops.decode_attention(*(a[r:r + 1] for a in args))
+                 for r in rows]
+        torch.cuda.synchronize()
+        share = _attn_share(out, ref)
+        same = bool(torch.equal(out, again))
+        batch = all(torch.equal(out[r], a[0]) for r, a in zip(rows, alone))
+        print(f"kernels: decode_attention (granite tick) B={B} T={T} Hq={Hq} "
+              f"Hk={Hk} D={D} bf16 {'spread' if i == 0 else 'full'} valid "
+              f"(S={aops.splits(T)}): max_abs_err "
+              f"{max_err((out,), (ref,)):.3e} (worst head at {share:.3f} of "
+              f"its limit); two runs bit-equal {same}; rows {rows} == their "
+              f"B=1 calls {batch}")
+        check(share <= 1.0, f"decode_attention B={B} T={T} disagrees with "
+                            f"its plain version: {share:.3f} of the limit")
+        check(same and batch, f"decode_attention B={B} T={T}: not bit-equal "
+                              "run to run, or a row differs from its B=1 "
+                              "call")
+        worst = max(worst, share)
+        attn_err = max(attn_err, max_err((out,), (ref,)))
+        del args, ref, out, again, alone
+    ctx["granite_tick"] = {"mvm_max_abs_err": mvm_err,
+                           "attn_worst_share": worst,
+                           "attn_max_abs_err": attn_err}
+    torch.cuda.empty_cache()
+
+
+#: the full-width serve: 36 prompts, so that 32 fill the cell's slots and
+#: four are admitted as the first requests retire, each generating
+#: GRANITE_NEW tokens
+GRANITE_PROMPTS = 36
+GRANITE_NEW = 12
+
+
+def _serve_granite(ctx):
+    """granite-4.0-h-micro at its published widths, served at the cell's
+    ``max_batch`` and ``max_seq``: 36 ssm_update launches a decode step,
+    the plain version never called, and the sampled logits of up to four
+    requests (the batch's shortest and longest prompts, its middle slot,
+    the last admitted) against the plain fp32 reference, teacher forced
+    on the tokens the engine fed itself.  The launches of the serve alone
+    go to the summary."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import granite_4_0_h_micro
+    from repro_torch.kernels.common import reset_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mvm_tile.ops import mvm
+    from repro_torch.kernels.ssm import ops as ssm_ops
+    from repro_torch.models import plain_hybrid
+    from repro_torch.models import transformer as tf
+
+    cfg = granite_4_0_h_micro.config()
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    plain_calls = [0]
+    orig = ssm_ops.ssm_update_plain
+
+    def counted_plain(*a, **k):
+        plain_calls[0] += 1
+        return orig(*a, **k)
+
+    ssm_ops.ssm_update_plain = counted_plain
+    # the cell's prompt lengths: log-normal, median 256, sigma 0.7, clipped
+    # to 64..1,024
+    rng = np.random.default_rng(21)
+    lengths = np.clip(np.round(256 * np.exp(0.7 * rng.standard_normal(
+        GRANITE_PROMPTS))), 64, 1024).astype(int)
+    prompts = _lm_prompts(cfg.vocab_size, lengths, 21)
+    reset_counts(*entries())
+    try:
+        t0 = time.perf_counter()
+        eng, done, kept = _lm_serve(cfg, params, prompts, GRANITE_NEW,
+                                    "cuda", max_batch=GRANITE_B,
+                                    max_seq=GRANITE_T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ssm_ops.ssm_update_plain = orig
+    launches = ssm_ops.ssm_update.kernel_launches
+    tally(ctx, ssm_ops.ssm_update, mvm, decode_attention)
+    steps = eng.steps + eng.remainder_steps
+    print(f"serve_granite: {len(prompts)} prompts of {min(lengths)}.."
+          f"{max(lengths)} tokens at max_batch {GRANITE_B}, max_seq "
+          f"{GRANITE_T}: {eng.steps} ticks and {eng.remainder_steps} "
+          f"remainder steps in {wall:.1f} s; ssm_update launches "
+          f"{launches} ({SSM_LAYERS} x {steps} = {SSM_LAYERS * steps}); "
+          f"plain calls {plain_calls[0]}")
+    check(launches == SSM_LAYERS * steps and plain_calls[0] == 0,
+          "serve_granite: not one ssm_update launch a Mamba-2 layer and step")
+    check(len(done) == len(prompts), f"serve_granite: {len(done)} of "
+          f"{len(prompts)} requests finished")
+    order = np.argsort(lengths[:GRANITE_B], kind="stable")
+    watched = sorted({int(order[0]), int(order[-1]), GRANITE_B // 2,
+                      len(prompts) - 1})
+    worst = 0.0
+    with torch.inference_mode():
+        for uid in watched:
+            c = done[uid]
+            seq = np.concatenate([prompts[uid], np.asarray(c.tokens[:-1])])
+            ref = plain_hybrid.forward(cfg, params, torch.as_tensor(
+                seq, dtype=torch.long, device="cuda")[None])[0]
+            ref = ref[len(prompts[uid]) - 1:]
+            err = float((kept[uid] - ref).abs().max()
+                        / ref.pow(2).mean().sqrt())
+            worst = max(worst, err)
+            print(f"serve_granite: request {uid} ({len(prompts[uid])} + "
+                  f"{len(c.tokens)} tokens): max |served - reference| "
+                  f"{err:.4f} of the reference's RMS")
+    ctx["serve_granite_logit_err"] = worst
+    check(worst <= TOL_SSM_SERVE, f"serve_granite: logits {worst:.4f} of "
+          f"the reference's RMS off, past {TOL_SSM_SERVE}")
+    del eng, params, kept
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(ctx):
+    """The Mamba-2 state update (``ssm_update``) against its plain
+    version and timed cold in a CUDA graph; mvm and decode_attention at
+    the cell's tick; then granite-4.0-h-micro served at full width and at
+    the cell's batch."""
+    import torch
+
+    dev = torch.device("cuda")
+    _kernels_ssm(ctx, dev)
+    _kernels_granite_tick(ctx, dev)
+    _serve_granite(ctx)
+
+
 #: a kernel's name on the device, as the profiler reports it: every part
 #: appears in it (the decode and sequence kernels share their cells)
 DEVICE_NAMES = {"mvm": ("mvm_kernel",), "decode_attention": ("attn_kernel",),
@@ -3977,7 +4299,8 @@ DEVICE_NAMES = {"mvm": ("mvm_kernel",), "decode_attention": ("attn_kernel",),
                 "lstm_decode": ("cluster_kernel", "LstmCell"),
                 "gru_decode": ("cluster_kernel", "GruCell"),
                 "lstm_seq": ("seq_kernel", "LstmCell"),
-                "gru_seq": ("seq_kernel", "GruCell")}
+                "gru_seq": ("seq_kernel", "GruCell"),
+                "ssm_update": ("ssm_update_kernel",)}
 
 
 def is_kernel(kernel: str, name: str) -> bool:

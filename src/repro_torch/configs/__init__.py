@@ -6,7 +6,9 @@ transformer side (``models.transformer``, ``serving.ServingEngine``; the
 ``embed_stub`` archs musicgen-large and qwen2-vl-72b through
 ``transformer.prefill`` / ``decode_step`` with ``embeds``);
 ``sharp-lstm`` is the paper's own LSTM family (``rnn.compile``,
-``serving.RecurrentServingEngine``).  An unknown name raises ``KeyError``.
+``serving.RecurrentServingEngine``).  granite-4.0-h-micro, which the
+reference lacks, resolves by name too.  An unknown name raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -29,13 +31,19 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "sharp-lstm": "repro_torch.configs.sharp_lstm",
+    # the port's own: no JAX counterpart, so not in ``list_archs``
+    "granite-4.0-h-micro": "repro_torch.configs.granite_4_0_h_micro",
 }
+#: archs the port serves that the reference does not have
+PORT_ONLY = ("granite-4.0-h-micro",)
 
 
 def list_archs(include_paper: bool = False) -> List[str]:
-    """The architectures (the paper's LSTM family only with
-    ``include_paper``)."""
-    names = [n for n in _ARCH_MODULES if n != "sharp-lstm"]
+    """The reference's architectures (the paper's LSTM family only with
+    ``include_paper``); the port's own (``PORT_ONLY``) resolve by name
+    and are not listed."""
+    names = [n for n in _ARCH_MODULES
+             if n != "sharp-lstm" and n not in PORT_ONLY]
     if include_paper:
         names.append("sharp-lstm")
     return names

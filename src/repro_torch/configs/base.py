@@ -24,7 +24,8 @@ class ModelConfig:
       dense   -- decoder-only transformer (GQA, optional SWA)
       moe     -- decoder-only transformer with MoE FFN (optional dense residual)
       ssm     -- recurrent blocks only (xLSTM: sLSTM + mLSTM)
-      hybrid  -- recurrent + local-attention mix (RecurrentGemma)
+      hybrid  -- recurrent + local-attention mix (RecurrentGemma; the
+                 Mamba-2 + attention mix of granite-4.0-h, kind "mamba2")
       audio   -- transformer backbone over precomputed codec-frame embeddings
       vlm     -- transformer backbone with M-RoPE over precomputed patch embeds
       rnn     -- the paper's own LSTM stacks (SHARP benchmarks)
@@ -56,6 +57,23 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()
     rglru_width: int = 0  # RG-LRU recurrence width (0 -> d_model)
     conv1d_width: int = 4  # temporal conv in recurrent blocks
+
+    # --- Mamba-2 (block kind "mamba2"; arXiv:2405.21060) ---
+    mamba_n_heads: int = 0
+    mamba_d_head: int = 0
+    mamba_d_state: int = 0
+    mamba_n_groups: int = 1  # B and C shared by n_heads / n_groups heads
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2  # d_inner = expand * d_model = n_heads * d_head
+    mamba_chunk_size: int = 256  # the prefill's SSD chunk
+    mamba_conv_bias: bool = True
+
+    # --- residual-stream and head scalars (granite-4.0-h; 1 / 0 = off) ---
+    embedding_multiplier: float = 1.0  # embeddings times this
+    residual_multiplier: float = 1.0  # each block's output times this
+    attention_multiplier: float = 0.0  # softmax scale; 0 -> 1 / sqrt(D)
+    logits_scaling: float = 1.0  # logits divided by this
+    position_embedding: str = "rope"  # rope | nope (no positional encoding)
 
     # --- paper RNN (LSTM) ---
     lstm_hidden: int = 0
@@ -123,10 +141,29 @@ class ModelConfig:
             elif kind == "slstm":
                 dh = d
                 total += 4 * dh * (d + dh) + 8 * dh + d * d
+            elif kind == "mamba2":
+                total += self._mamba2_params() + self._ffn_params()
             total += 2 * d  # norms
         if include_embed:
             total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_n_heads * self.mamba_d_head
+
+    @property
+    def mamba_conv_dim(self) -> int:
+        """Width of the conv's input xBC: x, then B and C of every group."""
+        return self.mamba_d_inner + 2 * self.mamba_n_groups * self.mamba_d_state
+
+    def _mamba2_params(self) -> int:
+        """in_proj (d -> z, xBC, dt), the depthwise conv (and its bias),
+        A_log, D and dt_bias a head, the gated norm, out_proj."""
+        d, di, c = self.d_model, self.mamba_d_inner, self.mamba_conv_dim
+        H = self.mamba_n_heads
+        conv = c * self.mamba_d_conv + (c if self.mamba_conv_bias else 0)
+        return d * (di + c + H) + conv + 3 * H + di + di * d
 
     def _ffn_params(self) -> int:
         d = self.d_model

@@ -45,7 +45,8 @@ FAMILIES = ("repro_torch.kernels.lstm_cell.kernel",
             "repro_torch.kernels.gru_cell.kernel",
             "repro_torch.kernels.rglru.kernel",
             "repro_torch.kernels.mvm_tile.kernel",
-            "repro_torch.kernels.decode_attention.kernel")
+            "repro_torch.kernels.decode_attention.kernel",
+            "repro_torch.kernels.ssm.kernel")
 
 _loaded: dict = {}  # kernel name -> bound C entry point
 

@@ -4,8 +4,18 @@ stacked (``scan_layers=True``) layer params, their M-RoPE (Qwen2-VL) and
 ``embed_stub`` (precomputed embeddings: MusicGen, Qwen2-VL) variants, the
 MoE FFN in place of the MLP (OLMoE; Arctic with its dense residual
 branch), unrolled (``scan_layers=False``) stacks of local-attention and
-RG-LRU blocks (RecurrentGemma), each with a gated MLP, and of mLSTM and
-sLSTM blocks (xLSTM).
+RG-LRU blocks (RecurrentGemma), each with a gated MLP, of mLSTM and
+sLSTM blocks (xLSTM), and of Mamba-2 and attention blocks, each with a
+gated MLP (granite-4.0-h, which the JAX package lacks: the port's own).
+
+The granite-4.0-h scalars, each off at its default: the embeddings times
+``embedding_multiplier``; each block's output (mixer and MLP) times
+``residual_multiplier`` before its residual add; the attention's softmax
+scale ``attention_multiplier`` in place of 1 / sqrt(D), folded into q as
+q · (attention_multiplier · sqrt(D)) (exact in bf16 where that factor is
+a power of two: 1/64 · 8 = 1/8 for granite's D = 64), so that the
+attention paths and the decode kernel keep their 1 / sqrt(D); the logits
+divided by ``logits_scaling``.  ``position_embedding="nope"`` skips RoPE.
 
 ``loss_fn`` is the reference's next-token cross-entropy; training takes
 its gradient by autograd through ``forward(mode="train")``, which writes
@@ -27,6 +37,8 @@ Caches (plus a global ``idx`` (B,) int32 cursor):
   rglru  -> {"state" (B,W) fp32, "conv" (B,k-1,W)}
   mlstm  -> {"C" (B,H,dh,dh), "n" (B,H,dh), "m" (B,H)} fp32, dh = 2 d / H
   slstm  -> {"h","c","n","m"} (B,d) fp32
+  mamba2 -> {"ssm" (B,H,P,N), "conv" (B,k-1,conv_dim)} fp32, written in
+            place (``models.layers.mamba2``)
 a list over the layers, or with ``scan_layers`` one dict of (L, B, ...)
 tensors, as in the reference.
 
@@ -41,8 +53,9 @@ copy of every ring per layer and step: a prefill writes the prompt's keys
 and values, and a decode step the new token's k/v slot, into the
 attention rings of the cache it is given, in place, and returns those
 same ring tensors — with stacked caches the (L, B, T, KV) tensors
-themselves, each layer written through its view (the recurrent states
-and the cursor come back as new tensors).  A caller that needs the cache as it
+themselves, each layer written through its view; the Mamba-2 states are
+written in place likewise (the other recurrent states and the cursor come
+back as new tensors).  A caller that needs the cache as it
 was clones it first.
 """
 from __future__ import annotations
@@ -55,6 +68,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import mamba2 as mamba2_lib
 from repro_torch.models.layers import rglru as rglru_lib
 from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.common import (current_mesh, dense_init,
@@ -71,7 +85,9 @@ from repro_torch.sharding.partition import (axis_sizes, cache_shardings,
                                             distribute, is_dtensor)
 
 NAIVE_ATTN_MAX_SEQ = 1024  # above this, blockwise/local paths engage
-KINDS = ("attn", "rglru", "mlstm", "slstm")
+KINDS = ("attn", "rglru", "mlstm", "slstm", "mamba2")
+#: ``ModelConfig.position_embedding`` values
+POSITION_EMBEDDINGS = ("rope", "nope")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -84,6 +100,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise ValueError(f"unknown layer kinds {bad}; allowed: "
                          f"{', '.join(KINDS)}")
+    if cfg.position_embedding not in POSITION_EMBEDDINGS:
+        raise ValueError(f"position_embedding={cfg.position_embedding!r}; "
+                         f"allowed: {', '.join(POSITION_EMBEDDINGS)}")
     if cfg.scan_layers and set(cfg.layer_kinds()) != {"attn"}:
         raise ValueError(f"{cfg.name!r}: stacked layers (scan_layers=True) "
                          "take one block kind, attention; other patterns "
@@ -139,6 +158,8 @@ def _init_layer(cfg: ModelConfig, gen, kind: str, dtype, device,
         p["mlstm"] = xlstm_lib.init_mlstm(gen, d, cfg.n_heads, dtype, device)
     elif kind == "slstm":
         p["slstm"] = xlstm_lib.init_slstm(gen, d, cfg.n_heads, dtype, device)
+    elif kind == "mamba2":
+        p["mamba"] = mamba2_lib.init_mamba2(gen, cfg, dtype, device)
     else:
         w = cfg.rglru_width
         p["rec"] = {
@@ -149,7 +170,7 @@ def _init_layer(cfg: ModelConfig, gen, kind: str, dtype, device,
             "rglru": rglru_lib.init_rglru(gen, w, dtype, device),
             "w_out": dense_init(gen, (w, d), dtype, device=device),
         }
-    if kind in ("attn", "rglru") and cfg.d_ff:
+    if kind in ("attn", "rglru", "mamba2") and cfg.d_ff:
         p["norm2"] = init_norm(d, dtype, device)
         if cfg.n_experts:
             p["moe"] = init_moe(gen, d, cfg.d_ff, cfg.n_experts, dtype,
@@ -251,6 +272,8 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, T: int, dtype,
         return xlstm_lib.mlstm_state_init(batch, cfg.n_heads, dh, device)
     if kind == "slstm":
         return xlstm_lib.slstm_state_init(batch, cfg.d_model, device)
+    if kind == "mamba2":
+        return mamba2_lib.init_cache(cfg, batch, device)
     w = cfg.rglru_width
     return {
         "state": torch.zeros((batch, w), dtype=torch.float32, device=device),
@@ -304,9 +327,12 @@ def _attn_block(cfg: ModelConfig, p, x, rope_cs, cache, idx, mode: str):
     q = split_last(project(x, p["w_q"], decode=decode), Hq, D)
     kv = project(x, p["w_kv"], decode=decode)
     k, v = kv.split(cfg.kv_dim, dim=-1)
-    cos, sin = rope_cs
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(split_last(k, Hk, D), cos, sin).reshape(B, S, Hk * D)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(split_last(k, Hk, D), cos, sin).reshape(B, S, Hk * D)
+    if cfg.attention_multiplier:  # the softmax scale, folded into q
+        q = q * (cfg.attention_multiplier * math.sqrt(D))
 
     new_cache = cache
     if decode:
@@ -411,6 +437,14 @@ def _rglru_block(cfg: ModelConfig, p, x, cache, mode: str):
     return out, new_cache
 
 
+def _residual(cfg: ModelConfig, x, o):
+    """x + o, o first times ``residual_multiplier`` (in x's dtype) where it
+    is not 1."""
+    if cfg.residual_multiplier != 1.0:
+        o = o * cfg.residual_multiplier
+    return x + o
+
+
 def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
                  mode: str):
     """Pre-norm residual block.  Returns (x, new_cache, aux_loss): the MoE
@@ -431,11 +465,14 @@ def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
             o, state = xlstm_lib.apply_mlstm_chunked(p["mlstm"], h,
                                                      cfg.n_heads, cache)
         new_cache = state if cache is not None else None
+    elif kind == "mamba2":
+        o, new_cache = mamba2_lib.apply_mamba2(cfg, p["mamba"], h, cache,
+                                               mode)
     else:
         o, state = xlstm_lib.apply_slstm(p["slstm"], h, cfg.n_heads, cache,
                                          decode=decode)
         new_cache = state if cache is not None else None
-    x = x + o
+    x = _residual(cfg, x, o)
     if "norm2" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
@@ -452,7 +489,7 @@ def _layer_apply(cfg: ModelConfig, kind: str, p, x, rope_cs, cache, idx,
                                deterministic_capacity=cap, decode=decode)
         else:
             o = apply_mlp(p["mlp"], h, decode=decode)
-        x = x + o
+        x = _residual(cfg, x, o)
     x = shard_act(x, "batch", "seq", "embed")
     return x, new_cache, aux
 
@@ -484,6 +521,8 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
         x = embed(params["head"], tokens, dtype)
     else:
         x = embeds.to(dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     B, S = x.shape[:2]
     x = shard_act(x, "batch", "seq", "embed")
     if mode != "train" and cache is None:
@@ -498,7 +537,8 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
         else:
             positions = on_mesh(torch.arange(
                 S, dtype=torch.int32, device=x.device))[None].expand(B, S)
-    rope_cs = _rope_for(cfg, positions)
+    rope_cs = (None if cfg.position_embedding == "nope"
+               else _rope_for(cfg, positions))
 
     # a stacked cache's layers are written through their views, in place
     caches = cache["layers"] if cache is not None else None
@@ -516,6 +556,8 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["head"], x)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
 
     new_cache = None
     if cache is not None:
@@ -571,9 +613,9 @@ def decode_step(cfg: ModelConfig, params, cache, batch):
     """One token for every sequence in the batch.  Returns (logits,
     new_cache).  The attention rings of ``cache`` are updated in place
     (the new slot is written into them, and new_cache holds the same ring
-    tensors); new_cache's recurrent states (RG-LRU ``state`` and ``conv``,
-    the mLSTM and sLSTM states) and ``idx`` are new tensors, and the ones
-    in ``cache`` keep their values."""
+    tensors), and so are the Mamba-2 states; new_cache's other recurrent
+    states (RG-LRU ``state`` and ``conv``, the mLSTM and sLSTM states) and
+    ``idx`` are new tensors, and the ones in ``cache`` keep their values."""
     logits, new_cache, _ = forward(cfg, params, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"),
                                    positions=batch.get("positions"),

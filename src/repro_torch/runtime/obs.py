@@ -39,6 +39,7 @@ behind a value, for the callers that time a whole step on the host.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -319,6 +320,28 @@ NULL_TRACER = NullTracer()
 def as_tracer(tracer: Optional[Tracer]) -> Tracer:
     """Normalize an optional tracer kwarg: None -> the shared no-op."""
     return NULL_TRACER if tracer is None else tracer
+
+
+#: the tracer of the call in progress, for functional model code that
+#: takes none (``models.layers.mamba2``'s prefill span); NULL_TRACER
+#: outside ``activate``
+_ACTIVE = [NULL_TRACER]
+
+
+def active_tracer():
+    """The tracer ``activate`` made current (NULL_TRACER outside it)."""
+    return _ACTIVE[-1]
+
+
+@contextlib.contextmanager
+def activate(tracer):
+    """Make ``tracer`` the one ``active_tracer`` returns while the block
+    runs (the serving engine wraps its prefill in it)."""
+    _ACTIVE.append(tracer)
+    try:
+        yield tracer
+    finally:
+        _ACTIVE.pop()
 
 
 # ---------------------------------------------------------------------------

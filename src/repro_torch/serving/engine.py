@@ -19,21 +19,36 @@ Greedy sampling by default; temperature optional (an explicit
 
 The engine runs on ``device`` ("cuda" by default: the decode step's
 projections through the ``mvm`` kernel, its attention through the
-``decode_attention`` kernel, each prefill's RG-LRU scans through
-``rglru_scan``); without a card it raises, naming ``device="cpu"``, which
-runs their plain versions.  Every step runs under
-``torch.inference_mode()``.
+``decode_attention`` kernel, its Mamba-2 state updates through
+``ssm_update``, each prefill's RG-LRU scans through ``rglru_scan``);
+without a card it raises, naming ``device="cpu"``, which runs their plain
+versions.  Every step runs under ``torch.inference_mode()``.
 
 The reference jits its decode step; the port's counterpart is a captured
 CUDA graph (``DecodeGraph``): one for the batched tick over the engine's
 own cache, one for the batch-1 remainder steps over a static single-row
 cache, each captured after its first (eager) step and replayed from then
-on.  The decode step writes the attention rings in place
-(``transformer.decode_step``) and ``decode_into`` copies the rest of the
-new cache into the static one, so a replay runs on fixed buffers.  On the
+on.  The decode step writes the attention rings and the Mamba-2 states in
+place (``transformer.decode_step``) and ``decode_into`` copies the rest of
+the new cache into the static one, so a replay runs on fixed buffers.  On the
 CPU the same step runs eagerly.  Prefill stays eager: PyTorch has no
 compile per bucket, and the buckets are kept because they set which
 prompt tokens go through the decode step, and with it the numbers.
+
+Tracing (``ServingEngine(trace=True)``, ``runtime.obs``; off, every span
+is the shared no-op): ``lm.step`` holds a tick; inside it ``lm.admit``
+(the admission wave), and in it per request ``lm.prefill`` (tags
+``prompt``, its length, and ``bucket``), ``lm.remainder`` (the batch-1
+remainder steps of the bucketed prefill; tag ``steps``) and
+``lm.splice``; then ``lm.decode`` (the batched tick up to its sample's
+read-back, the tick's one wait on the device) and ``lm.retire``.  A
+request's first token is sampled at the end of its ``lm.remainder`` span
+(or of its ``lm.prefill``, where the prompt is a power of two), so that
+the wait on the device that the read-back makes falls inside the span of
+the work it waits for.  The
+prefill runs with the tracer active (``obs.activate``), where the Mamba-2
+blocks open ``mamba2.prefill`` (tags ``chunks``, ``tokens``).  Counters:
+``steps`` (decode ticks) and ``remainder_steps``.
 """
 from __future__ import annotations
 
@@ -48,6 +63,7 @@ from repro_torch.kernels.common import COUNTED
 from repro_torch.models import transformer as tf
 from repro_torch.rnn.compiled import _to_device, resolve_device
 from repro_torch.runtime.errors import PlanRejected, RequestTimeout
+from repro_torch.runtime.obs import NULL_TRACER, Tracer, activate
 
 
 def _copy_new(old, t):
@@ -59,7 +75,8 @@ def decode_into(cfg: ModelConfig, params, cache, tokens):
     """One decode step over static buffers: ``transformer.decode_step`` on
     ``cache`` with ``tokens`` (B, 1), then every tensor of the new cache
     that is not already ``cache``'s own (the RG-LRU ``state``, the ``conv``
-    state, ``idx``) copied into ``cache``'s.  Stacked caches' rings are
+    state, ``idx``; not the rings, nor the Mamba-2 states, which the step
+    wrote in place) copied into ``cache``'s.  Stacked caches' rings are
     ``cache``'s own, so only ``idx`` is copied.  Returns the fp32 logits
     (B, 1, vocab).  ``cache`` holds the advanced state afterwards."""
     logits, new = tf.decode_step(cfg, params, cache, {"tokens": tokens})
@@ -73,8 +90,9 @@ class DecodeGraph:
     (B, 1) token buffer: the port's counterpart of the reference's jitted
     ``decode_step``.
 
-    Called with the step's tokens, it returns the step's logits.  On the
-    CPU every call runs ``decode_into`` eagerly.  On the card the first
+    Called with the step's tokens, it returns the step's logits, which
+    ``logits`` also holds until the next call.  On the CPU every call runs
+    ``decode_into`` eagerly.  On the card the first
     call runs it eagerly on a side stream (which loads the kernels'
     libraries and creates cuBLAS's handle and workspace), then captures
     it into a ``torch.cuda.CUDAGraph``; every later call replays the graph
@@ -107,7 +125,8 @@ class DecodeGraph:
     def __call__(self, tokens):
         self.tokens.copy_(tokens)
         if self.tokens.device.type != "cuda":
-            return self.eager()
+            self.logits = self.eager()
+            return self.logits
         if self.graph is None:
             return self._warm_and_capture()
         return self.replay()
@@ -159,7 +178,7 @@ class Completion:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
                  max_seq: int = 256, temperature: float = 0.0, seed: int = 0,
-                 *, device="cuda"):
+                 *, device="cuda", trace: bool = False):
         if cfg.embed_stub:
             raise PlanRejected(
                 "stub-frontend archs serve via the embeds API, not the "
@@ -171,6 +190,7 @@ class ServingEngine:
         self.max_seq = max_seq
         self.temperature = temperature
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.tracer = Tracer() if trace else NULL_TRACER
 
         with torch.inference_mode():
             self.params = _to_device(params, self.device)
@@ -191,7 +211,8 @@ class ServingEngine:
         self.generated: List[List[int]] = [[] for _ in range(max_batch)]
         self.last_token = np.zeros((max_batch, 1), np.int64)
         self.done: List[Completion] = []
-        self.steps = 0
+        self.steps = 0  # decode ticks
+        self.remainder_steps = 0  # batch-1 steps of bucketed prefills
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -211,21 +232,32 @@ class ServingEngine:
     def _prefill_bucketed(self, tokens):
         """Prefill a (1, L) prompt through the largest power-of-two prefix
         b <= L; the L - b remainder tokens advance through batch-1 decode
-        steps.  Returns (last_token_logits (1, V), cache)."""
+        steps.  Returns (last_token_logits (1, V), cache, the first token
+        sampled from them).  The sample's read-back, the admission's one
+        wait on the device, ends the ``lm.remainder`` span (or, without a
+        remainder, the ``lm.prefill`` span), so each holds its device work."""
         L = tokens.shape[1]
         bucket = 1 << (L.bit_length() - 1)  # largest power of two <= L
         self.prefill_lengths.add(bucket)
-        logits, cache = self._prefill(self.params, tokens[:, :bucket])
-        if bucket == L:
-            return logits[:, -1], cache
+        tr = self.tracer
+        with tr.span("lm.prefill", prompt=L, bucket=bucket):
+            with activate(tr):
+                logits, cache = self._prefill(self.params, tokens[:, :bucket])
+            if bucket == L:
+                return logits[:, -1], cache, self._sample(logits[:, -1])
         # the remainder through the batch-1 step, on its static cache; the
         # logits are the graph's static output, sampled before its next run
-        single = self.single_graph.cache
-        tf.map_layers(torch.Tensor.copy_, single["layers"], cache["layers"])
-        single["idx"].copy_(cache["idx"])
-        for t in range(bucket, L):
-            last = self._decode(self.single_graph, tokens[:, t:t + 1])[:, -1]
-        return last, single
+        with tr.span("lm.remainder", steps=L - bucket):
+            single = self.single_graph.cache
+            tf.map_layers(torch.Tensor.copy_, single["layers"],
+                          cache["layers"])
+            single["idx"].copy_(cache["idx"])
+            for t in range(bucket, L):
+                last = self._decode(self.single_graph,
+                                    tokens[:, t:t + 1])[:, -1]
+            self.remainder_steps += L - bucket
+            nxt = self._sample(last)
+        return last, single, nxt
 
     def _admit(self):
         """Admission wave: claim every free slot for the queue's head, then
@@ -251,9 +283,9 @@ class ServingEngine:
         for slot, req in pairs:
             tokens = torch.as_tensor(np.asarray(req.tokens), dtype=torch.long,
                                      device=self.device)[None]
-            logits, req_cache = self._prefill_bucketed(tokens)
-            self._splice_cache(slot, req_cache)
-            nxt = self._sample(logits)
+            _, req_cache, nxt = self._prefill_bucketed(tokens)
+            with self.tracer.span("lm.splice", uid=req.uid):
+                self._splice_cache(slot, req_cache)
             self.generated[slot] = [int(nxt[0])]
             self.last_token[slot, 0] = int(nxt[0])
 
@@ -278,19 +310,24 @@ class ServingEngine:
     @torch.inference_mode()
     def step(self):
         """One engine tick: admit -> batched decode -> retire."""
-        self._admit()
-        if not any(s is not None for s in self.slots):
-            return
-        logits = self._decode(self.tick_graph,
-                              torch.from_numpy(self.last_token))
-        nxt = self._sample(logits[:, 0])
-        for slot, req in enumerate(self.slots):
-            if req is None:
-                continue
-            self.generated[slot].append(int(nxt[slot]))
-            self.last_token[slot, 0] = int(nxt[slot])
-        self.steps += 1
-        self._retire()
+        tr = self.tracer
+        with tr.span("lm.step"):
+            with tr.span("lm.admit"):
+                self._admit()
+            if not any(s is not None for s in self.slots):
+                return
+            with tr.span("lm.decode"):
+                logits = self._decode(self.tick_graph,
+                                      torch.from_numpy(self.last_token))
+                nxt = self._sample(logits[:, 0])
+            for slot, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                self.generated[slot].append(int(nxt[slot]))
+                self.last_token[slot, 0] = int(nxt[slot])
+            self.steps += 1
+            with tr.span("lm.retire"):
+                self._retire()
 
     def run_to_completion(self, max_ticks: int = 10_000) -> List[Completion]:
         while (self.queue or any(s is not None for s in self.slots)):
